@@ -10,8 +10,10 @@ package beside this script):
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: compiles every kernel under tpgsr_tpu_torch/csrc with nvcc;
 3. K1 (the BiGRU recurrence) against its plain PyTorch version on the card,
-   at the flagship's two sweep shapes and at edge cases, with times beside
-   the plain version, ``nn.GRU`` and the card's bound;
+   at the flagship's two sweep shapes, at edge cases and at every compiled
+   instantiation (hidden size x rows a thread), with times beside the plain
+   version, ``nn.GRU`` and the card's bound, and the launch configuration
+   of each timed shape;
 4. the flagship eval path on the card against the same path on the CPU;
 5. serving: ``evaluate`` over 4 batches of 48 at full width, with K1's
    launches counted on that run alone.
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from tpgsr_tpu_torch import entry
+from tpgsr_tpu_torch.bench_k1 import device_ms, ptxas_report
 from tpgsr_tpu_torch.ops import _build, gru_seq, rnn
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
 from tpgsr_tpu_torch.train.evaluate import evaluate
@@ -113,6 +116,10 @@ def phase_k1():
         ("T=1", 37, 1, 64, 32, 1e-5),
         ("H=8", 100, 20, 16, 8, 1e-5),
         ("H=16", 100, 20, 32, 16, 1e-5),
+        ("2 rows a thread, ragged", 1500, 16, 64, 32, 1e-5),
+        ("4 rows a thread, ragged", 3070, 16, 64, 32, 1e-5),
+        ("T=3 < S", 37, 3, 64, 32, 1e-5),
+        ("T=13, not a multiple of S", 45, 13, 64, 32, 1e-5),
     ]
     max_err, shapes = 0.0, []
     for i, (label, n, t, c, h, tol) in enumerate(cases):
@@ -123,10 +130,14 @@ def phase_k1():
         err = float((got - ref).abs().max())
         check(torch.isfinite(got).all().item(), f"K1 {label}: non-finite output")
         check(err <= tol, f"K1 {label}: max abs err {err:.3g} > {tol}")
-        print(f"K1 {label}: N={n} T={t} C={c} H={h} max_abs_err={err:.3g} (tol {tol})", flush=True)
+        cfg = gru_seq.config_for(n, h, x.device)
+        print(f"K1 {label}: N={n} T={t} C={c} H={h} rpt={cfg.rpt} S={gru_seq.RING_STAGES} "
+              f"max_abs_err={err:.3g} (tol {tol})", flush=True)
         max_err = max(max_err, err)
         if i >= 2:
             continue
+        print(f"K1 {label}: launch rpt={cfg.rpt} S={gru_seq.RING_STAGES} grid={cfg.blocks} "
+              f"blocks_per_sm={cfg.blocks_per_sm} waves={cfg.waves}", flush=True)
         lib = torch.nn.GRU(c, h, bidirectional=True, batch_first=True).cuda()
         with torch.no_grad():
             for sfx, d in (("", fw), ("_reverse", bw)):
@@ -139,10 +150,15 @@ def phase_k1():
             b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
             row = {
                 "label": label, "N": n, "T": t, "C": c, "H": h, "max_abs_err": err,
+                "rpt": cfg.rpt, "stages": gru_seq.RING_STAGES, "blocks": cfg.blocks,
+                "blocks_per_sm": cfg.blocks_per_sm, "waves": cfg.waves,
                 "ms": median_ms(lambda: gru_seq.bigru(x, fw, bw), 50),
                 "plain_ms": median_ms(lambda: rnn.bigru(x, fw, bw), 5, warmup=1),
                 "library_ms": median_ms(lambda: lib(x), 50),
                 "kernel_only_ms": median_ms(lambda: gru_seq._launch(xp, w_hh, b_hh), 50),
+                "device_ms": device_ms(lambda: gru_seq.bigru(x, fw, bw)),
+                "library_device_ms": device_ms(lambda: lib(x)),
+                "kernel_only_device_ms": device_ms(lambda: gru_seq._launch(xp, w_hh, b_hh)),
                 "library_max_abs_err": lib_err,
             }
         row["bytes_ms"], row["operations_ms"] = bigru_bound_ms(n, t, c, h, projection=True)
@@ -150,6 +166,23 @@ def phase_k1():
         row.update(bound_fields(*bigru_bound_ms(n, t, c, h, projection=False), prefix="kernel_only_"))
         print("K1 timing " + json.dumps(row), flush=True)
         shapes.append(row)
+
+    # every compiled instantiation, forced, on a ragged N at T = 13 and T = 3
+    for h in gru_seq.SUPPORTED_HIDDEN:
+        x, fw, bw = gru_case(100 + h, 3 * gru_seq.THREADS // h * 4 + 5, 13, 16, h)
+        w_t = torch.stack([fw["w_hh"].t(), bw["w_hh"].t()]).contiguous()
+        w_hh = torch.stack([fw["w_hh"], bw["w_hh"]])
+        b_hh = torch.stack([fw["b_hh"], bw["b_hh"]])
+        for t in (13, 3):
+            xp = rnn.input_projection(x[:, :t].contiguous(), fw, bw).contiguous()
+            ref = rnn.bigru_recurrence(xp, w_hh, b_hh)
+            for rpt in gru_seq.RPTS:
+                got = gru_seq._recurrence(xp, w_t, b_hh, config=gru_seq.LaunchConfig(rpt, 0, 0, 0))
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                check(err <= 1e-5, f"K1 H={h} rpt={rpt} T={t}: max abs err {err:.3g} > 1e-5")
+                max_err = max(max_err, err)
+        print(f"K1 H={h}: rpt {gru_seq.RPTS} at N={x.shape[0]}, T=13 and T=3 agree (1e-5)", flush=True)
     return max_err, shapes
 
 
@@ -241,11 +274,14 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     logs = _build.build(_build.all_sources())
-    for name, log in logs:
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"nvcc {name}: {line.strip()}", flush=True)
     print(f"build: {len(logs)} kernel source(s) compiled in {time.perf_counter() - t0:.1f} s", flush=True)
+    ptxas = ptxas_report(_build.build_log("bigru_seq"))
+    for r in ptxas:
+        print("nvcc bigru_seq " + json.dumps(r), flush=True)
+    check(len(ptxas) == len(gru_seq.SUPPORTED_HIDDEN) * len(gru_seq.RPTS),
+          f"ptxas reported {len(ptxas)} K1 instantiations")
+    check(all(r["spill_bytes"] == 0 and r["stack_bytes"] == 0 for r in ptxas),
+          "a K1 instantiation spills registers or keeps a stack frame")
 
     # 3. K1 against its plain version
     max_err, shapes = phase_k1()
@@ -257,7 +293,8 @@ def main() -> int:
     # per SR forward at B=48: N_SRB sweeps of each shape
     per_forward = {k: N_SRB * sum(row[k] for row in shapes)
                    for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "operations_ms",
-                             "kernel_only_ms", "kernel_only_bound_ms")}
+                             "kernel_only_ms", "kernel_only_bound_ms", "device_ms",
+                             "library_device_ms", "kernel_only_device_ms")}
     bound = bound_fields(per_forward["bytes_ms"], per_forward["operations_ms"])
     kernels = [{
         "name": "K1 bigru_seq",
@@ -275,7 +312,11 @@ def main() -> int:
         "library_ms": per_forward["library_ms"],
         "kernel_only_ms": per_forward["kernel_only_ms"],
         "kernel_only_bound_ms": per_forward["kernel_only_bound_ms"],
+        "device_ms": per_forward["device_ms"],
+        "library_device_ms": per_forward["library_device_ms"],
+        "kernel_only_device_ms": per_forward["kernel_only_device_ms"],
         "shapes": shapes,
+        "ptxas": ptxas,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,12 +10,18 @@ import numpy as np
 import pytest
 import torch
 
-from tpgsr_tpu_torch.ops import gru_seq, rnn
+from tpgsr_tpu_torch import ablate_k1
+from tpgsr_tpu_torch.bench_k1 import ptxas_report
+from tpgsr_tpu_torch.ops import _build, gru_seq, rnn
 
 # (N, T, C, H): the tests/test_rnn.py case, a ragged N, T = 1, the widest hidden
 GRU_CASES = [(24, 16, 12, 8), (7, 5, 6, 16), (5, 1, 8, 8), (13, 9, 16, 32)]
 # the flagship's two sweeps at batch 48, and a ragged N at their width
 MAIN_PATH_CASES = [(768, 64, 64, 32), (3072, 16, 64, 32), (771, 64, 64, 32)]
+# the ring's and the rows-a-thread edges at the flagship's width: two rows a
+# thread (ragged), four rows a thread (ragged), T < S, T not a multiple of S
+EDGE_CASES = [(1500, 16, 64, 32), (3070, 16, 64, 32), (37, 3, 64, 32), (45, 13, 64, 32)]
+H100 = {"sms": 132, "blocks_per_sm": dict.fromkeys(gru_seq.RPTS, 3)}
 
 
 @pytest.fixture
@@ -70,8 +76,47 @@ def test_bigru_wrapper_rejects_bad_input(bad):
         gru_seq.bigru(x, fw, bw)
 
 
+@pytest.mark.parametrize("n,rpt,blocks", [(768, 1, 384), (3072, 4, 384)])
+def test_launch_config_flagship_sweeps_take_one_wave(n, rpt, blocks):
+    """At batch 48, over W (N = 768) and over H (N = 3,072), H = 32."""
+    cfg = gru_seq.launch_config(n, 32, **H100)
+    assert (cfg.rpt, cfg.blocks, cfg.waves) == (rpt, blocks, 1)
+
+
+@pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
+@pytest.mark.parametrize("n", [1, 5, 37, 771, 1500, 3070, 3072, 100_000])
+def test_launch_config_covers_every_row_with_no_idle_block(n, h):
+    cfg = gru_seq.launch_config(n, h, **H100)
+    rows = gru_seq.THREADS // h * cfg.rpt
+    assert cfg.blocks % 2 == 0
+    assert (cfg.blocks // 2) * rows >= n > (cfg.blocks // 2 - 1) * rows
+    assert cfg.waves == -(-cfg.blocks // (132 * 3))
+
+
+@pytest.mark.parametrize("n,h,want", [(792, 32, 1), (793, 32, 2), (1584, 32, 2), (1585, 32, 4),
+                                      (3168, 32, 4), (6336, 8, 2), (6337, 8, 4), (3168, 16, 2)])
+def test_launch_config_takes_the_smallest_rpt_that_fits(n, h, want):
+    cfg = gru_seq.launch_config(n, h, **H100)
+    assert cfg.rpt == want and cfg.waves == 1
+    for smaller in gru_seq.RPTS[: gru_seq.RPTS.index(want)]:
+        assert 2 * -(-n // (gru_seq.THREADS // h * smaller)) > 132 * 3
+
+
+@pytest.mark.parametrize("n", [3169, 50_000])
+def test_launch_config_too_many_rows_take_the_largest_rpt(n):
+    cfg = gru_seq.launch_config(n, 32, **H100)
+    assert cfg.rpt == max(gru_seq.RPTS) and cfg.waves > 1
+
+
+def test_launch_config_follows_the_occupancy_of_each_rpt():
+    cfg = gru_seq.launch_config(3072, 32, 132, {1: 4, 2: 4, 4: 2})
+    assert (cfg.rpt, cfg.blocks_per_sm, cfg.waves) == (4, 2, 2)
+    with pytest.raises(ValueError):
+        gru_seq.launch_config(3072, 32, 132, {1: 3, 2: 3, 4: 0})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t,c,h", GRU_CASES + MAIN_PATH_CASES)
+@pytest.mark.parametrize("n,t,c,h", GRU_CASES + MAIN_PATH_CASES + EDGE_CASES)
 def test_bigru_kernel_matches_plain_on_card(cuda, n, t, c, h):
     """K1 against its plain version on the card; 2e-5 at T = 64, where 64
     dependent steps compound the differently ordered fp32 sums."""
@@ -83,6 +128,27 @@ def test_bigru_kernel_matches_plain_on_card(cuda, n, t, c, h):
     torch.cuda.synchronize()
     assert gru_seq.LAUNCHES == before + 1
     torch.testing.assert_close(got, rnn.bigru(x, fw, bw), rtol=0, atol=2e-5 if t >= 64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpt", gru_seq.RPTS)
+@pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
+def test_bigru_kernel_every_instantiation_matches_plain(cuda, h, rpt):
+    """Each (H, rows a thread) on a ragged N with T = 13 (not a multiple of
+    the ring's 4 slots) and T = 3 (fewer steps than slots)."""
+    rng = np.random.default_rng(h * rpt)
+    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, 16, h))
+    w_t = torch.stack([fw["w_hh"].t(), bw["w_hh"].t()]).contiguous()
+    b_hh = torch.stack([fw["b_hh"], bw["b_hh"]])
+    rows = gru_seq.THREADS // h * rpt
+    for n, t in ((2 * rows + 3, 13), (rows - 1, 3)):
+        x = torch.from_numpy(rng.random((n, t, 16), dtype=np.float32)).to(cuda)
+        xp = rnn.input_projection(x, fw, bw).contiguous()
+        cfg = gru_seq.LaunchConfig(rpt, 0, 0, 0)
+        got = gru_seq._recurrence(xp, w_t, b_hh, config=cfg)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, rnn.bigru_recurrence(xp, torch.stack([fw["w_hh"], bw["w_hh"]]), b_hh),
+                                   rtol=0, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -101,3 +167,36 @@ def test_bigru_kernel_backward_is_not_ported(cuda):
     fw, bw = (torch_params(p, cuda) for p in gru_params(rng, 8, 8))
     with pytest.raises(NotImplementedError):
         gru_seq.bigru(x, fw, bw).sum().backward()
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116bigru_seq_kernelILi32ELi4EEEvPKfS2_S2_Pfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116bigru_seq_kernelILi32ELi4EEEvPKfS2_S2_Pfii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116bigru_seq_kernelILi8ELi1EEEvPKfS2_S2_Pfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116bigru_seq_kernelILi8ELi1EEEvPKfS2_S2_Pfii
+    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 61 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_each_instantiation():
+    assert ptxas_report(PTXAS_LOG) == [
+        {"H": 32, "rpt": 4, "registers": 168, "spill_bytes": 0, "stack_bytes": 0,
+         "smem_bytes": 4 * (4 * 16 * 96 + 2 * 16 * 32)},
+        {"H": 8, "rpt": 1, "registers": 61, "spill_bytes": 12, "stack_bytes": 16,
+         "smem_bytes": 4 * (4 * 16 * 24 + 2 * 16 * 8)},
+    ]
+
+
+def test_ablation_variants_match_the_kernel_source():
+    """Each variant's substitutions occur once in csrc/bigru_seq.cu, so the
+    ablation times what it says it removes."""
+    source = (_build.CSRC / "bigru_seq.cu").read_text()
+    variants = ablate_k1.variant_sources()
+    assert set(variants) == set(ablate_k1.VARIANTS)
+    for name, (text, flags) in variants.items():
+        changed = text != source
+        assert changed == bool(ablate_k1.VARIANTS[name][0]), name
+        assert changed or flags or name == "full", name

@@ -1,0 +1,143 @@
+"""Where K1's time goes: variants of csrc/bigru_seq.cu, each with one part
+taken out, timed at the flagship's two sweeps on one NVIDIA card.
+
+    python -m tpgsr_tpu_torch.ablate_k1
+
+The card's profilers do not run on the machines this port is measured on, so
+this stands in for them.  Each variant is the kernel's source with a text
+substitution (or an nvcc flag), built into ``build/ablate/``; its results are
+wrong by design, and only its time is read.  The difference between a
+variant's time and the full kernel's is what the removed part costs on the
+critical path.  Every substitution must match the source once, so an edit of
+the kernel that moves one of them stops this script instead of timing the
+wrong thing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+
+import torch
+
+from tpgsr_tpu_torch.bench_k1 import H, SWEEPS, case, device_ms, ptxas_report
+from tpgsr_tpu_torch.ops import _build, gru_seq, rnn
+
+OUT_DIR = _build.BUILD_DIR.parent / "ablate"
+
+_PARTIALS = "kPartials = 2;"
+_H_LOAD = "const float4 h4 = *reinterpret_cast<const float4*>(hb + (g * RPT + i) * H + k);"
+# name -> (substitutions, extra nvcc flags, what it removes)
+VARIANTS = {
+    "full": ((), (), "nothing"),
+    "fast_math": ((), ("--use_fast_math",), "accurate expf, tanhf and division (fast approximations instead)"),
+    "no_matvec": ((("for (int k = 0; k < H; k += 4) {", "for (int k = 0; k < 0; k += 4) {"),), (),
+                  "the recurrent mat-vec h W_hh^T"),
+    "no_gates": ((("const float rg = sigmoid_f32(x[j] + sr);", "const float rg = x[j] + sr;"),
+                  ("const float zg = sigmoid_f32(x[H + j] + sz);", "const float zg = x[H + j] + sz;"),
+                  ("const float ng = tanhf(x[2 * H + j] + rg * sn);", "const float ng = x[2 * H + j] + rg * sn;")),
+                 (), "the gates' sigmoid and tanh"),
+    "no_out_store": ((("if (row < n) out[", "if (row < n && t == t_len - 1) out["),), (),
+                     "the store of out at every step but the last"),
+    "no_ring_refill": ((("if (t + S - 1 < t_len) stage(t + S - 1);", ""),), (),
+                       "the cp.async refill of the ring inside the loop"),
+    "block_barrier": ((("cp_async_wait<S - 2>();\n    __syncwarp();", "cp_async_wait<S - 2>();\n    __syncthreads();"),), (),
+                      "nothing: a block barrier a step instead of a warp barrier"),
+    "no_register_cap": ((("constexpr int kMinBlocks = 3;", "constexpr int kMinBlocks = 1;"),), (),
+                        "the register cap of three blocks an SM"),
+    "sigmoid_exp_div": ((("return fmaf(0.5f, tanhf(0.5f * x), 0.5f);", "return 1.0f / (1.0f + expf(-x));"),), (),
+                        "nothing: sigmoid as 1 / (1 + expf(-x)) instead of through tanhf"),
+    "no_h_loads": (((_H_LOAD, "const float4 h4 = make_float4(h[i], h[i], h[i], h[i]);"),), (),
+                   "the shared-memory loads of h in the mat-vec (the FMAs stay)"),
+    "h_loads_32bit": (((_H_LOAD, "const float* hp = hb + (g * RPT + i) * H + k;\n"
+                                 "      const float4 h4 = make_float4(hp[0], hp[1], hp[2], hp[3]);"),), (),
+                      "nothing: h read 4 bytes a load instead of 16"),
+    "unskewed": ((("constexpr int RA = RPT / 2;", "constexpr int RA = 0;"),), (),
+                 "the skew: every row's mat-vec, then every row's gates"),
+    **{f"partials_{p}": (((_PARTIALS, f"kPartials = {p};"),), (),
+                         f"nothing: {p} partial sums a gate at every rows a thread")
+       for p in (1, 4)},
+}
+
+
+def variant_sources():
+    """name -> (source text, extra nvcc flags) of every variant."""
+    source = (_build.CSRC / "bigru_seq.cu").read_text()
+    out = {}
+    for name, (subs, flags, _) in VARIANTS.items():
+        text = source
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: {old!r} occurs {text.count(old)} times in bigru_seq.cu")
+            text = text.replace(old, new)
+        out[name] = (text, flags)
+    return out
+
+
+def build_variants():
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, (text, flags) in variant_sources().items():
+        src, lib = OUT_DIR / f"{name}.cu", OUT_DIR / f"lib{name}.so"
+        src.write_text(text)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)]
+        jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        regs = {f"rpt{r['rpt']}": r["registers"] for r in ptxas_report(log) if r["H"] == H}
+        libs[name] = (ctypes.CDLL(str(lib)), regs)
+    return libs
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("ablate_k1: needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    libs = build_variants()
+    torch.cuda._sleep(int(2e9))  # about a second of spinning, to read the clock under load
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+                             "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
+    torch.cuda.synchronize()
+    print(f"clocks under a spin kernel (sm, max sm, power): {clocks}", flush=True)
+    inputs = []
+    for i, (label, n, t) in enumerate(SWEEPS):
+        x, fw, bw = case(i, n, t)
+        xp = rnn.input_projection(x, fw, bw).contiguous()
+        w_t = torch.stack([fw["w_hh"].t(), bw["w_hh"].t()]).contiguous()
+        b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
+        inputs.append((label, n, t, xp, w_t, b_hh, torch.empty(n, t, 2 * H, device="cuda"),
+                       gru_seq.config_for(n, H, x.device)))
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, (lib, regs) in libs.items():
+        fn = lib.tpgsr_bigru_seq_forward
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        row = {"variant": name, "removes": VARIANTS[name][2]}
+        def call(n, t, xp, w_t, b_hh, out, rpt):
+            err = fn(xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), n, t, H, rpt, stream)
+            if err:
+                raise RuntimeError(f"variant {name}: cudaError {err}")
+
+        for label, n, t, xp, w_t, b_hh, out, cfg in inputs:
+            row[f"{label} ms"] = device_ms(lambda: call(n, t, xp, w_t, b_hh, out, cfg.rpt))
+            row[f"{label} rpt"] = cfg.rpt
+        row["registers at H=32"] = regs
+        print("ablate_k1 " + json.dumps(row), flush=True)
+        if name == "full":  # the full kernel at every rows a thread
+            for rpt in gru_seq.RPTS:
+                forced = {"variant": f"full, {rpt} rows a thread"}
+                for label, n, t, xp, w_t, b_hh, out, _ in inputs:
+                    forced[f"{label} ms"] = device_ms(lambda: call(n, t, xp, w_t, b_hh, out, rpt))
+                print("ablate_k1 " + json.dumps(forced), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

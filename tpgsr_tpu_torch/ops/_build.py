@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use into ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``), under a file name keyed by a hash of the source and flags,
-so an edited source is rebuilt and an unchanged one is reused.  Nothing is
-built when a module is imported: the CPU tests import every module, and
-only the CUDA path of a wrapper calls ``load``.
+so an edited source is rebuilt and an unchanged one is reused; the
+compiler's log (``-Xptxas -v``: registers, spills) is kept beside it.
+Nothing is built when a module is imported: the CPU tests import every
+module, and only the CUDA path of a wrapper calls ``load``.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ def build(names: Iterable[str]) -> List[Tuple[str, str]]:
     for name, target, tmp, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            target.with_suffix(".log").write_text(log)
             os.replace(tmp, target)
         else:
             os.unlink(tmp)
@@ -75,6 +77,11 @@ def build(names: Iterable[str]) -> List[Tuple[str, str]]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler's log of the built ``csrc/<name>.cu``."""
+    return _target(name).with_suffix(".log").read_text()
 
 
 def all_sources() -> List[str]:

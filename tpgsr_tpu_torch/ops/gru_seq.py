@@ -7,6 +7,8 @@ source is ``csrc/bigru_seq.cu``; its plain version is ``ops.rnn``.
 * A CUDA tensor launches the kernel or raises; nothing falls back.
 * ``LAUNCHES`` counts kernel launches, so a run can show that its main path
   went through the kernel.
+* The launch configuration (rows a thread, grid) comes from
+  ``launch_config``, a pure function of the shape and the card's limits.
 * Forward only: the backward kernel comes with the training path, and until
   then the backward raises ``NotImplementedError``.
 """
@@ -14,6 +16,8 @@ source is ``csrc/bigru_seq.cu``; its plain version is ``ops.rnn``.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -22,7 +26,72 @@ from tpgsr_tpu_torch.ops.rnn import Params
 
 LAUNCHES = 0
 SUPPORTED_HIDDEN = (8, 16, 32)
+THREADS = 128  # threads a block: H hidden units x 128 / H row groups
+RPTS = (1, 2, 4)  # rows a thread, the kernel's instantiations
+RING_STAGES = 4  # steps of xp in the kernel's shared-memory ring (kStages)
 _PARAM_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+
+class LaunchConfig(NamedTuple):
+    rpt: int  # rows a thread
+    blocks: int  # grid size, both directions
+    blocks_per_sm: int
+    waves: int
+
+
+def launch_config(n: int, hidden: int, sms: int, blocks_per_sm: Mapping[int, int]) -> LaunchConfig:
+    """The smallest rows-a-thread whose grid of ``2 * ceil(n / rows)`` blocks
+    fits one wave of ``sms * blocks_per_sm[rpt]``; the largest when none does."""
+    if n < 1 or hidden not in SUPPORTED_HIDDEN:
+        raise ValueError(f"need n >= 1 and hidden in {SUPPORTED_HIDDEN}, got n={n} hidden={hidden}")
+    for rpt in RPTS:
+        if blocks_per_sm[rpt] < 1:
+            raise ValueError(f"K1 at hidden {hidden}, {rpt} rows a thread fits no block on an SM")
+    configs = []
+    for rpt in RPTS:
+        rows = THREADS // hidden * rpt
+        blocks = 2 * -(-n // rows)
+        per_wave = sms * blocks_per_sm[rpt]
+        configs.append(LaunchConfig(rpt, blocks, blocks_per_sm[rpt], -(-blocks // per_wave)))
+    return next((c for c in configs if c.waves == 1), configs[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    from tpgsr_tpu_torch.ops import _build
+
+    lib = _build.load("bigru_seq")
+    lib.tpgsr_bigru_seq_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.tpgsr_bigru_seq_forward.restype = ctypes.c_int
+    lib.tpgsr_bigru_seq_occupancy.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tpgsr_bigru_seq_occupancy.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int, hidden: int) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
+    """(SMs, ((rpt, resident blocks an SM), ...)) of card ``index``."""
+    lib = _lib()
+    occupancy = []
+    with torch.cuda.device(index):
+        for rpt in RPTS:
+            blocks = ctypes.c_int(0)
+            err = lib.tpgsr_bigru_seq_occupancy(hidden, rpt, ctypes.byref(blocks))
+            if err != 0:
+                raise RuntimeError(f"K1 occupancy query failed: cudaError {err}")
+            occupancy.append((rpt, blocks.value))
+    return torch.cuda.get_device_properties(index).multi_processor_count, tuple(occupancy)
+
+
+def config_for(n: int, hidden: int, device: torch.device) -> LaunchConfig:
+    """The launch configuration K1 takes for ``n`` rows on CUDA ``device``."""
+    return _config(device.index if device.index is not None else torch.cuda.current_device(), n, hidden)
+
+
+@functools.lru_cache(maxsize=1024)
+def _config(index: int, n: int, hidden: int) -> LaunchConfig:
+    sms, occupancy = _device_limits(index, hidden)
+    return launch_config(n, hidden, sms, dict(occupancy))
 
 
 def _check(x: torch.Tensor, fw: Params, bw: Params) -> None:
@@ -42,8 +111,11 @@ def _check(x: torch.Tensor, fw: Params, bw: Params) -> None:
                 raise ValueError(f"{k} is {p.dtype} on {p.device}; x is {x.dtype} on {x.device}")
 
 
-def _launch(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
-    """Run K1 on [N, T, 6H] projections; returns [N, T, 2H]."""
+def _recurrence(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor,
+                config: Optional[LaunchConfig] = None) -> torch.Tensor:
+    """Run K1 on [N, T, 6H] projections with ``w_t`` [2, H, 3H] (W_hh
+    transposed per direction); returns [N, T, 2H].  ``config`` overrides
+    ``config_for`` (the tests use it to reach every instantiation)."""
     global LAUNCHES
     n, t, g6 = xp.shape
     h = g6 // 6
@@ -51,28 +123,37 @@ def _launch(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.T
         raise TypeError(f"K1 takes float32, got {xp.dtype}")
     if h not in SUPPORTED_HIDDEN:
         raise ValueError(f"K1 supports hidden sizes {SUPPORTED_HIDDEN}, got {h}")
-    for name, tensor in (("xp", xp), ("w_hh", w_hh), ("b_hh", b_hh)):
-        if not tensor.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    from tpgsr_tpu_torch.ops import _build
-
-    fn = _build.load("bigru_seq").tpgsr_bigru_seq_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if tuple(w_t.shape) != (2, h, 3 * h) or tuple(b_hh.shape) != (2, 3 * h):
+        raise ValueError(f"w_t must be {(2, h, 3 * h)} and b_hh {(2, 3 * h)}, "
+                         f"got {tuple(w_t.shape)} and {tuple(b_hh.shape)}")
+    for name, tensor in (("xp", xp), ("w_t", w_t), ("b_hh", b_hh)):
+        if not tensor.is_contiguous() or tensor.device != xp.device or tensor.dtype != xp.dtype:
+            raise ValueError(f"{name} must be contiguous {xp.dtype} on {xp.device}")
+    if xp.data_ptr() % 16:
+        raise ValueError("xp must be 16-byte aligned (the kernel copies it 16 bytes a thread)")
+    if config is None:
+        config = config_for(n, h, xp.device)
+    fn = _lib().tpgsr_bigru_seq_forward
     out = torch.empty(n, t, 2 * h, device=xp.device, dtype=xp.dtype)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
-        err = fn(xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(), n, t, h, stream)
+        err = fn(xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), n, t, h, config.rpt, stream)
     if err != 0:
         raise RuntimeError(f"K1 bigru_seq launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
 
 
+def _launch(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """Run K1 on [N, T, 6H] projections with ``w_hh`` [2, 3H, H] in torch
+    layout; returns [N, T, 2H]."""
+    return _recurrence(xp, w_hh.transpose(1, 2).contiguous(), b_hh)
+
+
 class _BiGRUSeq(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, xp, w_hh, b_hh):
-        return _launch(xp, w_hh, b_hh)
+    def forward(ctx, xp, w_t, b_hh):
+        return _recurrence(xp, w_t, b_hh)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -88,6 +169,6 @@ def bigru(x: torch.Tensor, fw: Params, bw: Params) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, got {x.device}")
     xp = rnn.input_projection(x, fw, bw).contiguous()
-    w_hh = torch.stack([fw["w_hh"], bw["w_hh"]]).contiguous()
-    b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
-    return _BiGRUSeq.apply(xp, w_hh, b_hh)
+    w_t = torch.stack([fw["w_hh"].t(), bw["w_hh"].t()])  # [2, H, 3H]
+    b_hh = torch.stack([fw["b_hh"], bw["b_hh"]])
+    return _BiGRUSeq.apply(xp, w_t, b_hh)

@@ -11,8 +11,8 @@ default for cuDNN convolutions):
   teacher CRNN on SR, LR and HR, the MSE/SSIM metrics, the whole step, and
   ``evaluate`` per batch (the step plus host-side decoding and scoring);
 * traces 5 eval steps with ``torch.profiler`` and prints the device's busy
-  share of the traced wall time and the kernels that take the most device
-  time.
+  share of the traced wall time, the kernels that take the most device
+  time, and K1 (``bigru_seq``) wherever it ranks.
 
 Prints one JSON object per line; a card is required.
 """
@@ -115,7 +115,7 @@ def trace(models, step, batch, steps: int = 5):
     top = [{"kernel": e.key[:90], "calls_per_step": e.count / steps,
             "ms_per_step": e.self_device_time_total / 1e3 / steps,
             "share": e.self_device_time_total / 1e3 / device_ms if device_ms else 0.0}
-           for e in kernels[:TOP_KERNELS]]
+           for e in kernels[:TOP_KERNELS] + [e for e in kernels[TOP_KERNELS:] if "bigru_seq" in e.key]]
     return {"traced_steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": device_ms / steps,
             "device_busy_share": device_ms / wall_ms if wall_ms else 0.0,
