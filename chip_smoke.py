@@ -16,7 +16,16 @@ package beside this script):
    of each timed shape;
 4. the flagship eval path on the card against the same path on the CPU;
 5. serving: ``evaluate`` over 4 batches of 48 at full width, with K1's
-   launches counted on that run alone.
+   launches counted on that run alone;
+6. K1's backward kernel (with the GEMM for dW_hh) against the plain BPTT on
+   the card, at the flagship's two sweeps, edge cases and every hidden size,
+   with times beside the plain version, ``nn.GRU`` forward + backward and the
+   card's bound;
+7. one flagship train step on the card against the same step on the CPU,
+   from the same weights and batch: losses, every gradient, BN statistics;
+8. training: 20 flagship train steps at batch 48 after 2 warm-up steps, with
+   K1's forward and backward launches counted on that run alone, images/s
+   by CUDA events and peak memory.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -25,6 +34,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -34,7 +44,7 @@ import numpy as np
 import torch
 
 from tpgsr_tpu_torch import entry
-from tpgsr_tpu_torch.bench_k1 import device_ms, ptxas_report
+from tpgsr_tpu_torch.bench_k1 import device_ms, ptxas_entries, ptxas_report
 from tpgsr_tpu_torch.ops import _build, gru_seq, rnn
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
 from tpgsr_tpu_torch.train.evaluate import evaluate
@@ -46,7 +56,14 @@ PEAK_FP32_FLOP_PER_S = 67e12
 
 BATCH = 48
 SERVE_BATCHES = 4
+TRAIN_STEPS = 20
+TRAIN_WARMUP = 2
+CARD_VS_CPU_TRAIN_BATCH = 8
 N_SRB = 5  # flagship SRBs; each runs K1 once over W and once over H
+
+
+# conv biases that a BatchNorm follows in train mode: zero gradient in exact arithmetic
+PRE_BN_BIAS = re.compile(r"(block\d+\.conv[12]|block7\.0|stn_convnet\.\d+\.0|stn_fc1\.0|cnn\.conv[246])\.bias$")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -258,6 +275,177 @@ def phase_serve(models, step):
     return launches
 
 
+def bigru_backward_bound_ms(n: int, t: int, h: int):
+    """(ms for the bytes, ms for the fp32 products) of the recurrence's
+    backward, (xp, W_hh, b_hh, out, grad_out) -> (dxp, dW_hh, db_hh): reads
+    xp, out and grad_out and writes dxp once; per row-step and direction it
+    runs the recompute W_hh h, the product W_hh^T dhp and dhp^T h for dW_hh."""
+    bytes_moved = 4 * (n * t * (6 * h + 2 * h + 2 * h + 6 * h) + 2 * (2 * 3 * h * h + 2 * 3 * h))
+    flops = 3 * 2 * n * t * 2 * 3 * h * h
+    return bytes_moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOP_PER_S * 1e3
+
+
+def backward_case(seed: int, n: int, t: int, c: int, h: int):
+    """(x, fw, bw, xp, w_hh, b_hh, out, grad_out) on the card."""
+    x, fw, bw = gru_case(seed, n, t, c, h)
+    xp = rnn.input_projection(x, fw, bw).contiguous()
+    w_hh = torch.stack([fw["w_hh"], bw["w_hh"]]).contiguous()
+    b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
+    out = gru_seq._launch(xp, w_hh, b_hh)
+    grad_out = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((n, t, 2 * h)).astype(np.float32)).cuda()
+    return x, fw, bw, xp, w_hh, b_hh, out, grad_out
+
+
+def phase_k1_backward():
+    """K1's backward against the plain BPTT; times at the two flagship sweeps."""
+    # (label, N, T, C, H).  dxp at 2e-5, 5e-5 at T = 64 (a reverse chain of 64
+    # dependent steps compounds differently ordered fp32 sums); dW_hh and
+    # db_hh, sums over N * T row-steps, at 1e-5 of their largest entry.
+    cases = [
+        ("sweep over W, B=48", BATCH * 16, 64, 64, 32),
+        ("sweep over H, B=48", BATCH * 64, 16, 64, 32),
+        ("ragged N", 771, 64, 64, 32),
+        ("T=1", 37, 1, 64, 32),
+        ("T=3", 37, 3, 64, 32),
+        ("H=8", 100, 20, 16, 8),
+        ("H=16", 100, 20, 32, 16),
+    ]
+    max_err, shapes = 0.0, []
+    for i, (label, n, t, c, h) in enumerate(cases):
+        x, fw, bw, xp, w_hh, b_hh, out, grad_out = backward_case(200 + i, n, t, c, h)
+        got = gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+        torch.cuda.synchronize()
+        want = rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+        tol = 5e-5 if t >= 64 else 2e-5
+        err = float((got[0] - want[0]).abs().max())
+        check(all(torch.isfinite(g).all().item() for g in got), f"K1 backward {label}: non-finite output")
+        check(err <= tol, f"K1 backward {label}: dxp max abs err {err:.3g} > {tol}")
+        rel = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30) for g, w in zip(got[1:], want[1:])]
+        check(max(rel) <= 1e-5, f"K1 backward {label}: dW_hh / db_hh rel err {rel} > 1e-5")
+        print(f"K1 backward {label}: N={n} T={t} H={h} dxp max_abs_err={err:.3g} (tol {tol}) "
+              f"dW_hh, db_hh rel_err={rel[0]:.3g}, {rel[1]:.3g} (tol 1e-5)", flush=True)
+        max_err = max(max_err, err)
+        if i >= 2:
+            continue
+        w_t = w_hh.transpose(1, 2).contiguous()
+        leaves = [x.clone().requires_grad_(True), *({k: v.clone().requires_grad_(True) for k, v in d.items()}
+                                                    for d in (fw, bw))]
+
+        def fwd_bwd():
+            gru_seq.bigru(*leaves).backward(grad_out)
+
+        lib = torch.nn.GRU(c, h, bidirectional=True, batch_first=True).cuda()
+        with torch.no_grad():
+            for sfx, d in (("", fw), ("_reverse", bw)):
+                for ours, theirs in (("w_ih", "weight_ih_l0"), ("w_hh", "weight_hh_l0"),
+                                     ("b_ih", "bias_ih_l0"), ("b_hh", "bias_hh_l0")):
+                    getattr(lib, theirs + sfx).copy_(d[ours])
+        x_lib = x.clone().requires_grad_(True)
+
+        def lib_fwd_bwd():
+            lib(x_lib)[0].backward(grad_out)
+
+        row = {
+            "label": label, "N": n, "T": t, "C": c, "H": h, "max_abs_err": err, "w_b_rel_err": max(rel),
+            "ms": device_ms(lambda: gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)),
+            "kernel_only_ms": device_ms(lambda: gru_seq._backward_kernel(xp, w_t, b_hh, out, grad_out)),
+            "fwd_bwd_ms": device_ms(fwd_bwd),
+            "library_ms": device_ms(lib_fwd_bwd),
+            "plain_ms": median_ms(lambda: rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out), 5, warmup=1),
+        }
+        row["bytes_ms"], row["operations_ms"] = bigru_backward_bound_ms(n, t, h)
+        row.update(bound_fields(row["bytes_ms"], row["operations_ms"]))
+        print("K1 backward timing " + json.dumps(row), flush=True)
+        shapes.append(row)
+    return max_err, shapes
+
+
+def grads_of(module: torch.nn.Module):
+    return {k: p.grad.detach().cpu() for k, p in module.named_parameters() if p.grad is not None}
+
+
+def phase_train_card_vs_cpu():
+    """One flagship train step from the same seeded weights and numpy batch
+    on the card and on the CPU (plain versions).  Gradients are compared, not
+    the parameters after Adam: its first update is lr * g / (|g| + eps),
+    about +-lr wherever g is not tiny, so a gradient near zero whose sign the
+    two devices round differently moves the copies 2 lr apart.  The pre-BN
+    biases' gradients are zero in exact arithmetic and are held to 1e-4 of
+    their model's gradient norm.  Every other gradient is held, relative to
+    its own norm and to its model's as a whole, to about three times what
+    fp32 itself gives against fp64 on the CPU at this width: up to 1.5e-3 in TSRN_TL
+    (sums over five SRBs' recurrences) and 1e-2 in the student, whose
+    gradient runs through the distillation's |teacher - student| where the
+    two nearly tie and a rounding flips the sign.  Losses at rtol 1e-5, BN
+    statistics after the step at 1e-4."""
+    batch = synthetic_batch(np.random.default_rng(3), CARD_VS_CPU_TRAIN_BATCH, labels=False)
+    card, card_step = entry.flagship_train(device="cuda", seed=0)
+    cpu, cpu_step = entry.flagship_train(device="cpu", seed=0)
+    m_card = card_step(card, batch)
+    m_cpu = cpu_step(cpu, batch)
+    for k in m_cpu:
+        got, want = float(m_card[k]), float(m_cpu[k])
+        check(np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want), f"train {k}: card {got} vs CPU {want}")
+    worst = {}
+    for name, a, b, (tol_each, tol_all) in (("sr", card.sr[0], cpu.sr[0], (5e-3, 5e-3)),
+                                            ("stu", card.stu[0], cpu.stu[0], (3e-2, 3e-2))):
+        ga, gb = grads_of(a), grads_of(b)
+        check(sorted(ga) == sorted(gb) and len(gb) == len(list(b.parameters())), f"{name}: gradients missing")
+        total = float(torch.sqrt(sum(g.pow(2).sum() for g in gb.values())))
+        diff = float(torch.sqrt(sum((ga[k] - gb[k]).pow(2).sum() for k in gb if not PRE_BN_BIAS.search(k))))
+        check(diff <= tol_all * total, f"train {name}: gradient rel err {diff / total:.3g} > {tol_all}")
+        worst[name] = diff / total
+        for k in gb:
+            if PRE_BN_BIAS.search(k):
+                check(float(ga[k].norm()) <= 1e-4 * total, f"train {name}.{k}: pre-BN bias gradient not ~0")
+                continue
+            rel = float((ga[k] - gb[k]).norm()) / max(float(gb[k].norm()), 1e-30)
+            check(rel <= tol_each, f"train {name}.{k}: gradient rel err {rel:.3g} > {tol_each}")
+            worst[f"{name}.{k}"] = rel
+        sa, sb = a.state_dict(), b.state_dict()
+        for k in sb:
+            if "running" in k:
+                check(torch.allclose(sa[k].cpu(), sb[k], rtol=1e-4, atol=1e-5), f"train {name}.{k}: BN statistic")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    print(f"train card vs CPU (batch {CARD_VS_CPU_TRAIN_BATCH}): losses "
+          f"{ {k: float(v) for k, v in m_card.items()} }; worst gradient rel errs {top}", flush=True)
+
+
+def phase_train():
+    """20 flagship train steps at batch 48 on synthetic batches."""
+    rng = np.random.default_rng(4)
+    batches = [synthetic_batch(rng, BATCH, labels=False) for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    state, step = entry.flagship_train(device="cuda", seed=0)
+    for b in batches[:TRAIN_WARMUP]:
+        step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gru_seq.LAUNCHES = 0
+    gru_seq.BACKWARD_LAUNCHES = 0
+    start.record()
+    t0 = time.perf_counter()
+    metrics = [step(state, b) for b in batches[TRAIN_WARMUP:]]
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches, backward_launches = gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES
+    event_s = start.elapsed_time(end) / 1e3
+    losses = [float(m["loss_total"]) for m in metrics]
+    check(all(np.isfinite(v) for m in metrics for v in (float(x) for x in m.values())), "non-finite train loss")
+    want = 2 * N_SRB * TRAIN_STEPS
+    check(launches == want, f"K1 forward launched {launches} times in training, expected {want}")
+    check(backward_launches == want, f"K1 backward launched {backward_launches} times in training, expected {want}")
+    check(state.step == TRAIN_WARMUP + TRAIN_STEPS, f"train state at step {state.step}")
+    train = {"batch": BATCH, "steps": TRAIN_STEPS, "images_per_s": BATCH * TRAIN_STEPS / event_s,
+             "ms_per_step": event_s * 1e3 / TRAIN_STEPS, "event_s": event_s, "host_s": host_s,
+             "k1_launches": launches, "k1_backward_launches": backward_launches,
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print("train " + json.dumps(train), flush=True)
+    return launches, backward_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA card", file=sys.stderr)
@@ -289,6 +477,12 @@ def main() -> int:
     # 4. card vs CPU, 5. serve
     models, step = phase_card_vs_cpu()
     launches = phase_serve(models, step)
+    del models, step
+
+    # 6. K1's backward against its plain version, 7. train step card vs CPU, 8. train
+    bwd_err, bwd_shapes = phase_k1_backward()
+    phase_train_card_vs_cpu()
+    train_launches, backward_launches = phase_train()
 
     # per SR forward at B=48: N_SRB sweeps of each shape
     per_forward = {k: N_SRB * sum(row[k] for row in shapes)
@@ -317,7 +511,31 @@ def main() -> int:
         "kernel_only_device_ms": per_forward["kernel_only_device_ms"],
         "shapes": shapes,
         "ptxas": ptxas,
+        "train_launches": train_launches,
     }]
+    per_backward = {k: N_SRB * sum(row[k] for row in bwd_shapes)
+                    for k in ("ms", "kernel_only_ms", "fwd_bwd_ms", "library_ms", "plain_ms", "bytes_ms",
+                              "operations_ms")}
+    kernels.append({
+        "name": "K1 bigru_seq backward",
+        "route": "cuda",
+        "source": "tpgsr_tpu_torch/csrc/bigru_seq_bwd.cu",
+        "replaces": "tpgsr_tpu/ops/pallas_gru.py:34 (backward of)",
+        "launches": backward_launches,
+        "max_abs_err": bwd_err,
+        "unit": (f"one flagship SR backward at batch {BATCH}: {N_SRB} sweeps over W and {N_SRB} over H; "
+                 "ms: the recurrence's backward (the kernel, then the dW_hh GEMM and sums); kernel_only_ms: "
+                 "the kernel alone; fwd_bwd_ms: the wrapper's forward and backward; library_ms: nn.GRU "
+                 "forward and backward; plain_ms: the plain BPTT"),
+        "ms": per_backward["ms"],
+        "kernel_only_ms": per_backward["kernel_only_ms"],
+        "fwd_bwd_ms": per_backward["fwd_bwd_ms"],
+        "plain_ms": per_backward["plain_ms"],
+        **bound_fields(per_backward["bytes_ms"], per_backward["operations_ms"]),
+        "library_ms": per_backward["library_ms"],
+        "shapes": bwd_shapes,
+        "ptxas": ptxas_entries(_build.build_log("bigru_seq_bwd")),
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -160,13 +160,57 @@ def test_bigru_kernel_rejects_unsupported_hidden(cuda):
         gru_seq.bigru(x, fw, bw)
 
 
+def backward_case(rng, n, t, c, h, device):
+    """Projections, weights, the forward's output and a cotangent for K1's
+    backward, on ``device``."""
+    x = torch.from_numpy(rng.random((n, t, c), dtype=np.float32)).to(device)
+    fw, bw = (torch_params(p, device) for p in gru_params(rng, c, h))
+    xp = rnn.input_projection(x, fw, bw).contiguous()
+    w_hh = torch.stack([fw["w_hh"], bw["w_hh"]]).contiguous()
+    b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
+    out = rnn.bigru_recurrence(xp, w_hh, b_hh)
+    grad_out = torch.from_numpy(rng.standard_normal((n, t, 2 * h)).astype(np.float32)).to(device)
+    return xp, w_hh, b_hh, out, grad_out
+
+
 @pytest.mark.cuda
-def test_bigru_kernel_backward_is_not_ported(cuda):
-    rng = np.random.default_rng(4)
-    x = torch.from_numpy(rng.random((4, 3, 8), dtype=np.float32)).to(cuda).requires_grad_(True)
-    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, 8, 8))
-    with pytest.raises(NotImplementedError):
-        gru_seq.bigru(x, fw, bw).sum().backward()
+@pytest.mark.parametrize("n,t,c,h", GRU_CASES + MAIN_PATH_CASES + EDGE_CASES)
+def test_bigru_kernel_backward_matches_plain_on_card(cuda, n, t, c, h):
+    """K1's backward kernel (and the GEMM for dW_hh, db_hh) against the plain
+    BPTT on the card.  dxp at 2e-5, 5e-5 at T = 64 where the reverse chain
+    compounds differently ordered sums over 64 steps; dW_hh and db_hh, sums
+    over N * T steps, relative to their largest entry at 1e-5."""
+    rng = np.random.default_rng(10 * n + t)
+    xp, w_hh, b_hh, out, grad_out = backward_case(rng, n, t, c, h, cuda)
+    before = gru_seq.BACKWARD_LAUNCHES
+    got = gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+    torch.cuda.synchronize()
+    assert gru_seq.BACKWARD_LAUNCHES == before + 1
+    want = rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=5e-5 if t >= 64 else 2e-5)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_bigru_autograd_on_card_launches_both_kernels(cuda):
+    """The wrapper's gradients on the card through both kernels, against
+    autograd through the plain version on the same card."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.random((37, 13, 16), dtype=np.float32)).to(cuda)
+    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, 16, 16))
+    grads = []
+    for fn in (gru_seq.bigru, rnn.bigru):
+        leaves = [x.clone().requires_grad_(True)] + [
+            {k: v.clone().requires_grad_(True) for k, v in d.items()} for d in (fw, bw)]
+        before = (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES)
+        fn(*leaves).square().sum().backward()
+        torch.cuda.synchronize()
+        launched = (gru_seq.LAUNCHES - before[0], gru_seq.BACKWARD_LAUNCHES - before[1])
+        assert launched == ((1, 1) if fn is gru_seq.bigru else (0, 0))
+        grads.append([leaves[0].grad] + [d[k].grad for d in leaves[1:] for k in sorted(d)])
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
 PTXAS_LOG = """ptxas info    : 0 bytes gmem

@@ -123,7 +123,8 @@ def _tiny_tsrn_tl():
     prior = rng.random((2, 1, 26, 37), dtype=np.float32)
     model = jax_tsrn.TSRN_TL(scale_factor=2, width=64, height=32, stn=True, mask=True,
                              srb_nums=2, hidden_units=8)
-    v = _random_stats(model.init(jax.random.PRNGKey(3), x, prior, train=False), 3)
+    # init in train mode, so that the variables hold the STN head
+    v = _random_stats(model.init(jax.random.PRNGKey(3), x, prior, train=True), 3)
     return model, v, x, prior
 
 
@@ -142,10 +143,29 @@ def test_tsrn_tl_matches_flax():
     np.testing.assert_allclose(no_prior, np.asarray(model.apply(v, x, None, train=False)), atol=5e-4)
 
 
-def test_tsrn_tl_stn_train_mode_not_ported():
-    port = TSRN_TL(stn=True, srb_nums=1, hidden_units=8).train()
-    with pytest.raises(NotImplementedError):
-        port(torch.zeros(1, 4, 16, 64))
+def test_tsrn_tl_stn_train_mode_matches_flax():
+    """Train mode runs STN -> TPS -> SR: the output and every updated batch
+    statistic against flax's.  fc2's weights are drawn at random so that the
+    TPS warp depends on the image.  Output at 1e-3: the TPS sampler turns the
+    control points' fp32 noise into pixel error (tests/test_torch_train.py),
+    and every BatchNorm normalises by the batch's statistics."""
+    model, v, x, prior = _tiny_tsrn_tl()
+    rng = np.random.default_rng(30)
+    fc2 = v["params"]["stn_head"]["fc2_kernel"]
+    v["params"]["stn_head"]["fc2_kernel"] = (0.05 * rng.standard_normal(fc2.shape)).astype(np.float32)
+    ref, mut = model.apply(v, x, prior, train=True, mutable=["batch_stats"])
+    port = TSRN_TL(scale_factor=2, width=64, height=32, stn=True, mask=True, srb_nums=2, hidden_units=8)
+    port.load_state_dict(from_jax.tsrn_tl_state_dict(v, srb_nums=2), strict=True)
+    port.train()
+    got = _nhwc(port(_nchw(x), _nchw(prior)))
+    np.testing.assert_allclose(got, np.asarray(ref), atol=1e-3)
+    new = from_jax.tsrn_tl_state_dict({"params": v["params"], "batch_stats": _numpy_tree(mut)["batch_stats"]},
+                                      srb_nums=2)
+    stats = [k for k in new if "running" in k]
+    assert any(k.startswith("stn_head.") for k in stats)
+    sd = port.state_dict()
+    for k in stats:
+        np.testing.assert_allclose(sd[k].numpy(), new[k].numpy(), rtol=1e-4, atol=1e-5, err_msg=k)
 
 
 def _crnn_vars(seed, width=100):

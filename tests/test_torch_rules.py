@@ -9,7 +9,7 @@ import torch
 
 from tpgsr_tpu_torch import device as port_device
 from tpgsr_tpu_torch import entry
-from tpgsr_tpu_torch.train.step import make_eval_step
+from tpgsr_tpu_torch.train.step import make_eval_step, make_train_step
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "tpgsr_tpu")
@@ -32,7 +32,9 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("call", [
     lambda: entry.flagship(),
+    lambda: entry.flagship_train(),
     lambda: make_eval_step({"stu_iter": 1}),
+    lambda: make_train_step({"stu_iter": 1}),
     lambda: port_device.resolve_device(),
     lambda: port_device.resolve_device("cuda:0"),
 ])

@@ -7,7 +7,9 @@ T = 16; C = 64, H = 32) it prints one JSON line: K1 alone on a precomputed
 projection (``gru_seq._launch``), the wrapper (projection + K1,
 ``gru_seq.bigru``) and ``nn.GRU`` (cuDNN) on the same input, each the mean
 device time of calls queued back to back (``device_ms``), with K1's error
-against its plain version.
+against its plain version.  A second line times K1's backward the same way:
+the kernel alone, with the GEMM for dW_hh (``gru_seq.recurrence_backward``),
+and the forward + backward of the wrapper and of ``nn.GRU``.
 
 The script uses only ``gru_seq._launch``, ``gru_seq.bigru`` and ``rnn``, so
 the same file, copied into another checkout's ``tpgsr_tpu_torch/`` and run
@@ -53,9 +55,9 @@ def device_ms(fn, iters: int = 20) -> float:
     raise RuntimeError("device_ms: the host could not queue the calls ahead of the card")
 
 
-def ptxas_report(log: str):
-    """Registers and spilled bytes of each K1 instantiation, from -Xptxas -v,
-    with the dynamic shared memory the launcher asks for."""
+def ptxas_entries(log: str):
+    """(mangled kernel name, registers, spilled bytes, stack bytes) of each
+    kernel in an -Xptxas -v log."""
     rows, spill, stack = [], 0, 0
     name = None
     for line in log.splitlines():
@@ -68,14 +70,24 @@ def ptxas_report(log: str):
             stack, spill = int(m.group(1)), int(m.group(2)) + int(m.group(3))
             continue
         m = re.search(r"Used (\d+) registers", line)
-        t = re.search(r"bigru_seq_kernelILi(\d+)ELi(\d+)E", name or "")
-        if m and t:
+        if m and name:
+            rows.append({"kernel": name, "registers": int(m.group(1)), "spill_bytes": spill, "stack_bytes": stack})
+            name = None
+    return rows
+
+
+def ptxas_report(log: str):
+    """Registers and spilled bytes of each K1 forward instantiation, from
+    -Xptxas -v, with the dynamic shared memory the launcher asks for."""
+    rows = []
+    for e in ptxas_entries(log):
+        t = re.search(r"bigru_seq_kernelILi(\d+)ELi(\d+)E", e["kernel"])
+        if t:
             h, rpt = (int(v) for v in t.groups())
             rows_blk = gru_seq.THREADS // h * rpt
             smem = 4 * (gru_seq.RING_STAGES * rows_blk * 3 * h + 2 * rows_blk * h)
-            rows.append({"H": h, "rpt": rpt, "registers": int(m.group(1)), "spill_bytes": spill,
-                         "stack_bytes": stack, "smem_bytes": smem})
-            name = None
+            rows.append({"H": h, "rpt": rpt, "registers": e["registers"], "spill_bytes": e["spill_bytes"],
+                         "stack_bytes": e["stack_bytes"], "smem_bytes": smem})
     return rows
 
 
@@ -118,7 +130,28 @@ def main() -> int:
                    "wrapper_ms": device_ms(lambda: gru_seq.bigru(x, fw, bw)),
                    "nn_gru_ms": device_ms(lambda: lib(x))}
         print("bench_k1 " + json.dumps(row), flush=True)
+        if hasattr(gru_seq, "recurrence_backward"):  # trees before the backward kernel lack it
+            print("bench_k1 backward " + json.dumps(backward_row(label, x, fw, bw, xp, w_hh, b_hh, lib)), flush=True)
     return 0
+
+
+def backward_row(label, x, fw, bw, xp, w_hh, b_hh, lib):
+    """Device times of K1's backward: the kernel alone, with the dW_hh GEMM,
+    the wrapper's forward + backward and nn.GRU's, on one cotangent."""
+    n, t, _ = x.shape
+    out = gru_seq._launch(xp, w_hh, b_hh)
+    grad_out = torch.from_numpy(np.random.default_rng(n).standard_normal((n, t, 2 * H)).astype(np.float32)).cuda()
+    w_t = w_hh.transpose(1, 2).contiguous()
+    leaves = [x.clone().requires_grad_(True), *({k: v.clone().requires_grad_(True) for k, v in d.items()}
+                                                for d in (fw, bw))]
+    x_lib = x.clone().requires_grad_(True)
+    got = gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)[0]
+    want = rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)[0]
+    return {"sweep": label, "N": n, "T": t, "C": C, "H": H, "dxp_max_abs_err": float((got - want).abs().max()),
+            "kernel_ms": device_ms(lambda: gru_seq._backward_kernel(xp, w_t, b_hh, out, grad_out)),
+            "backward_ms": device_ms(lambda: gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)),
+            "wrapper_fwd_bwd_ms": device_ms(lambda: gru_seq.bigru(*leaves).backward(grad_out)),
+            "nn_gru_fwd_bwd_ms": device_ms(lambda: lib(x_lib)[0].backward(grad_out))}
 
 
 if __name__ == "__main__":

@@ -13,8 +13,9 @@ copy:
     BatchNorm     BatchNorm_0 {scale, bias} + {mean, var} -> weight, bias,
                   running_mean, running_var; num_batches_tracked = 0
 
-The STN head (``stn_head``, train mode only) is not carried over: the STN
-has no port yet and eval never runs it.
+The STN head (``stn_head``) inverts torch_import.py:163-181, running
+statistics included, when the flax variables hold one (``init`` in train
+mode).
 """
 
 from __future__ import annotations
@@ -92,7 +93,20 @@ def tsrn_tl_state_dict(variables: Mapping[str, Any], srb_nums: int = 5) -> State
         j += 1
     # the fused head's ConvParams hold the HR 9x9 conv (tsrn.py:222-224)
     _conv(sd, p[f"block{out}_conv"], f"block{out}.{j}")
+    if "stn_head" in p:
+        _stn_head(sd, p["stn_head"], s["stn_head"], "stn_head")
     return sd
+
+
+def _stn_head(sd: StateDict, p: Mapping, s: Mapping, prefix: str) -> None:
+    """Flax ``STNHead`` -> ``models.stn.STNHead`` (torch_import.py:163-181)."""
+    for n, index in enumerate((0, 2, 4, 6, 8, 10)):
+        block = f"{prefix}.stn_convnet.{index}"
+        _conv(sd, p[f"_ConvBlock_{n}"], f"{block}.0")
+        _bn(sd, p[f"_ConvBlock_{n}"], s[f"_ConvBlock_{n}"], f"{block}.1")
+    _linear(sd, {"kernel": p["fc1_kernel"], "bias": p["fc1_bias"]}, f"{prefix}.stn_fc1.0")
+    _bn(sd, p, s, f"{prefix}.stn_fc1.1")
+    _linear(sd, {"kernel": p["fc2_kernel"], "bias": p["fc2_bias"]}, f"{prefix}.stn_fc2")
 
 
 def crnn_state_dict(variables: Mapping[str, Any]) -> StateDict:

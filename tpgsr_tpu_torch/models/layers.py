@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tpgsr_tpu_torch.models.stn import STNHead
 from tpgsr_tpu_torch.ops import gru_seq
 
 
@@ -25,10 +26,17 @@ def init_torch_defaults_(module: nn.Module, generator: torch.Generator) -> nn.Mo
     """Re-draw every conv, linear and RNN weight from ``generator`` with
     torch's default ranges: U(+-1/sqrt(fan_in)) for weights and biases (fan_in
     of a transposed conv is out_channels * kh * kw), U(+-1/sqrt(hidden)) for
-    recurrent ones.  BatchNorm and PReLU keep their constant defaults."""
+    recurrent ones.  BatchNorm and PReLU keep their constant defaults.  An
+    STN head draws its own init instead (``STNHead.init_from_``)."""
+    own = set()
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if id(m) in own:
+                continue
+            if isinstance(m, STNHead):
+                m.init_from_(generator)
+                own.update(id(c) for c in m.modules())
+            elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 if isinstance(m, nn.ConvTranspose2d):
                     fan_in = m.weight.shape[1] * m.weight[0, 0].numel()
                 else:

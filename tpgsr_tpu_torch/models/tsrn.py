@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpgsr_tpu_torch.models.layers import GruBlock, UpsampleBlock, mish
+from tpgsr_tpu_torch.models.stn import STNHead, TPSSpatialTransformer
 from tpgsr_tpu_torch.ops.resize import interpolate_bilinear
 
 
@@ -68,9 +69,9 @@ class InfoGen(nn.Module):
 class TSRN_TL(nn.Module):
     """TSRN with text-prior fusion (archs tsrn_tl / tsrn_tl_cascade).
 
-    ``stn=True`` is accepted: eval never runs the STN (tpgsr_tpu/models/
-    tsrn.py:179).  Training with the STN waits for the STN/TPS port and
-    raises ``NotImplementedError``."""
+    With ``stn=True`` the STN head and the TPS transformer rectify the input
+    in train mode, at (height, width) / scale, before ``block1``; eval skips
+    them (tpgsr_tpu/models/tsrn.py:179-184)."""
 
     def __init__(self, scale_factor: int = 2, width: int = 128, height: int = 32, stn: bool = False,
                  srb_nums: int = 5, mask: bool = True, hidden_units: int = 32, text_emb: int = 37,
@@ -93,11 +94,16 @@ class TSRN_TL(nn.Module):
         head = [UpsampleBlock(ch, 2) for _ in range(int(math.log2(scale_factor)))]
         head.append(nn.Conv2d(ch, self.in_planes, 9, padding=4))
         setattr(self, f"block{srb_nums + 3}", nn.Sequential(*head))
+        if stn:
+            lr_size = (height // scale_factor, width // scale_factor)
+            self.tps = TPSSpatialTransformer(lr_size)
+            self.stn_head = STNHead(self.in_planes, input_size=lr_size)
 
     def forward(self, x: torch.Tensor, text_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, in_planes, h, w], text_emb [B, 37, 1, T] -> [B, in_planes, 2h, 2w]."""
         if self.stn and self.training:
-            raise NotImplementedError("the STN/TPS rectifier is not ported yet")
+            _, ctrl = self.stn_head(x)
+            x, _ = self.tps(x, ctrl)
         block1 = self.block1(x)
         if text_emb is None:
             text_emb = x.new_zeros(x.shape[0], self.text_emb, 1, 26)

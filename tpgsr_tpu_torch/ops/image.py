@@ -1,8 +1,10 @@
-"""Image metrics (counterpart of tpgsr_tpu/ops/image.py:60-130).
+"""Image metrics and the gradient map (counterpart of
+tpgsr_tpu/ops/image.py:60-142).
 
 NHWC in [0, 1], as the JAX package: PSNR (reference utils/ssim_psnr.py:9-15)
 and SSIM (:18-89) over the first 3 channels; SSIM with an 11x11 Gaussian
-window (sigma 1.5) and zero "same" padding, border bias included.
+window (sigma 1.5) and zero "same" padding, border bias included; the
+central-difference gradient magnitude that the gradient prior loss reads.
 """
 
 from __future__ import annotations
@@ -56,3 +58,15 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11, size_ave
     if size_average:
         return ssim_map.mean()
     return ssim_map.mean(dim=(1, 2, 3))
+
+
+def gradient_map(x: torch.Tensor) -> torch.Tensor:
+    """Central-difference gradient magnitude map, NHWC (reference
+    loss/image_loss.py:43-51): shifted by one pixel with zero padding, so the
+    borders take one-sided halves."""
+    h, w = x.shape[1], x.shape[2]
+    r = F.pad(x, (0, 0, 0, 1))[:, :, 1:]
+    l = F.pad(x, (0, 0, 1, 0))[:, :, :w]
+    t = F.pad(x, (0, 0, 0, 0, 1, 0))[:, :h]
+    b = F.pad(x, (0, 0, 0, 0, 0, 1))[:, 1:]
+    return torch.sqrt(((r - l) * 0.5) ** 2 + ((t - b) * 0.5) ** 2 + 1e-6)

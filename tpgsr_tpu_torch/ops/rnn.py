@@ -12,11 +12,14 @@ product), so ``nn.GRU`` checkpoints load unchanged:
 
 Weights per direction: ``w_ih`` [3H, C], ``w_hh`` [3H, H], ``b_ih`` and
 ``b_hh`` [3H].  The CRNN's BiLSTM is ``nn.LSTM`` (models/crnn.py).
+
+``bigru_recurrence_backward`` is the plain version of K1's backward kernel
+(``csrc/bigru_seq_bwd.cu``): BPTT of ``bigru_recurrence``, step by step.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -53,6 +56,50 @@ def bigru_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -
         out[:, step, :h] = state[0]
         out[:, t - 1 - step, h:] = state[1]
     return out
+
+
+def bigru_recurrence_backward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, out: torch.Tensor,
+                              grad_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """BPTT of ``bigru_recurrence``: ``out`` is its output (every hidden
+    state, so h_{t-1} is read, not stored), ``grad_out`` [N, T, 2H] the
+    gradient of the loss with respect to it.  Returns (dxp [N, T, 6H],
+    dw_hh [2, 3H, H], db_hh [2, 3H]).  Each direction runs its steps in
+    reverse, recomputing the gates from h_{t-1}:
+
+        dh = grad_out_t + dh_next;  dn = dh (1 - z);  dz = dh (h_{t-1} - n)
+        dn^ = dn (1 - n^2);  dr^ = dn^ hn r (1 - r);  dz^ = dz z (1 - z)
+        dxp_t = [dr^, dz^, dn^];  dhp_t = [dr^, dz^, dn^ r]
+        dh_next = dh z + dhp_t W_hh;  dW_hh += dhp_t^T h_{t-1};  db_hh += dhp_t
+    """
+    n, t, g6 = xp.shape
+    h = g6 // 6
+    dxp = torch.empty_like(xp)
+    dw_hh = torch.zeros_like(w_hh)
+    db_hh = torch.zeros_like(b_hh)
+    dh_next = xp.new_zeros(2, n, h)
+    zeros = xp.new_zeros(n, h)
+    for step in reversed(range(t)):
+        tf, tb = step, t - 1 - step  # the time each direction reaches at this step
+        x_step = torch.stack([xp[:, tf, : 3 * h], xp[:, tb, 3 * h :]])
+        h_prev = torch.stack([out[:, tf - 1, :h] if step else zeros, out[:, tb + 1, h:] if step else zeros])
+        hp = torch.baddbmm(b_hh[:, None, :], h_prev, w_hh.transpose(1, 2))  # [2, N, 3H]
+        xr, xz, xn = x_step.split(h, -1)
+        hr, hz, hn = hp.split(h, -1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n_gate = torch.tanh(xn + r * hn)
+        dh = torch.stack([grad_out[:, tf, :h], grad_out[:, tb, h:]]) + dh_next
+        dn_hat = dh * (1.0 - z) * (1.0 - n_gate * n_gate)
+        dr_hat = dn_hat * hn * r * (1.0 - r)
+        dz_hat = dh * (h_prev - n_gate) * z * (1.0 - z)
+        dx_step = torch.cat([dr_hat, dz_hat, dn_hat], -1)
+        dhp = torch.cat([dr_hat, dz_hat, dn_hat * r], -1)  # [2, N, 3H]
+        dxp[:, tf, : 3 * h] = dx_step[0]
+        dxp[:, tb, 3 * h :] = dx_step[1]
+        dw_hh += torch.bmm(dhp.transpose(1, 2), h_prev)
+        db_hh += dhp.sum(1)
+        dh_next = dh * z + torch.bmm(dhp, w_hh)
+    return dxp, dw_hh, db_hh
 
 
 def bigru(x: torch.Tensor, fw: Params, bw: Params) -> torch.Tensor:

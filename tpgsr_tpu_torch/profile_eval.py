@@ -96,8 +96,9 @@ def parts(models, step, batch, dev):
     return out
 
 
-def trace(models, step, batch, steps: int = 5):
-    """Busy share of the card over ``steps`` eval steps and the top kernels."""
+def trace(models, step, batch, steps: int = 5, extra=("bigru_seq",)):
+    """Busy share of the card over ``steps`` steps and the top kernels, with
+    those whose names hold a string of ``extra`` wherever they rank."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -109,13 +110,15 @@ def trace(models, step, batch, steps: int = 5):
             step(models, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events, less the profiler's own annotations ("Optimizer.step#Adam.step")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "#" not in e.key]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     top = [{"kernel": e.key[:90], "calls_per_step": e.count / steps,
             "ms_per_step": e.self_device_time_total / 1e3 / steps,
             "share": e.self_device_time_total / 1e3 / device_ms if device_ms else 0.0}
-           for e in kernels[:TOP_KERNELS] + [e for e in kernels[TOP_KERNELS:] if "bigru_seq" in e.key]]
+           for e in kernels[:TOP_KERNELS] + [e for e in kernels[TOP_KERNELS:] if any(x in e.key for x in extra)]]
     return {"traced_steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": device_ms / steps,
             "device_busy_share": device_ms / wall_ms if wall_ms else 0.0,

@@ -1,11 +1,13 @@
-"""The eval step of the text-prior cascade (counterpart of
-tpgsr_tpu/train/step.py:282-398, TL branch, CRNN eval recognizer).
+"""The train and eval steps of the text-prior cascade (counterpart of
+tpgsr_tpu/train/step.py:113-398, ``tsrn_tl_cascade`` branch, CRNN recognizer).
 
 Each stage runs the student CRNN on the previous stage's image (the LR at
 stage 0), turns its logits into the prior, and runs TSRN_TL on the LR with
-that prior.  The frozen teacher CRNN then reads SR, LR, HR and each earlier
-stage's SR for the word accuracies.  This is what ``TextSR.test()`` and
-``demo()`` serve (tpgsr_tpu/train/trainer.py:736-800).
+that prior.  In eval the frozen teacher CRNN then reads SR, LR, HR and each
+earlier stage's SR for the word accuracies: what ``TextSR.test()`` and
+``demo()`` serve (tpgsr_tpu/train/trainer.py:736-800).  In training the
+teacher's softmax on HR is the distillation target, and the step ends with
+backward, the SR clip and Adam.
 
 Batches are float NHWC in [0, 1] with the mask channel attached:
 ``hr`` [B, 2h, 2w, 4], ``lr`` [B, h, w, 4].  Outputs keep the JAX layouts:
@@ -22,8 +24,10 @@ import torch
 import torch.nn as nn
 
 from tpgsr_tpu_torch.device import DeviceLike, resolve_device
+from tpgsr_tpu_torch.losses import image_loss, semantic_loss
 from tpgsr_tpu_torch.ops.image import ssim
-from tpgsr_tpu_torch.train.priors import logits_to_prior, parse_crnn_data
+from tpgsr_tpu_torch.train.priors import logits_to_prior, parse_crnn_data, prior_dropout_first_quarter
+from tpgsr_tpu_torch.train.state import TrainState, clip_sr_grads
 
 
 @dataclass
@@ -100,3 +104,69 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
         return sr, outs
 
     return eval_step
+
+
+TrainStep = Callable[[TrainState, Mapping[str, np.ndarray]], Dict[str, torch.Tensor]]
+_NOT_PORTED = ("use_label", "ssim_loss")
+
+
+def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None) -> TrainStep:
+    """``train_step(state, batch) -> metrics``, one optimizer step in fp32.
+
+    Follows tpgsr_tpu/train/step.py:148-279 for ``tsrn_tl_cascade``: the
+    teacher reads HR without grad; each stage runs its student in train mode
+    on the previous stage's image, adds ``semantic_loss x 100`` against the
+    teacher (``use_distill``), zeroes the prior of the first B // 4 samples,
+    runs its SR model in train mode on the LR and adds ``image_loss x 100``
+    (with the gradient prior when ``gradient``).  Gradients flow through the
+    whole cascade; then each SR model is clipped and Adam steps.  BatchNorm
+    running statistics update by torch's own rule.  ``args`` reads
+    ``stu_iter``, ``sr_share``, ``tpg_share``, ``use_distill`` and
+    ``gradient`` as the CLI names them; ``use_label`` and ``ssim_loss`` are
+    not ported and raise.  Metrics are detached tensors on the device:
+    ``loss_img_{i}``, ``loss_img``, ``loss_distill``, ``loss_total``."""
+    for name in _NOT_PORTED:
+        if args.get(name, False):
+            raise NotImplementedError(f"--{name} is not ported to the train step yet")
+    dev = resolve_device(device)
+    stu_iter = int(args.get("stu_iter", 1))
+    sr_share = bool(args.get("sr_share", False))
+    tpg_share = bool(args.get("tpg_share", False))
+    use_distill = bool(args.get("use_distill", False))
+    gradient = bool(args.get("gradient", False))
+    cw = crnn_width(int(width))
+
+    def train_step(state: TrainState, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        hr = torch.as_tensor(batch["hr"], dtype=torch.float32).to(dev, non_blocking=True)
+        lr = torch.as_tensor(batch["lr"], dtype=torch.float32).to(dev, non_blocking=True)
+        for m in (*state.sr, *state.stu):
+            m.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            target = torch.softmax(state.teacher(_nchw(parse_crnn_data(hr, cw))), -1)
+
+        metrics: Dict[str, torch.Tensor] = {}
+        loss_img = lr.new_zeros(())
+        loss_distill = lr.new_zeros(())
+        cascade = lr
+        for i in range(stu_iter):
+            logits = state.stu[0 if tpg_share else i](_nchw(parse_crnn_data(cascade, cw)))
+            if use_distill:
+                loss_distill = loss_distill + semantic_loss(torch.softmax(logits, -1), target) * 100.0
+            prior = prior_dropout_first_quarter(logits_to_prior(logits))
+            sr_model = state.sr[0 if sr_share else i]
+            planes = sr_model.in_planes
+            sr_out = _nhwc(sr_model(_nchw(lr[..., :planes]), _nchw(prior)))
+            loss_each = image_loss(sr_out, hr[..., :planes], gradient=gradient) * 100.0
+            loss_img = loss_img + loss_each
+            metrics[f"loss_img_{i}"] = loss_each.detach()
+            cascade = sr_out
+        loss = loss_img + loss_distill
+        loss.backward()
+        clip_sr_grads(state.sr)
+        state.optimizer.step()
+        state.step += 1
+        metrics.update(loss_img=loss_img.detach(), loss_distill=loss_distill.detach(), loss_total=loss.detach())
+        return metrics
+
+    return train_step
