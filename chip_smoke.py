@@ -8,7 +8,8 @@ result line (so does a missing card, or a missing ``tpgsr_tpu_torch``
 package beside this script):
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: compiles every kernel under tpgsr_tpu_torch/csrc with nvcc;
+2. build: compiles every kernel under tpgsr_tpu_torch/csrc with nvcc and
+   checks that no instantiation of K1's forward or backward spills;
 3. K1 (the BiGRU recurrence) against its plain PyTorch version on the card,
    at the flagship's two sweep shapes, at edge cases and at every compiled
    instantiation (hidden size x rows a thread), with times beside the plain
@@ -18,9 +19,10 @@ package beside this script):
 5. serving: ``evaluate`` over 4 batches of 48 at full width, with K1's
    launches counted on that run alone;
 6. K1's backward kernel (with the GEMM for dW_hh) against the plain BPTT on
-   the card, at the flagship's two sweeps, edge cases and every hidden size,
-   with times beside the plain version, ``nn.GRU`` forward + backward and the
-   card's bound;
+   the card, at the flagship's two sweeps, edge cases and every compiled
+   instantiation (hidden size x rows a thread), with times beside the plain
+   version, ``nn.GRU`` forward + backward and the card's bound, and the
+   launch configuration of each case;
 7. one flagship train step on the card against the same step on the CPU,
    from the same weights and batch: losses, every gradient, BN statistics;
 8. training: 20 flagship train steps at batch 48 after 2 warm-up steps, with
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 from tpgsr_tpu_torch import entry
-from tpgsr_tpu_torch.bench_k1 import device_ms, ptxas_entries, ptxas_report
+from tpgsr_tpu_torch.bench_k1 import device_ms, ptxas_report
 from tpgsr_tpu_torch.ops import _build, gru_seq, rnn
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
 from tpgsr_tpu_torch.train.evaluate import evaluate
@@ -325,6 +327,9 @@ def phase_k1_backward():
         print(f"K1 backward {label}: N={n} T={t} H={h} dxp max_abs_err={err:.3g} (tol {tol}) "
               f"dW_hh, db_hh rel_err={rel[0]:.3g}, {rel[1]:.3g} (tol 1e-5)", flush=True)
         max_err = max(max_err, err)
+        cfg = gru_seq.config_for(n, h, x.device, backward=True)
+        print(f"K1 backward {label}: launch rpt={cfg.rpt} grid={cfg.blocks} blocks_per_sm={cfg.blocks_per_sm} "
+              f"waves={cfg.waves}", flush=True)
         if i >= 2:
             continue
         w_t = w_hh.transpose(1, 2).contiguous()
@@ -347,6 +352,7 @@ def phase_k1_backward():
 
         row = {
             "label": label, "N": n, "T": t, "C": c, "H": h, "max_abs_err": err, "w_b_rel_err": max(rel),
+            "rpt": cfg.rpt, "blocks": cfg.blocks, "blocks_per_sm": cfg.blocks_per_sm, "waves": cfg.waves,
             "ms": device_ms(lambda: gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)),
             "kernel_only_ms": device_ms(lambda: gru_seq._backward_kernel(xp, w_t, b_hh, out, grad_out)),
             "fwd_bwd_ms": device_ms(fwd_bwd),
@@ -357,6 +363,26 @@ def phase_k1_backward():
         row.update(bound_fields(row["bytes_ms"], row["operations_ms"]))
         print("K1 backward timing " + json.dumps(row), flush=True)
         shapes.append(row)
+
+    # every compiled instantiation, forced, on a ragged N at T = 13 and T = 3
+    for h in gru_seq.SUPPORTED_HIDDEN:
+        n = 3 * gru_seq.THREADS // h * 4 + 5
+        for t in (13, 3):
+            _, _, _, xp, w_hh, b_hh, out, grad_out = backward_case(300 + h + t, n, t, 16, h)
+            w_t = w_hh.transpose(1, 2).contiguous()
+            want = rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+            for rpt in gru_seq.RPTS:
+                dxp, dhp, h_prev = gru_seq._backward_kernel(xp, w_t, b_hh, out, grad_out,
+                                                            config=gru_seq.LaunchConfig(rpt, 0, 0, 0))
+                got = (dxp, *gru_seq.recurrent_weight_grads(dhp, h_prev))
+                torch.cuda.synchronize()
+                err = float((got[0] - want[0]).abs().max())
+                check(err <= 2e-5, f"K1 backward H={h} rpt={rpt} T={t}: dxp max abs err {err:.3g} > 2e-5")
+                rel = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30) for g, w in zip(got[1:], want[1:])]
+                check(max(rel) <= 1e-5, f"K1 backward H={h} rpt={rpt} T={t}: dW_hh / db_hh rel err {rel} > 1e-5")
+                max_err = max(max_err, err)
+        print(f"K1 backward H={h}: rpt {gru_seq.RPTS} at N={n}, T=13 and T=3 agree (dxp 2e-5, dW_hh/db_hh 1e-5)",
+              flush=True)
     return max_err, shapes
 
 
@@ -470,6 +496,13 @@ def main() -> int:
           f"ptxas reported {len(ptxas)} K1 instantiations")
     check(all(r["spill_bytes"] == 0 and r["stack_bytes"] == 0 for r in ptxas),
           "a K1 instantiation spills registers or keeps a stack frame")
+    bwd_ptxas = ptxas_report(_build.build_log("bigru_seq_bwd"), backward=True)
+    for r in bwd_ptxas:
+        print("nvcc bigru_seq_bwd " + json.dumps(r), flush=True)
+    check(len(bwd_ptxas) == len(gru_seq.SUPPORTED_HIDDEN) * len(gru_seq.RPTS),
+          f"ptxas reported {len(bwd_ptxas)} K1 backward instantiations")
+    check(all(r["spill_bytes"] == 0 and r["stack_bytes"] == 0 for r in bwd_ptxas),
+          "a K1 backward instantiation spills registers or keeps a stack frame")
 
     # 3. K1 against its plain version
     max_err, shapes = phase_k1()
@@ -534,7 +567,7 @@ def main() -> int:
         **bound_fields(per_backward["bytes_ms"], per_backward["operations_ms"]),
         "library_ms": per_backward["library_ms"],
         "shapes": bwd_shapes,
-        "ptxas": ptxas_entries(_build.build_log("bigru_seq_bwd")),
+        "ptxas": bwd_ptxas,
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

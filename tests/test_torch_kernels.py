@@ -108,6 +108,42 @@ def test_launch_config_too_many_rows_take_the_largest_rpt(n):
     assert cfg.rpt == max(gru_seq.RPTS) and cfg.waves > 1
 
 
+def test_launch_config_backward_takes_one_wave_over_h():
+    """The backward's occupancy at three blocks an SM for every rows a
+    thread: the flagship's sweep over H (N = 3,072, H = 32) takes 4 rows a
+    thread and 384 blocks, one wave on 132 SMs; over W, 1 row a thread."""
+    backward = {1: 3, 2: 3, 4: 3}
+    assert gru_seq.launch_config(3072, 32, 132, backward) == gru_seq.LaunchConfig(4, 384, 3, 1)
+    assert gru_seq.launch_config(768, 32, 132, backward) == gru_seq.LaunchConfig(1, 384, 3, 1)
+
+
+def test_launch_config_backward_falls_back_when_four_rows_fit_fewer_blocks():
+    """Where 4 rows a thread fit two blocks an SM, no rows a thread gives one
+    wave over H, and the largest is taken with the waves it needs."""
+    assert gru_seq.launch_config(3072, 32, 132, {1: 3, 2: 3, 4: 2}) == gru_seq.LaunchConfig(4, 384, 2, 2)
+
+
+def test_backward_config_reads_the_backward_occupancy(monkeypatch):
+    """``config_for`` feeds ``launch_config`` the occupancy of the kernel it
+    configures, and caches the two directions apart."""
+    calls = []
+
+    def limits(index, hidden, backward=False):
+        calls.append(backward)
+        return 132, ((1, 3), (2, 3), (4, 2 if backward else 3))
+
+    monkeypatch.setattr(gru_seq, "_device_limits", limits)
+    gru_seq._config.cache_clear()
+    try:
+        dev = torch.device("cuda", 0)
+        assert gru_seq.config_for(3072, 32, dev) == gru_seq.LaunchConfig(4, 384, 3, 1)
+        assert gru_seq.config_for(3072, 32, dev, backward=True) == gru_seq.LaunchConfig(4, 384, 2, 2)
+        assert gru_seq.config_for(3072, 32, dev, backward=True).waves == 2
+        assert calls == [False, True]
+    finally:
+        gru_seq._config.cache_clear()
+
+
 def test_launch_config_follows_the_occupancy_of_each_rpt():
     cfg = gru_seq.launch_config(3072, 32, 132, {1: 4, 2: 4, 4: 2})
     assert (cfg.rpt, cfg.blocks_per_sm, cfg.waves) == (4, 2, 2)
@@ -193,6 +229,30 @@ def test_bigru_kernel_backward_matches_plain_on_card(cuda, n, t, c, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rpt", gru_seq.RPTS)
+@pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
+def test_bigru_kernel_backward_every_instantiation_matches_plain(cuda, h, rpt):
+    """Each (H, rows a thread) of the backward kernel, forced, on a ragged N
+    with T = 13 and T = 3, against the plain BPTT at the tolerances above;
+    one launch a call."""
+    rng = np.random.default_rng(100 * h + rpt)
+    rows = gru_seq.THREADS // h * rpt
+    for n, t in ((2 * rows + 3, 13), (rows - 1, 3)):
+        xp, w_hh, b_hh, out, grad_out = backward_case(rng, n, t, 16, h, cuda)
+        w_t = w_hh.transpose(1, 2).contiguous()
+        before = gru_seq.BACKWARD_LAUNCHES
+        dxp, dhp, h_prev = gru_seq._backward_kernel(xp, w_t, b_hh, out, grad_out,
+                                                    config=gru_seq.LaunchConfig(rpt, 0, 0, 0))
+        got = (dxp, *gru_seq.recurrent_weight_grads(dhp, h_prev))
+        torch.cuda.synchronize()
+        assert gru_seq.BACKWARD_LAUNCHES == before + 1
+        want = rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-5)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
 def test_bigru_autograd_on_card_launches_both_kernels(cuda):
     """The wrapper's gradients on the card through both kernels, against
     autograd through the plain version on the same card."""
@@ -234,13 +294,41 @@ def test_ptxas_report_reads_each_instantiation():
     ]
 
 
+BWD_PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125bigru_seq_backward_kernelILi32ELi4EEEvPKfS2_S2_S2_S2_PfS3_S3_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125bigru_seq_backward_kernelILi32ELi4EEEvPKfS2_S2_S2_S2_PfS3_S3_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 166 registers, used 0 barriers, 432 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_the_backward():
+    """The backward's instantiations, with its two h_{t-1} buffers as shared
+    memory; the forward's report skips them, and the reverse."""
+    assert ptxas_report(BWD_PTXAS_LOG, backward=True) == [
+        {"H": 32, "rpt": 4, "registers": 166, "spill_bytes": 0, "stack_bytes": 0, "smem_bytes": 4 * 2 * 16 * 32}]
+    assert ptxas_report(BWD_PTXAS_LOG) == []
+    assert ptxas_report(PTXAS_LOG, backward=True) == []
+
+
+def _check_ablation_variants(backward):
+    file, table = ablate_k1._kernel(backward)
+    source = (_build.CSRC / file).read_text()
+    variants = ablate_k1.variant_sources(backward)
+    assert set(variants) == set(table)
+    for name, (text, flags) in variants.items():
+        changed = text != source
+        assert changed == bool(table[name][0]), name
+        assert changed or flags or name == "full", name
+
+
 def test_ablation_variants_match_the_kernel_source():
     """Each variant's substitutions occur once in csrc/bigru_seq.cu, so the
     ablation times what it says it removes."""
-    source = (_build.CSRC / "bigru_seq.cu").read_text()
-    variants = ablate_k1.variant_sources()
-    assert set(variants) == set(ablate_k1.VARIANTS)
-    for name, (text, flags) in variants.items():
-        changed = text != source
-        assert changed == bool(ablate_k1.VARIANTS[name][0]), name
-        assert changed or flags or name == "full", name
+    _check_ablation_variants(backward=False)
+
+
+def test_backward_ablation_variants_match_the_kernel_source():
+    """The same for the backward's variants in csrc/bigru_seq_bwd.cu; at most
+    four besides the full kernel."""
+    assert len(ablate_k1.BACKWARD_VARIANTS) <= 5
+    _check_ablation_variants(backward=True)

@@ -26,6 +26,7 @@ from tpgsr_tpu.ops import image as jax_image
 from tpgsr_tpu.ops.rnn import bigru_fused
 from tpgsr_tpu.train.state import clip_sr_grads as jax_clip_sr_grads
 from tpgsr_tpu.train.state import create_train_state as jax_create_train_state
+from tpgsr_tpu.train.step import _as_image as jax_as_image
 from tpgsr_tpu.train.step import make_train_step as jax_make_train_step
 from tpgsr_tpu_torch import losses
 from tpgsr_tpu_torch.interop import from_jax
@@ -35,7 +36,8 @@ from tpgsr_tpu_torch.models.tsrn import TSRN_TL
 from tpgsr_tpu_torch.ops import gru_seq, image, rnn
 from tpgsr_tpu_torch.ops.grid_sample import grid_sample
 from tpgsr_tpu_torch.train.state import clip_sr_grads, create_train_state
-from tpgsr_tpu_torch.train.step import make_train_step
+from tpgsr_tpu_torch.models.layers import init_torch_defaults_
+from tpgsr_tpu_torch.train.step import EvalModels, _as_image, make_eval_step, make_train_step
 from tests.test_torch_kernels import GRU_CASES, gru_params, torch_params
 
 
@@ -397,3 +399,67 @@ def test_train_step_rejects_what_is_not_ported():
     for flag in ("use_label", "ssim_loss"):
         with pytest.raises(NotImplementedError):
             make_train_step({"stu_iter": 1, flag: True}, device="cpu")
+
+
+def test_as_image_matches_jax_on_a_uint8_batch():
+    """Every uint8 value becomes the JAX package's fp32 value exactly (x / 255
+    in fp32); a float batch is only cast."""
+    u8 = np.arange(256, dtype=np.uint8).reshape(4, 8, 8, 1).repeat(4, -1)
+    got = _as_image(u8, torch.device("cpu"))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_as_image(u8, np.float32)))
+    f64 = u8.astype(np.float64) / 255.0
+    np.testing.assert_array_equal(_as_image(f64, torch.device("cpu")).numpy(), f64.astype(np.float32))
+
+
+def _tiny_models(seed):
+    """TSRN_TL (2 SRBs, hidden 8, LR 16x32) and two CRNNs, seeded."""
+    gen = torch.Generator().manual_seed(seed)
+    sr = TSRN_TL(scale_factor=2, width=W * 2, height=H * 2, stn=True, mask=True, srb_nums=2, hidden_units=8)
+    return [init_torch_defaults_(m, gen) for m in (sr, CRNN(nclass=CTC_NUM_CLASSES), CRNN(nclass=CTC_NUM_CLASSES))]
+
+
+def _u8_batch(seed, n=2):
+    rng = np.random.default_rng(seed)
+    u8 = {"hr": rng.integers(0, 256, (n, 2 * H, 2 * W, 4), dtype=np.uint8),
+          "lr": rng.integers(0, 256, (n, H, W, 4), dtype=np.uint8)}
+    return u8, {k: v.astype(np.float32) / np.float32(255) for k, v in u8.items()}
+
+
+def test_eval_step_takes_a_uint8_batch_as_float_over_255():
+    """The same SR, MSE, SSIM and logits from the uint8 batch as from the
+    same batch in float / 255."""
+    sr, stu, teacher = _tiny_models(8)
+    models = EvalModels(sr=[sr], stu=[stu], teacher=teacher).eval()
+    step = make_eval_step({"stu_iter": 1, "sr_share": True}, width=W * 2, device="cpu")
+    u8, f32 = _u8_batch(8)
+    sr_u8, outs_u8 = step(models, u8)
+    sr_f, outs_f = step(models, f32)
+    torch.testing.assert_close(sr_u8, sr_f, rtol=0, atol=0)
+    assert sorted(outs_u8) == sorted(outs_f)
+    for k in outs_f:
+        torch.testing.assert_close(outs_u8[k], outs_f[k], rtol=0, atol=0, msg=k)
+
+
+def test_train_step_takes_a_uint8_batch_as_float_over_255():
+    """One train step from the same weights: the same losses from the uint8
+    batch as from the float / 255 one."""
+    metrics = []
+    u8, f32 = _u8_batch(9, n=4)
+    for batch in (u8, f32):
+        sr, _, teacher = _tiny_models(9)
+        state = create_train_state([sr], teacher, n_stu=1)
+        step = make_train_step({"stu_iter": 1, "sr_share": True, "use_distill": True, "gradient": True},
+                               width=W * 2, device="cpu")
+        metrics.append({k: float(v) for k, v in step(state, batch).items()})
+    assert metrics[0] == metrics[1]
+
+
+@pytest.mark.parametrize("factory", [make_eval_step, make_train_step])
+@pytest.mark.parametrize("arch", ["tsrn_tl", "tsrn_tl_wmask", "tsrn"])
+def test_step_factories_raise_for_an_arch_not_ported(factory, arch):
+    """Only the tsrn_tl_cascade branch is ported; TL_SIMPLE archs (one stage,
+    no prior dropout, distillation always) and the others raise."""
+    with pytest.raises(NotImplementedError, match=arch):
+        factory({"arch": arch, "stu_iter": 1}, device="cpu")
+    factory({"arch": "tsrn_tl_cascade", "stu_iter": 1}, device="cpu")

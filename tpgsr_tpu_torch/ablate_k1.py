@@ -1,7 +1,8 @@
-"""Where K1's time goes: variants of csrc/bigru_seq.cu, each with one part
-taken out, timed at the flagship's two sweeps on one NVIDIA card.
+"""Where K1's time goes: variants of csrc/bigru_seq.cu (or, with
+``--backward``, of csrc/bigru_seq_bwd.cu), each with one part taken out, timed
+at the flagship's two sweeps on one NVIDIA card.
 
-    python -m tpgsr_tpu_torch.ablate_k1
+    python -m tpgsr_tpu_torch.ablate_k1 [--backward]
 
 The card's profilers do not run on the machines this port is measured on, so
 this stands in for them.  Each variant is the kernel's source with a text
@@ -15,6 +16,7 @@ wrong thing.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -60,26 +62,46 @@ VARIANTS = {
        for p in (1, 4)},
 }
 
+_BWD_STORES = "if ((valid >> i) & 1u) {"
+# the same for the backward kernel, csrc/bigru_seq_bwd.cu
+BACKWARD_VARIANTS = {
+    "full": ((), (), "nothing"),
+    "fast_math": ((), ("--use_fast_math",), "accurate tanhf (fast approximations instead)"),
+    "no_shuffles": ((("return __shfl_xor_sync(kFullMask, x, lane_mask);", "return x;"),), (),
+                    "the reduce-scatter's shuffles for W_hh^T dhp (its FMAs and adds stay)"),
+    "no_recompute": ((("for (int a = 0; a < H / 4; ++a) {", "for (int a = 0; a < 0; ++a) {"),), (),
+                     "the recompute's mat-vec W_hh h_{t-1} and its h loads (the gates stay)"),
+    "no_stores": (((_BWD_STORES, "if (((valid >> i) & 1u) && s == 0) {"),), (),
+                  "the dxp, dhp and h_{t-1} stores at every step but the last"),
+}
 
-def variant_sources():
+
+def _kernel(backward: bool):
+    """(source file, its variants) of K1's forward or backward."""
+    return ("bigru_seq_bwd.cu", BACKWARD_VARIANTS) if backward else ("bigru_seq.cu", VARIANTS)
+
+
+def variant_sources(backward: bool = False):
     """name -> (source text, extra nvcc flags) of every variant."""
-    source = (_build.CSRC / "bigru_seq.cu").read_text()
+    file, variants = _kernel(backward)
+    source = (_build.CSRC / file).read_text()
     out = {}
-    for name, (subs, flags, _) in VARIANTS.items():
+    for name, (subs, flags, _) in variants.items():
         text = source
         for old, new in subs:
             if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: {old!r} occurs {text.count(old)} times in bigru_seq.cu")
+                raise RuntimeError(f"variant {name}: {old!r} occurs {text.count(old)} times in {file}")
             text = text.replace(old, new)
         out[name] = (text, flags)
     return out
 
 
-def build_variants():
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+def build_variants(backward: bool = False):
+    out_dir = OUT_DIR / ("backward" if backward else "forward")
+    out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, (text, flags) in variant_sources().items():
-        src, lib = OUT_DIR / f"{name}.cu", OUT_DIR / f"lib{name}.so"
+    for name, (text, flags) in variant_sources(backward).items():
+        src, lib = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
         src.write_text(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)]
         jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -88,54 +110,96 @@ def build_variants():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        regs = {f"rpt{r['rpt']}": r["registers"] for r in ptxas_report(log) if r["H"] == H}
+        regs = {f"rpt{r['rpt']}": [r["registers"], r["spill_bytes"]] for r in ptxas_report(log, backward)
+                if r["H"] == H}
         libs[name] = (ctypes.CDLL(str(lib)), regs)
     return libs
 
 
+def _forward_calls(lib, stream):
+    """[(label, call(rpt), rpt of the launch configuration)] at both sweeps."""
+    fn = lib.tpgsr_bigru_seq_forward
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    calls = []
+    for i, (label, n, t) in enumerate(SWEEPS):
+        x, fw, bw = case(i, n, t)
+        xp = rnn.input_projection(x, fw, bw).contiguous()
+        w_t = torch.stack([fw["w_hh"].t(), bw["w_hh"].t()]).contiguous()
+        b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
+        out = torch.empty(n, t, 2 * H, device="cuda")
+
+        def call(rpt, n=n, t=t, args=(xp, w_t, b_hh, out)):
+            return fn(*(a.data_ptr() for a in args), n, t, H, rpt, stream)
+
+        calls.append((label, call, gru_seq.config_for(n, H, x.device).rpt))
+    return calls
+
+
+def _backward_calls(lib, stream):
+    """As ``_forward_calls``, for the backward kernel on the forward's output
+    and a random cotangent."""
+    fn = lib.tpgsr_bigru_seq_backward
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    calls = []
+    for i, (label, n, t) in enumerate(SWEEPS):
+        x, fw, bw = case(i, n, t)
+        xp = rnn.input_projection(x, fw, bw).contiguous()
+        w_hh = torch.stack([fw["w_hh"], bw["w_hh"]]).contiguous()
+        w_t = w_hh.transpose(1, 2).contiguous()
+        b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
+        out = gru_seq._launch(xp, w_hh, b_hh)
+        grad_out = torch.randn(n, t, 2 * H, device="cuda", generator=torch.Generator("cuda").manual_seed(i))
+        n_pad = -(-n // gru_seq._chunk_rows(t)) * gru_seq._chunk_rows(t)
+        dxp, dhp, h_prev = torch.empty_like(xp), xp.new_zeros(2, n_pad, t, 3 * H), xp.new_zeros(2, n_pad, t, H)
+
+        def call(rpt, n=n, t=t, n_pad=n_pad, args=(xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev)):
+            return fn(*(a.data_ptr() for a in args), n, n_pad, t, H, rpt, stream)
+
+        calls.append((label, call, gru_seq.config_for(n, H, x.device, backward=True).rpt))
+    return calls
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--backward", action="store_true", help="ablate the backward kernel")
+    backward = parser.parse_args().backward
     if not torch.cuda.is_available():
         raise SystemExit("ablate_k1: needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    libs = build_variants()
+    libs = build_variants(backward)
     torch.cuda._sleep(int(2e9))  # about a second of spinning, to read the clock under load
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
                              "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
     torch.cuda.synchronize()
     print(f"clocks under a spin kernel (sm, max sm, power): {clocks}", flush=True)
-    inputs = []
-    for i, (label, n, t) in enumerate(SWEEPS):
-        x, fw, bw = case(i, n, t)
-        xp = rnn.input_projection(x, fw, bw).contiguous()
-        w_t = torch.stack([fw["w_hh"].t(), bw["w_hh"].t()]).contiguous()
-        b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
-        inputs.append((label, n, t, xp, w_t, b_hh, torch.empty(n, t, 2 * H, device="cuda"),
-                       gru_seq.config_for(n, H, x.device)))
     stream = torch.cuda.current_stream().cuda_stream
+    variants = _kernel(backward)[1]
+    tag = "ablate_k1 backward " if backward else "ablate_k1 "
     for name, (lib, regs) in libs.items():
-        fn = lib.tpgsr_bigru_seq_forward
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        row = {"variant": name, "removes": VARIANTS[name][2]}
-        def call(n, t, xp, w_t, b_hh, out, rpt):
-            err = fn(xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), n, t, H, rpt, stream)
+        calls = (_backward_calls if backward else _forward_calls)(lib, stream)
+
+        def run(call, rpt):
+            err = call(rpt)
             if err:
                 raise RuntimeError(f"variant {name}: cudaError {err}")
 
-        for label, n, t, xp, w_t, b_hh, out, cfg in inputs:
-            row[f"{label} ms"] = device_ms(lambda: call(n, t, xp, w_t, b_hh, out, cfg.rpt))
-            row[f"{label} rpt"] = cfg.rpt
-        row["registers at H=32"] = regs
-        print("ablate_k1 " + json.dumps(row), flush=True)
+        row = {"variant": name, "removes": variants[name][2]}
+        for label, call, rpt in calls:
+            row[f"{label} ms"] = device_ms(lambda: run(call, rpt))
+            row[f"{label} rpt"] = rpt
+        row["registers, spilled bytes at H=32"] = regs
+        print(tag + json.dumps(row), flush=True)
         if name == "full":  # the full kernel at every rows a thread
             for rpt in gru_seq.RPTS:
                 forced = {"variant": f"full, {rpt} rows a thread"}
-                for label, n, t, xp, w_t, b_hh, out, _ in inputs:
-                    forced[f"{label} ms"] = device_ms(lambda: call(n, t, xp, w_t, b_hh, out, rpt))
-                print("ablate_k1 " + json.dumps(forced), flush=True)
+                for label, call, _ in calls:
+                    forced[f"{label} ms"] = device_ms(lambda: run(call, rpt))
+                print(tag + json.dumps(forced), flush=True)
     return 0
 
 

@@ -19,6 +19,7 @@ under ``build/`` and run both in turns within one call to the card.
 
 from __future__ import annotations
 
+import inspect
 import json
 import re
 import subprocess
@@ -76,18 +77,21 @@ def ptxas_entries(log: str):
     return rows
 
 
-def ptxas_report(log: str):
-    """Registers and spilled bytes of each K1 forward instantiation, from
-    -Xptxas -v, with the dynamic shared memory the launcher asks for."""
+def ptxas_report(log: str, backward: bool = False):
+    """Registers and spilled bytes of each instantiation of K1's forward (or,
+    with ``backward``, its backward), from -Xptxas -v, with the dynamic
+    shared memory the launcher asks for: the forward's xp ring and h
+    buffers, the backward's h_{t-1} buffers."""
+    kernel = "bigru_seq_backward_kernel" if backward else "bigru_seq_kernel"
     rows = []
     for e in ptxas_entries(log):
-        t = re.search(r"bigru_seq_kernelILi(\d+)ELi(\d+)E", e["kernel"])
+        t = re.search(kernel + r"ILi(\d+)ELi(\d+)E", e["kernel"])
         if t:
             h, rpt = (int(v) for v in t.groups())
             rows_blk = gru_seq.THREADS // h * rpt
-            smem = 4 * (gru_seq.RING_STAGES * rows_blk * 3 * h + 2 * rows_blk * h)
+            ring = 0 if backward else gru_seq.RING_STAGES * rows_blk * 3 * h
             rows.append({"H": h, "rpt": rpt, "registers": e["registers"], "spill_bytes": e["spill_bytes"],
-                         "stack_bytes": e["stack_bytes"], "smem_bytes": smem})
+                         "stack_bytes": e["stack_bytes"], "smem_bytes": 4 * (ring + 2 * rows_blk * h)})
     return rows
 
 
@@ -113,6 +117,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
+    torch.cuda._sleep(int(2e9))  # about a second of spinning, so that the first timing finds the clocks up
     for i, (label, n, t) in enumerate(SWEEPS):
         x, fw, bw = case(i, n, t)
         xp = rnn.input_projection(x, fw, bw).contiguous()
@@ -147,7 +152,11 @@ def backward_row(label, x, fw, bw, xp, w_hh, b_hh, lib):
     x_lib = x.clone().requires_grad_(True)
     got = gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)[0]
     want = rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)[0]
-    return {"sweep": label, "N": n, "T": t, "C": C, "H": H, "dxp_max_abs_err": float((got - want).abs().max()),
+    config = {}
+    if "backward" in inspect.signature(gru_seq.config_for).parameters:  # older trees configure the forward only
+        config = gru_seq.config_for(n, H, x.device, backward=True)._asdict()
+    return {"sweep": label, "N": n, "T": t, "C": C, "H": H, **config,
+            "dxp_max_abs_err": float((got - want).abs().max()),
             "kernel_ms": device_ms(lambda: gru_seq._backward_kernel(xp, w_t, b_hh, out, grad_out)),
             "backward_ms": device_ms(lambda: gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)),
             "wrapper_fwd_bwd_ms": device_ms(lambda: gru_seq.bigru(*leaves).backward(grad_out)),

@@ -19,206 +19,369 @@
 // dW_hh = sum_t dhp_t^T h_{t-1} and db_hh = sum_t dhp_t are one batched GEMM
 // and one sum outside (ops/gru_seq.py), as the input projection's gradients
 // are: laid out so, the GEMM splits its N*T-long sum into chunks of whole
-// rows without a copy (one [3H, N*T] x [N*T, H] product gives cuBLAS a
-// single output tile and took 1.8 ms a sweep at batch 48).  The backward
-// direction walks t_eff = T-1-t through strides, as the forward does.
+// rows without a copy.  The backward direction walks t_eff = T-1-t through
+// strides, as the forward does.
 //
 // What bounds it.  At the flagship's batch of 48 both sweeps have N*T = 49,152
 // row-steps at H = 32.  It reads xp (37.7 MB), out (12.6 MB) and grad_out
 // (12.6 MB) and writes dxp (37.7 MB), dhp (37.7 MB) and h_{t-1} (12.6 MB):
 // 151 MB, 45 us at 3.35 TB/s, against 1.2 GFLOP of recurrent products (18 us
-// at the fp32 peak).
-// Like the forward, the chain of T dependent steps binds first: each step
-// needs the whole row's h_{t-1} for the recompute and its whole dhp_t for
-// W_hh^T dhp_t.
+// at the fp32 peak).  The chain of T dependent steps needs, each step, the
+// row's whole h_{t-1} (the recompute) and its whole dhp_t (W_hh^T dhp_t).
 //
-// The design, simple first.  Thread (j, g) owns hidden unit j of one row (rows
-// of a block: 128 / H), so a row lies within one warp and its vectors are
-// exchanged through shared memory with one __syncwarp() each.  W_hh is needed
-// twice a step, by rows (the recompute) and by columns (W_hh^T dhp): holding
-// both in registers would take 6H = 192 values a thread at H = 32, so the
-// row copy (3H values, loaded as the forward does) stays in registers and
-// w_t itself sits in shared memory (12.8 KB at H = 32), its rows padded to
-// 3H + 4 floats so that lane j's float4 reads of row j hit distinct banks.
-// A step's global loads (xp, grad_out, and the thread's own h_{t-1}) are
-// issued one step ahead, off the chain.  The partial sums of W_hh^T dhp run
-// in four chains.  fp32 throughout with accurate tanhf; only the order of the
-// sums differs from the plain version.  A cp.async ring, several rows a
-// thread and tensor-core products are left for a redesign.
+// The first design (0.101 / 0.104 ms over W / over H on an H100 SXM at
+// 700 W) streamed w_t out of shared memory for W_hh^T dhp_t, about 130
+// shared-memory wavefronts a warp a step, and ran the sweep over H in four
+// waves.  This one, part by part:
+//   1. W_hh^T dhp_t from the registers.  Thread (j, g) owns hidden unit j of
+//      its rows and holds row j of W_hh for each gate (3H registers, which the
+//      recompute needs anyway).  (W_hh^T dhp)_k = sum_j (W_r[j][k] dr^_j +
+//      W_z[j][k] dz^_j + W_n[j][k] (dn^ r)_j), so lane j forms its H-vector
+//      of terms with 3H FMAs and a reduce-scatter over the row's H lanes
+//      (H - 1 shuffles, log2 H levels, within the row's segment of the warp)
+//      leaves column k's sum in lane k.  Lane j holds its weights with the
+//      columns permuted, W[j][m ^ P] in slot m with P = j & ~3, so that at the
+//      levels over j's high bits every lane keeps slots 0 .. half-1 and sends
+//      the rest: no selects there; the last two levels pick by j's low bits.
+//      The recompute reads h_{t-1} four columns at a time in the same order.
+//      No copy of W_hh in shared memory; only h_{t-1} passes through it, in
+//      a buffer a step, so one __syncwarp() a step orders it.
+//   2. RPT rows a thread (1, 2 or 4), chosen in Python (ops/gru_seq.py,
+//      launch_config, from this kernel's own occupancy): at batch 48, RPT 1
+//      over W and RPT 4 over H give 384 blocks, one wave at three an SM.
+//   3. Loads D steps ahead (kDepth): with the shared-memory stream gone, the
+//      kernel waits on device memory, and a warp with one row has little else
+//      in flight.  At RPT 1 its loads run four steps ahead (0.084 -> 0.071 ms
+//      over W); at RPT 4 one step, with h_{t-1} copied by cp.async, since the
+//      registers of three blocks an SM (168 a thread) hold no more.
+// fp32 throughout with accurate tanhf; only the order of the sums differs
+// from the plain version.
+//
+// Measured (tpgsr_tpu_torch/bench_k1.py and ablate_k1.py --backward, H100 SXM
+// at 700 W): 0.0785 ms over W and 0.073 over H, 1.6-1.75x the byte bound.
+// Taking out the stores, the recompute or accurate tanhf each saves 10-15 us
+// over W, 5-11 us over H; the shuffles 4 us.  -Xptxas -v on sm_90a: H = 32:
+// 168 registers at RPT 1, 2 and 4; H = 16: 128, 135, 168; H = 8: 96, 95,
+// 126; no spills, no stack frame.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 3;  // blocks an SM the register budget is held to
+constexpr unsigned kFullMask = 0xffffffffu;
+// Steps a row's loads run ahead: four at one row a thread, where a warp has
+// one row in flight; at more rows a thread the registers hold one.
+template <int RPT>
+constexpr int kDepth = RPT == 1 ? 4 : 1;
+// Whether h_{t-1} reaches shared memory by cp.async (at four rows a thread,
+// where its registers would spill) or through a register.
+template <int RPT>
+constexpr bool kAsyncH = RPT == 4;
+// Buffers of h_{t-1} in shared memory: one a step in flight and the current.
+template <int RPT>
+constexpr int kHBuffers = kAsyncH<RPT> ? kDepth<RPT> + 1 : 2;
 
 // As in the forward: sigmoid(x) = tanh(x / 2) / 2 + 1 / 2.
 __device__ __forceinline__ float sigmoid_f32(float x) { return fmaf(0.5f, tanhf(0.5f * x), 0.5f); }
 
-template <int H>
+// 4 bytes from global to shared memory, in flight until a wait_group; zeros
+// where !valid (no byte is read then).
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float exchange(float x, int lane_mask) {
+  return __shfl_xor_sync(kFullMask, x, lane_mask);
+}
+
+template <int H, int RPT>
 struct Shape {
-  static constexpr int kRows = kThreads / H;  // rows of a block (threadIdx.y)
+  static constexpr int kGroups = kThreads / H;  // row groups (threadIdx.y)
+  static constexpr int kRows = kGroups * RPT;   // rows of a block
   static constexpr int kGates = 3 * H;
-  static constexpr int kStride = 3 * H + 4;   // padded row of w_t in shared memory
   static_assert(H % 4 == 0 && 32 % H == 0, "H must divide 32 and be a multiple of 4");
 };
 
-template <int H>
+template <int H, int RPT>
 constexpr size_t smem_bytes() {
-  using Sh = Shape<H>;
-  return sizeof(float) * (H * Sh::kStride + Sh::kRows * H + Sh::kRows * Sh::kGates);
+  return sizeof(float) * kHBuffers<RPT> * Shape<H, RPT>::kRows * H;  // h_{t-1}, [buffers][kRows][H]
 }
 
+// The levels of the reduce-scatter over j's bits above the lowest two: slot m
+// holds column m ^ P, and lane j keeps the columns whose bit Half equals its
+// own, which are slots 0 .. Half-1 for every lane.
+template <int N, int Half>
+__device__ __forceinline__ void fold_high(float (&v)[N]) {
+  if constexpr (Half >= 4) {
+#pragma unroll
+    for (int m = 0; m < Half; ++m) v[m] += exchange(v[m + Half], Half);
+    fold_high<N, Half / 2>(v);
+  }
+}
+
+// (W_hh^T dhp_t)_j, summed over the row's H lanes (part 1).  Lane j's term
+// for slot m is wr[m] dr^ + wz[m] dz^ + wn[m] (dn^ r); the first level folds
+// slots m and m + H/2 as they are formed, so that H/2 terms are live at once.
 template <int H>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float wt_dhp(const float (&wr)[H], const float (&wz)[H], const float (&wn)[H],
+                                        float dr, float dz, float dhn, int j) {
+  auto term = [&](int m) { return fmaf(wr[m], dr, fmaf(wz[m], dz, wn[m] * dhn)); };
+  float v[H / 2];
+#pragma unroll
+  for (int m = 0; m < H / 2; ++m) v[m] = term(m) + exchange(term(m + H / 2), H / 2);
+  fold_high<H / 2, H / 4>(v);
+  // v[0..3] now hold columns P .. P+3; lane j keeps P + 2 (j >> 1 & 1), then
+  // P + (j & 3).
+  const bool b1 = j & 2, b0 = j & 1;
+  const float u0 = (b1 ? v[2] : v[0]) + exchange(b1 ? v[0] : v[2], 2);
+  const float u1 = (b1 ? v[3] : v[1]) + exchange(b1 ? v[1] : v[3], 2);
+  return (b0 ? u1 : u0) + exchange(b0 ? u0 : u1, 1);
+}
+
+template <int H, int RPT>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     bigru_seq_backward_kernel(const float* __restrict__ xp, const float* __restrict__ w_t,
                               const float* __restrict__ b_hh, const float* __restrict__ out,
                               const float* __restrict__ grad_out, float* __restrict__ dxp,
                               float* __restrict__ dhp, float* __restrict__ h_prev_out, int n, int n_pad,
                               int t_len) {
-  using Sh = Shape<H>;
+  using Sh = Shape<H, RPT>;
   constexpr int G = Sh::kGates;
   const int j = threadIdx.x;
   const int g = threadIdx.y;
   const int dir = blockIdx.y;
-  const int row = blockIdx.x * Sh::kRows + g;
-  const bool valid = row < n;
+  const int lrow0 = g * RPT;                       // the thread's first row in the block
+  const int row0 = blockIdx.x * Sh::kRows + lrow0;  // ... and in the batch
+  const int perm = j & ~3;                         // P: the column permutation of the weights
+  const int quad = j >> 2;                         // P / 4
 
-  extern __shared__ __align__(16) float smem[];
-  float* w_s = smem;                                // [H][kStride]
-  float* h_row = w_s + H * Sh::kStride + g * H;     // this row's h_{t-1}
-  float* d_row = w_s + H * Sh::kStride + Sh::kRows * H + g * G;  // this row's dhp_t
+  extern __shared__ __align__(16) float smem[];  // h_{t-1} of the block's rows, [buffers][kRows][H]
 
+  // Row j of W_hh for each gate, slot m holding column m ^ P (part 1).
+  float wr[H], wz[H], wn[H];
   const float* w = w_t + static_cast<size_t>(dir) * H * G;
-  for (int idx = g * H + j; idx < H * G; idx += kThreads) w_s[idx / G * Sh::kStride + idx % G] = w[idx];
-  float wr[H], wz[H], wn[H];  // row j of W_hh for each gate, contiguous across j
 #pragma unroll
-  for (int k = 0; k < H; ++k) {
-    wr[k] = w[k * G + j];
-    wz[k] = w[k * G + H + j];
-    wn[k] = w[k * G + 2 * H + j];
+  for (int m = 0; m < H; ++m) {
+    const int k = m ^ perm;
+    wr[m] = w[k * G + j];
+    wz[m] = w[k * G + H + j];
+    wn[m] = w[k * G + 2 * H + j];
   }
   const float* b = b_hh + dir * G;
   const float br = b[j], bz = b[H + j], bn = b[2 * H + j];
-  __syncthreads();
 
-  // Rows beyond n run the loop on row 0's data (every lane of a warp must
-  // reach its barriers) and store nothing.
-  const size_t r = valid ? static_cast<size_t>(row) : 0;
-  const float* x_r = xp + r * t_len * 6 * H + dir * G;
-  const float* o_r = out + r * t_len * 2 * H + dir * H;
-  const float* go_r = grad_out + r * t_len * 2 * H + dir * H;
-  float* dx_r = dxp + r * t_len * 6 * H + dir * G;
-  float* dp_r = dhp + (static_cast<size_t>(dir) * n_pad + r) * t_len * G;
-  float* hp_r = h_prev_out + (static_cast<size_t>(dir) * n_pad + r) * t_len * H;
+  // Row i of the thread is row0 + i.  Rows beyond n run the loop on zeros
+  // (every lane of a warp must reach its shuffles and barriers) and store
+  // nothing.  Offsets are 32-bit element counts from the kernel's pointer
+  // arguments (the wrapper checks that they fit), so no pointer a row or an
+  // array takes registers.
+  unsigned valid = 0;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) valid |= static_cast<unsigned>(row0 + i < n) << i;
+  const int x_row = t_len * 6 * H, o_row = t_len * 2 * H;  // floats a row
+  const int x0 = row0 * x_row + dir * G + j;                // xp, dxp
+  const int o0 = row0 * o_row + dir * H + j;                // out, grad_out
+  const int p0 = (dir * n_pad + row0) * t_len;              // dhp, h_prev_out: row-steps
   auto time_of = [&](int s) { return dir ? t_len - 1 - s : s; };  // step s of this direction
 
-  int te = time_of(t_len - 1);
-  float nx_r = x_r[te * 6 * H + j], nx_z = x_r[te * 6 * H + H + j], nx_n = x_r[te * 6 * H + 2 * H + j];
-  float n_go = go_r[te * 2 * H + j];
-  float n_hp = t_len > 1 ? o_r[time_of(t_len - 2) * 2 * H + j] : 0.f;
-  float dh_next = 0.f;
-
-  for (int s = t_len - 1; s >= 0; --s) {
-    te = time_of(s);
-    const float xr = nx_r, xz = nx_z, xn = nx_n, go = n_go, h_prev = n_hp;
-    if (s > 0) {  // step s-1's loads, in flight while this step computes
-      const int tp = time_of(s - 1);
-      nx_r = x_r[tp * 6 * H + j];
-      nx_z = x_r[tp * 6 * H + H + j];
-      nx_n = x_r[tp * 6 * H + 2 * H + j];
-      n_go = go_r[tp * 2 * H + j];
-      n_hp = s > 1 ? o_r[time_of(s - 2) * 2 * H + j] : 0.f;
+  // Each input of row i is loaded D steps ahead (D = kDepth<RPT>).  xp's
+  // three gates and grad_out go to registers, each into the one its value
+  // has just left once the gates and dh have read it, and so does h_{t-1}
+  // (out at the direction's previous step, 0 at its first) once it is in
+  // the step's buffer in shared memory, s % 2.  The steps run D at a time,
+  // step s from register set (t_len - 1 - s) % D, so that every set's index
+  // is known to the compiler.  With kAsyncH, h_{t-1} goes by cp.async
+  // straight to the buffer s % (D + 1) instead, one commit group a step.
+  constexpr int D = kDepth<RPT>;
+  constexpr int NB = kHBuffers<RPT>;
+  float x_r[D][RPT], x_z[D][RPT], x_n[D][RPT], go[D][RPT], hp[D][RPT], dh_next[RPT];
+  auto load_x = [&](int s, int d, int i) {
+    const bool ok = ((valid >> i) & 1u) && s >= 0;
+    const int x = x0 + i * x_row + time_of(s) * 6 * H;
+    x_r[d][i] = ok ? xp[x] : 0.f;
+    x_z[d][i] = ok ? xp[x + H] : 0.f;
+    x_n[d][i] = ok ? xp[x + 2 * H] : 0.f;
+    go[d][i] = ok ? grad_out[o0 + i * o_row + time_of(s) * 2 * H] : 0.f;
+  };
+  auto h_src = [&](int s, int i) { return out + o0 + i * o_row + time_of(s - 1) * 2 * H; };
+  auto load_h = [&](int s, int d, int i) {
+    hp[d][i] = ((valid >> i) & 1u) && s > 0 ? *h_src(s, i) : 0.f;
+  };
+  auto stage_h = [&](int s) {
+    float* hb = smem + (s % NB) * Sh::kRows * H;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const bool ok = ((valid >> i) & 1u) && s > 0;
+      cp_async4(hb + (lrow0 + i) * H + j, ok ? h_src(s, i) : out, ok);
     }
+  };
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      load_x(t_len - 1 - d, d, i);
+      if constexpr (!kAsyncH<RPT>) load_h(t_len - 1 - d, d, i);
+    }
+    if constexpr (kAsyncH<RPT>) {
+      if (t_len - 1 - d >= 0) stage_h(t_len - 1 - d);
+      cp_async_commit();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) dh_next[i] = 0.f;
 
-    // The row's h_{t-1} in shared memory.  The previous step's barrier
-    // after d_row's stores closed its reads of h_row.
-    h_row[j] = h_prev;
-    __syncwarp();
-    float ar = br, az = bz, an = bn;
+  for (int s0 = t_len - 1; s0 >= 0; s0 -= D) {
 #pragma unroll
-    for (int k = 0; k < H; k += 4) {
-      const float4 h4 = *reinterpret_cast<const float4*>(h_row + k);
-      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+    for (int d = 0; d < D; ++d) {  // step s from input set d
+      const int s = s0 - d;
+      if (s < 0) break;
+      const int te = time_of(s);
+      float* hb = smem + (s % NB) * Sh::kRows * H;
+      if constexpr (kAsyncH<RPT>) {
+        // Step s's group is complete once at most D - 1 newer ones are
+        // pending; the barrier makes every lane's copy visible and closes the
+        // reads of step s+1, whose buffer the copy for step s - D overwrites.
+        cp_async_wait<D - 1>();
+        __syncwarp();
+        if (s - D >= 0) stage_h(s - D);
+        cp_async_commit();
+      } else {
+        // The barrier also closes the reads of step s+1, whose buffer step
+        // s-1 overwrites.
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        ar = fmaf(wr[k + q], hv[q], ar);
-        az = fmaf(wz[k + q], hv[q], az);
-        an = fmaf(wn[k + q], hv[q], an);
+        for (int i = 0; i < RPT; ++i) {
+          hb[(lrow0 + i) * H + j] = hp[d][i];
+          load_h(s - D, d, i);
+        }
+        __syncwarp();
+      }
+
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        // The recompute: W_hh h_{t-1} + b_hh for unit j, columns in slot order.
+        const float* hrow = hb + (lrow0 + i) * H;
+        float ar[2] = {br, 0.f}, az[2] = {bz, 0.f}, an[2] = {bn, 0.f};
+#pragma unroll
+        for (int a = 0; a < H / 4; ++a) {
+          const float4 h4 = *reinterpret_cast<const float4*>(hrow + 4 * (a ^ quad));
+          const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            ar[q & 1] = fmaf(wr[4 * a + q], hv[q], ar[q & 1]);
+            az[q & 1] = fmaf(wz[4 * a + q], hv[q], az[q & 1]);
+            an[q & 1] = fmaf(wn[4 * a + q], hv[q], an[q & 1]);
+          }
+        }
+        const float h_prev = hrow[j];
+        const float hn = an[0] + an[1];
+        const float rg = sigmoid_f32(x_r[d][i] + (ar[0] + ar[1]));
+        const float zg = sigmoid_f32(x_z[d][i] + (az[0] + az[1]));
+        const float ng = tanhf(x_n[d][i] + rg * hn);
+        const float dh = go[d][i] + dh_next[i];
+        load_x(s - D, d, i);
+
+        const float dn_hat = dh * (1.0f - zg) * (1.0f - ng * ng);
+        const float dr_hat = dn_hat * hn * rg * (1.0f - rg);
+        const float dz_hat = dh * (h_prev - ng) * zg * (1.0f - zg);
+        const float dhn_j = dn_hat * rg;
+        if ((valid >> i) & 1u) {
+          const int x = x0 + i * x_row + te * 6 * H, p = p0 + i * t_len + te;
+          dxp[x] = dr_hat;
+          dxp[x + H] = dz_hat;
+          dxp[x + 2 * H] = dn_hat;
+          dhp[p * G + j] = dr_hat;
+          dhp[p * G + H + j] = dz_hat;
+          dhp[p * G + 2 * H + j] = dhn_j;
+          h_prev_out[p * H + j] = h_prev;
+        }
+        dh_next[i] = fmaf(dh, zg, wt_dhp<H>(wr, wz, wn, dr_hat, dz_hat, dhn_j, j));
       }
     }
-    const float rg = sigmoid_f32(xr + ar);
-    const float zg = sigmoid_f32(xz + az);
-    const float ng = tanhf(xn + rg * an);
-
-    const float dh = go + dh_next;
-    const float dn_hat = dh * (1.0f - zg) * (1.0f - ng * ng);
-    const float dr_hat = dn_hat * an * rg * (1.0f - rg);
-    const float dz_hat = dh * (h_prev - ng) * zg * (1.0f - zg);
-    const float dhn_j = dn_hat * rg;
-    if (valid) {
-      float* dx = dx_r + static_cast<size_t>(te) * 6 * H;
-      dx[j] = dr_hat;
-      dx[H + j] = dz_hat;
-      dx[2 * H + j] = dn_hat;
-      float* dp = dp_r + static_cast<size_t>(te) * G;
-      dp[j] = dr_hat;
-      dp[H + j] = dz_hat;
-      dp[2 * H + j] = dhn_j;
-      hp_r[static_cast<size_t>(te) * H + j] = h_prev;
-    }
-
-    // The row's dhp_t in shared memory; this barrier also closes the reads
-    // of h_row above, and the next step's first barrier closes the reads of
-    // d_row below.
-    d_row[j] = dr_hat;
-    d_row[H + j] = dz_hat;
-    d_row[2 * H + j] = dhn_j;
-    __syncwarp();
-    // (W_hh^T dhp_t)_j = sum_i w_t[j][i] dhp_t[i]: row j of w_t, four chains.
-    const float* wj = w_s + j * Sh::kStride;
-    float acc[4] = {dh * zg, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < G; i += 4) {
-      const float4 wv = *reinterpret_cast<const float4*>(wj + i);
-      const float4 dv = *reinterpret_cast<const float4*>(d_row + i);
-      acc[0] = fmaf(wv.x, dv.x, acc[0]);
-      acc[1] = fmaf(wv.y, dv.y, acc[1]);
-      acc[2] = fmaf(wv.z, dv.z, acc[2]);
-      acc[3] = fmaf(wv.w, dv.w, acc[3]);
-    }
-    dh_next = (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
 }
 
-template <int H>
-int launch(const float* xp, const float* w_t, const float* b_hh, const float* out, const float* grad_out,
-           float* dxp, float* dhp, float* h_prev, int n, int n_pad, int t_len, cudaStream_t stream) {
-  static_assert(smem_bytes<H>() <= 48 * 1024, "shared memory beyond the default 48 KB needs an opt-in");
-  constexpr int rows = Shape<H>::kRows;
-  const dim3 grid((n + rows - 1) / rows, 2);
-  const dim3 block(H, rows);
-  bigru_seq_backward_kernel<H><<<grid, block, smem_bytes<H>(), stream>>>(xp, w_t, b_hh, out, grad_out, dxp, dhp,
-                                                                         h_prev, n, n_pad, t_len);
-  return static_cast<int>(cudaGetLastError());
+// Ops run by dispatch() on the kernel instantiation of (hidden, rpt).
+struct Backward {
+  const float *xp, *w_t, *b_hh, *out, *grad_out;
+  float *dxp, *dhp, *h_prev;
+  int n, n_pad, t_len;
+  cudaStream_t stream;
+
+  template <int H, int RPT>
+  int run() const {
+    static_assert(smem_bytes<H, RPT>() <= 48 * 1024, "shared memory beyond the default 48 KB needs an opt-in");
+    constexpr int rows = Shape<H, RPT>::kRows;
+    const dim3 grid((n + rows - 1) / rows, 2);
+    const dim3 block(H, kThreads / H);
+    bigru_seq_backward_kernel<H, RPT><<<grid, block, smem_bytes<H, RPT>(), stream>>>(
+        xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev, n, n_pad, t_len);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct Occupancy {
+  int* blocks;
+
+  template <int H, int RPT>
+  int run() const {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, bigru_seq_backward_kernel<H, RPT>, kThreads, smem_bytes<H, RPT>()));
+  }
+};
+
+template <int H, class Op>
+int by_rpt(const Op& op, int rpt) {
+  switch (rpt) {
+    case 1:
+      return op.template run<H, 1>();
+    case 2:
+      return op.template run<H, 2>();
+    case 4:
+      return op.template run<H, 4>();
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <class Op>
+int dispatch(const Op& op, int hidden, int rpt) {
+  switch (hidden) {
+    case 8:
+      return by_rpt<8>(op, rpt);
+    case 16:
+      return by_rpt<16>(op, rpt);
+    case 32:
+      return by_rpt<32>(op, rpt);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// Returns a cudaError_t as int: 0 on success.
+// Both return a cudaError_t as int: 0 on success.
 extern "C" int tpgsr_bigru_seq_backward(const float* xp, const float* w_t, const float* b_hh, const float* out,
                                         const float* grad_out, float* dxp, float* dhp, float* h_prev, int n,
-                                        int n_pad, int t_len, int hidden, void* stream) {
+                                        int n_pad, int t_len, int hidden, int rpt, void* stream) {
   if (n <= 0 || t_len <= 0 || n_pad < n) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hidden) {
-    case 8:
-      return launch<8>(xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev, n, n_pad, t_len, s);
-    case 16:
-      return launch<16>(xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev, n, n_pad, t_len, s);
-    case 32:
-      return launch<32>(xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev, n, n_pad, t_len, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Backward op{xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev, n, n_pad, t_len,
+                    static_cast<cudaStream_t>(stream)};
+  return dispatch(op, hidden, rpt);
+}
+
+// Resident blocks an SM for the instantiation (hidden, rpt), written to *blocks.
+extern "C" int tpgsr_bigru_seq_backward_occupancy(int hidden, int rpt, int* blocks) {
+  const Occupancy op{blocks};
+  return dispatch(op, hidden, rpt);
 }

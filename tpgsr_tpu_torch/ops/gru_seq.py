@@ -10,8 +10,9 @@ sources are ``csrc/bigru_seq.cu`` (forward) and ``csrc/bigru_seq_bwd.cu``
 * A CUDA tensor launches the kernels or raises; nothing falls back.
 * ``LAUNCHES`` and ``BACKWARD_LAUNCHES`` count kernel launches, so a run can
   show that its main path went through the kernels.
-* The forward's launch configuration (rows a thread, grid) comes from
-  ``launch_config``, a pure function of the shape and the card's limits.
+* Each kernel's launch configuration (rows a thread, grid) comes from
+  ``launch_config``, a pure function of the shape and the card's limits,
+  fed that kernel's own occupancy.
 * The backward kernel writes dxp, and dhp and h_{t-1} laid out per
   direction; dW_hh and db_hh are one batched GEMM and one sum outside it
   (``recurrent_weight_grads``), and the input projection's gradients come
@@ -81,34 +82,39 @@ def _bwd_lib() -> ctypes.CDLL:
     from tpgsr_tpu_torch.ops import _build
 
     lib = _build.load("bigru_seq_bwd")
-    lib.tpgsr_bigru_seq_backward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.tpgsr_bigru_seq_backward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.tpgsr_bigru_seq_backward.restype = ctypes.c_int
+    lib.tpgsr_bigru_seq_backward_occupancy.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tpgsr_bigru_seq_backward_occupancy.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _device_limits(index: int, hidden: int) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
-    """(SMs, ((rpt, resident blocks an SM), ...)) of card ``index``."""
-    lib = _lib()
+def _device_limits(index: int, hidden: int, backward: bool = False) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
+    """(SMs, ((rpt, resident blocks an SM), ...)) of card ``index`` for the
+    forward kernel, or the backward's with ``backward``."""
+    query = _bwd_lib().tpgsr_bigru_seq_backward_occupancy if backward else _lib().tpgsr_bigru_seq_occupancy
     occupancy = []
     with torch.cuda.device(index):
         for rpt in RPTS:
             blocks = ctypes.c_int(0)
-            err = lib.tpgsr_bigru_seq_occupancy(hidden, rpt, ctypes.byref(blocks))
+            err = query(hidden, rpt, ctypes.byref(blocks))
             if err != 0:
                 raise RuntimeError(f"K1 occupancy query failed: cudaError {err}")
             occupancy.append((rpt, blocks.value))
     return torch.cuda.get_device_properties(index).multi_processor_count, tuple(occupancy)
 
 
-def config_for(n: int, hidden: int, device: torch.device) -> LaunchConfig:
-    """The launch configuration K1 takes for ``n`` rows on CUDA ``device``."""
-    return _config(device.index if device.index is not None else torch.cuda.current_device(), n, hidden)
+def config_for(n: int, hidden: int, device: torch.device, backward: bool = False) -> LaunchConfig:
+    """The launch configuration K1's forward (or, with ``backward``, its
+    backward) takes for ``n`` rows on CUDA ``device``."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _config(index, n, hidden, backward)
 
 
 @functools.lru_cache(maxsize=1024)
-def _config(index: int, n: int, hidden: int) -> LaunchConfig:
-    sms, occupancy = _device_limits(index, hidden)
+def _config(index: int, n: int, hidden: int, backward: bool) -> LaunchConfig:
+    sms, occupancy = _device_limits(index, hidden, backward)
     return launch_config(n, hidden, sms, dict(occupancy))
 
 
@@ -174,11 +180,14 @@ def _chunk_rows(t: int) -> int:
 
 
 def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, out: torch.Tensor,
-                     grad_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                     grad_out: torch.Tensor, config: Optional[LaunchConfig] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run K1's backward kernel: ``xp`` [N, T, 6H], ``w_t`` [2, H, 3H], ``b_hh``
     [2, 3H], the forward's ``out`` and ``grad_out`` [N, T, 2H] -> (dxp [N, T,
     6H], dhp [2, Np, T, 3H], h_{t-1} [2, Np, T, H]), N padded with zero rows
-    to Np, a multiple of the GEMM's chunk of rows."""
+    to Np, a multiple of the GEMM's chunk of rows.  ``config`` overrides
+    ``config_for(..., backward=True)`` (the tests use it to reach every
+    instantiation)."""
     global BACKWARD_LAUNCHES
     n, t, g6 = xp.shape
     h = g6 // 6
@@ -194,8 +203,12 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
             raise ValueError(f"{name} must be contiguous {xp.dtype} on {xp.device}")
         if tensor.data_ptr() % 4:
             raise ValueError(f"{name} must be 4-byte aligned (the kernel reads fp32 scalars)")
+    if config is None:
+        config = config_for(n, h, xp.device, backward=True)
     rows = _chunk_rows(t)
     n_pad = -(-n // rows) * rows
+    if (n_pad + 64) * t * 6 * h >= 2**31:
+        raise ValueError(f"K1's backward indexes with 32-bit offsets: N={n}, T={t}, H={h} is too large")
     dxp = torch.empty_like(xp)
     dhp = xp.new_empty(2, n_pad, t, 3 * h)
     h_prev = xp.new_empty(2, n_pad, t, h)
@@ -206,7 +219,7 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = fn(xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
-                 dxp.data_ptr(), dhp.data_ptr(), h_prev.data_ptr(), n, n_pad, t, h, stream)
+                 dxp.data_ptr(), dhp.data_ptr(), h_prev.data_ptr(), n, n_pad, t, h, config.rpt, stream)
     if err != 0:
         raise RuntimeError(f"K1 bigru_seq backward launch failed: cudaError {err}")
     BACKWARD_LAUNCHES += 1

@@ -9,9 +9,11 @@ earlier stage's SR for the word accuracies: what ``TextSR.test()`` and
 teacher's softmax on HR is the distillation target, and the step ends with
 backward, the SR clip and Adam.
 
-Batches are float NHWC in [0, 1] with the mask channel attached:
-``hr`` [B, 2h, 2w, 4], ``lr`` [B, h, w, 4].  Outputs keep the JAX layouts:
-``sr`` NHWC, per-sample ``mse`` and ``ssim`` [B], logits [T, B, C].
+Batches are NHWC with the mask channel attached, float in [0, 1] or uint8
+(the compact wire, divided by 255 on the device): ``hr`` [B, 2h, 2w, 4],
+``lr`` [B, h, w, 4].  Outputs keep the JAX layouts: ``sr`` NHWC, per-sample
+``mse`` and ``ssim`` [B], logits [T, B, C].  Only the ``tsrn_tl_cascade``
+arch is ported; the factories raise for any other.
 """
 
 from __future__ import annotations
@@ -58,15 +60,33 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def _as_image(arr, dev: torch.device) -> torch.Tensor:
+    """Batch image -> fp32 in [0, 1] on ``dev`` (tpgsr_tpu/train/step.py,
+    ``_as_image``): a uint8 array crosses as uint8 and is divided by 255 on
+    the device, in fp32; any other is cast to fp32."""
+    t = torch.as_tensor(arr)
+    if t.dtype == torch.uint8:
+        return t.to(dev, non_blocking=True).to(torch.float32) / 255.0
+    return t.to(dev, torch.float32, non_blocking=True)
+
+
+def _check_arch(args: Mapping) -> None:
+    arch = args.get("arch", "tsrn_tl_cascade")
+    if arch != "tsrn_tl_cascade":
+        raise NotImplementedError(f"arch {arch!r} is not ported: the steps run the tsrn_tl_cascade branch only")
+
+
 EvalStep = Callable[[EvalModels, Mapping[str, np.ndarray]], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
 def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -> EvalStep:
     """``eval_step(models, batch) -> (sr, outs)``.
 
-    ``args`` reads ``stu_iter``, ``sr_share`` and ``tpg_share`` as the CLI
-    names them; ``width`` is TRAIN.width (it sets the CRNN input width).
-    The batch's arrays go to ``device`` (the card unless told otherwise)."""
+    ``args`` reads ``arch``, ``stu_iter``, ``sr_share`` and ``tpg_share`` as
+    the CLI names them; ``width`` is TRAIN.width (it sets the CRNN input
+    width).  The batch's arrays go to ``device`` (the card unless told
+    otherwise)."""
+    _check_arch(args)
     dev = resolve_device(device)
     stu_iter = int(args.get("stu_iter", 1))
     sr_share = bool(args.get("sr_share", False))
@@ -78,8 +98,7 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
 
     @torch.no_grad()
     def eval_step(models: EvalModels, batch: Mapping[str, np.ndarray]):
-        hr = torch.as_tensor(batch["hr"], dtype=torch.float32).to(dev, non_blocking=True)
-        lr = torch.as_tensor(batch["lr"], dtype=torch.float32).to(dev, non_blocking=True)
+        hr, lr = _as_image(batch["hr"], dev), _as_image(batch["lr"], dev)
         cascade = lr
         sr_list = []
         for i in range(stu_iter):
@@ -120,11 +139,12 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None) 
     runs its SR model in train mode on the LR and adds ``image_loss x 100``
     (with the gradient prior when ``gradient``).  Gradients flow through the
     whole cascade; then each SR model is clipped and Adam steps.  BatchNorm
-    running statistics update by torch's own rule.  ``args`` reads
+    running statistics update by torch's own rule.  ``args`` reads ``arch``,
     ``stu_iter``, ``sr_share``, ``tpg_share``, ``use_distill`` and
     ``gradient`` as the CLI names them; ``use_label`` and ``ssim_loss`` are
     not ported and raise.  Metrics are detached tensors on the device:
     ``loss_img_{i}``, ``loss_img``, ``loss_distill``, ``loss_total``."""
+    _check_arch(args)
     for name in _NOT_PORTED:
         if args.get(name, False):
             raise NotImplementedError(f"--{name} is not ported to the train step yet")
@@ -137,8 +157,7 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None) 
     cw = crnn_width(int(width))
 
     def train_step(state: TrainState, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        hr = torch.as_tensor(batch["hr"], dtype=torch.float32).to(dev, non_blocking=True)
-        lr = torch.as_tensor(batch["lr"], dtype=torch.float32).to(dev, non_blocking=True)
+        hr, lr = _as_image(batch["hr"], dev), _as_image(batch["lr"], dev)
         for m in (*state.sr, *state.stu):
             m.train()
         state.optimizer.zero_grad(set_to_none=True)
