@@ -51,9 +51,11 @@
 //      over W and RPT 4 over H give 384 blocks, one wave at three an SM.
 //   3. Loads D steps ahead (kDepth): with the shared-memory stream gone, the
 //      kernel waits on device memory, and a warp with one row has little else
-//      in flight.  At RPT 1 its loads run four steps ahead (0.084 -> 0.071 ms
-//      over W); at RPT 4 one step, with h_{t-1} copied by cp.async, since the
-//      registers of three blocks an SM (168 a thread) hold no more.
+//      in flight.  At RPT 1 its loads run four steps ahead; at RPT 4 one
+//      step, with h_{t-1} copied by cp.async, since the registers of three
+//      blocks an SM (168 a thread) hold no more.  At the 168-register cap
+//      ptxas's allocation moves with small edits of this source: chip_smoke.py
+//      checks every instantiation for spills.
 // fp32 throughout with accurate tanhf; only the order of the sums differs
 // from the plain version.
 //

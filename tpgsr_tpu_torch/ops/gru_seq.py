@@ -90,7 +90,7 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_limits(index: int, hidden: int, backward: bool = False) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
+def _device_limits(index: int, hidden: int, backward: bool) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
     """(SMs, ((rpt, resident blocks an SM), ...)) of card ``index`` for the
     forward kernel, or the backward's with ``backward``."""
     query = _bwd_lib().tpgsr_bigru_seq_backward_occupancy if backward else _lib().tpgsr_bigru_seq_occupancy
