@@ -27,7 +27,19 @@ package beside this script):
    from the same weights and batch: losses, every gradient, BN statistics;
 8. training: 20 flagship train steps at batch 48 after 2 warm-up steps, with
    K1's forward and backward launches counted on that run alone, images/s
-   by CUDA events and peak memory.
+   by CUDA events and peak memory;
+9. the TextZoom data path: a synthetic TextZoom at full geometry written
+   with the port's ``write_lmdb`` (two train LMDBs of 22 x 48 pairs in all,
+   val splits of 162, 141 and 134), then (a) the card's contour mask from a
+   pinned loader batch against the host collate's, byte for byte, and one
+   ``--use_label`` train step on a loader batch on the card against the
+   CPU; (b) the loader alone, epochs 1 and 2, one worker; (c) 20 flagship
+   train steps at batch 48 from ``train_loader`` after 2 warm-up steps,
+   K1's launches counted; (d) ``evaluate`` over the three ``val_loaders``,
+   a second pass timed, K1's launches counted, then the same batches
+   preloaded, for the twin of the same shapes.  (b) and (c) also run the
+   same dataset and collate through torch's default wire (tensors from the
+   workers, pinned by the ``DataLoader``) for comparison.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -35,21 +47,31 @@ The line before the last is ``{"kernels": [...]}``; the last is
 
 from __future__ import annotations
 
+import functools
+import io
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+from PIL import Image, ImageDraw
 
 from tpgsr_tpu_torch import entry
 from tpgsr_tpu_torch.bench_k1 import device_ms, ptxas_report
+from tpgsr_tpu_torch.data.datasets import ConcatDataset, TextZoomDataset
+from tpgsr_tpu_torch.data.lmdb import write_lmdb
+from tpgsr_tpu_torch.data.loader import EpochBatchSampler
 from tpgsr_tpu_torch.ops import _build, gru_seq, rnn
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
+from tpgsr_tpu_torch.ops.image import append_contour_mask_u8
+from tpgsr_tpu_torch.train import trainer
 from tpgsr_tpu_torch.train.evaluate import evaluate
+from tpgsr_tpu_torch.train.step import make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 outside the
 # tensor cores; the comparisons run in full fp32 (TF32 off).
@@ -62,6 +84,10 @@ TRAIN_STEPS = 20
 TRAIN_WARMUP = 2
 CARD_VS_CPU_TRAIN_BATCH = 8
 N_SRB = 5  # flagship SRBs; each runs K1 once over W and once over H
+# the synthetic TextZoom: train pairs in two LMDBs, and a tenth of TextZoom's
+# easy / medium / hard val splits (1,619 / 1,411 / 1,343), each ending short
+TRAIN_PAIRS = (TRAIN_WARMUP + TRAIN_STEPS) * BATCH
+VAL_PAIRS = (162, 141, 134)
 
 
 # conv biases that a BatchNorm follows in train mode: zero gradient in exact arithmetic
@@ -274,7 +300,7 @@ def phase_serve(models, step):
              "event_s": event_s, "host_s": host_s, "k1_launches": launches,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     print("serve " + json.dumps(serve), flush=True)
-    return launches
+    return launches, serve["images_per_s"]
 
 
 def bigru_backward_bound_ms(n: int, t: int, h: int):
@@ -469,7 +495,238 @@ def phase_train():
              "loss_first": losses[0], "loss_last": losses[-1],
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     print("train " + json.dumps(train), flush=True)
-    return launches, backward_launches
+    return launches, backward_launches, train["images_per_s"]
+
+
+# the word renderer of tests/fixtures.py: text on a dark background, noise
+def render_word(word: str, size, seed: int = 0) -> Image.Image:
+    rng = np.random.default_rng(seed)
+    bg = rng.integers(0, 80, 3)
+    img = Image.new("RGB", size, tuple(int(c) for c in bg))
+    d = ImageDraw.Draw(img)
+    d.text((2, 2), word, fill=(int(200 + rng.integers(0, 55)),) * 3)
+    arr = np.asarray(img, np.float32)
+    noise = rng.normal(0, 8, arr.shape)
+    return Image.fromarray(np.clip(arr + noise, 0, 255).astype(np.uint8))
+
+
+def _jpeg(img: Image.Image) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, "JPEG", quality=92)
+    return buf.getvalue()
+
+
+def make_textzoom_lmdb(path: str, n: int, seed: int) -> str:
+    """An lmdbDataset_real-style LMDB of ``n`` pairs (HR 128x32, LR 64x16
+    JPEGs) of seeded words of 3 to 10 letters and digits."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.array(list("0123456789abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    items = [(b"num-samples", str(n).encode())]
+    for i in range(1, n + 1):
+        word = "".join(rng.choice(alphabet, rng.integers(3, 11)))
+        hr = render_word(word, (128, 32), seed=seed * 100_000 + i)
+        items.append((b"label-%09d" % i, word.encode()))
+        items.append((b"image_hr-%09d" % i, _jpeg(hr)))
+        items.append((b"image_lr-%09d" % i, _jpeg(hr.resize((64, 16), Image.BICUBIC))))
+    write_lmdb(path, items)
+    return path
+
+
+def loader_kw(batch: int, device: str, workers: int = 1):
+    """The flagship's TRAIN keys for the loaders: 128x32, batch ``batch``,
+    the trainer's defaults otherwise (uint8 wire, mask on the device, decode
+    cache, seed 1234, voc_type 'all')."""
+    return dict(batch_size=batch, height=32, width=128, workers=workers, device=device)
+
+
+def phase_data_card_vs_cpu(train_dirs, val_dirs):
+    """(a) The contour mask appended on the card to the first batch of a
+    pinned val loader (uint8 RGB) against the host collate's mask on the same
+    items, byte for byte; one ``--use_label`` train step on the first batch of
+    a train loader, on the card and on the CPU from the same seeded weights:
+    losses at rtol 1e-5."""
+    loader = trainer.val_loaders(val_dirs[:1], "tsrn_tl_cascade", mask=True, **loader_kw(BATCH, "cuda"))[0]
+    batch = next(iter(loader))
+    check(batch["hr"].is_pinned() and batch["hr"].shape == (BATCH, 32, 128, 3), "val batch not pinned uint8 RGB")
+    ds = TextZoomDataset(val_dirs[0], voc_type="all")
+    host = trainer.make_collate("tsrn_tl_cascade", False, mask=True, device_mask=False)([ds[i] for i in range(BATCH)])
+    for k in ("hr", "lr"):
+        card = append_contour_mask_u8(batch[k].cuda(non_blocking=True)).cpu()
+        check(torch.equal(card, torch.from_numpy(host[k])), f"{k}: the card's contour mask differs from the host "
+              "collate's")
+    del loader
+
+    args = dict(entry.FLAGSHIP_ARGS, use_label=True)
+    cpu_batch = next(iter(trainer.train_loader(train_dirs, "tsrn_tl_cascade", mask=True,
+                                               **loader_kw(CARD_VS_CPU_TRAIN_BATCH, "cpu", workers=0))))
+    check(cpu_batch["ctc_lengths"].min().item() > 0, "a train word without a CTC label")
+    losses = []
+    for dev in ("cuda", "cpu"):
+        state, _ = entry.flagship_train(device=dev, seed=0)
+        step = make_train_step(args, entry.TRAIN_WIDTH, device=dev)
+        losses.append({k: float(v) for k, v in step(state, cpu_batch).items()})
+    card, cpu = losses
+    for k in cpu:
+        check(np.isfinite(card[k]) and abs(card[k] - cpu[k]) <= 1e-5 * abs(cpu[k]),
+              f"use_label train {k}: card {card[k]} vs CPU {cpu[k]}")
+    print(f"data card vs CPU: contour masks equal on {BATCH} val pairs; use_label losses (batch "
+          f"{CARD_VS_CPU_TRAIN_BATCH}) card {card} CPU {cpu}", flush=True)
+    return card
+
+
+def tensor_collate(collate, items):
+    """The port's collate with its arrays as tensors: what torch's default
+    wire sends from a worker (through shared memory), for comparison."""
+    return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in collate(items).items()}
+
+
+def tensor_wire_loader(train_dirs):
+    """The train loader's dataset, batches and collate in a plain
+    ``DataLoader`` that ships tensors and pins them in its own thread."""
+    ds = ConcatDataset([TextZoomDataset(d, voc_type="all", cache_images=True) for d in train_dirs])
+    collate = functools.partial(tensor_collate, trainer.make_collate("tsrn_tl_cascade", True, mask=True))
+    return torch.utils.data.DataLoader(
+        ds, batch_sampler=EpochBatchSampler(len(ds), BATCH, True, True, 1234), collate_fn=collate, num_workers=1,
+        pin_memory=True, multiprocessing_context="forkserver", persistent_workers=True,
+        generator=torch.Generator().manual_seed(1234))
+
+
+def port_loader(train_dirs):
+    return trainer.train_loader(train_dirs, "tsrn_tl_cascade", mask=True, **loader_kw(BATCH, "cuda"))
+
+
+def phase_loader_only(name: str, loader):
+    """(b) A train loader alone (one worker, pinned), two epochs: the first
+    batch (worker start-up included) apart, then pairs/s."""
+    out = {"wire": name}
+    for epoch in (1, 2):
+        t0 = time.perf_counter()
+        it = iter(loader)
+        next(it)
+        t1 = time.perf_counter()
+        rest = sum(1 for _ in it)
+        t2 = time.perf_counter()
+        out[f"epoch{epoch}_first_batch_s"] = t1 - t0
+        out[f"epoch{epoch}_pairs_per_s"] = rest * BATCH / (t2 - t1)
+        out[f"epoch{epoch}_batches"] = rest + 1
+    check(out["epoch1_batches"] == out["epoch2_batches"] == TRAIN_WARMUP + TRAIN_STEPS, "loader batch count")
+    print("loader " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_lmdb_train(name: str, loader):
+    """(c) 20 flagship train steps at batch 48 from a fresh train loader (one
+    worker, cold decode: one epoch is the 22 batches), after 2 warm-up steps;
+    the time the host waited on the loader is counted apart."""
+    state, step = entry.flagship_train(device="cuda", seed=0)
+    it = iter(loader)
+    for _ in range(TRAIN_WARMUP):
+        step(state, next(it))
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gru_seq.LAUNCHES = 0
+    gru_seq.BACKWARD_LAUNCHES = 0
+    wait_s = 0.0
+    start.record()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(TRAIN_STEPS):
+        w0 = time.perf_counter()
+        batch = next(it)
+        wait_s += time.perf_counter() - w0
+        metrics.append(step(state, batch))
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches, backward_launches = gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES
+    event_s = start.elapsed_time(end) / 1e3
+    check(all(np.isfinite(float(v)) for m in metrics for v in m.values()), "non-finite LMDB-fed train loss")
+    want = 2 * N_SRB * TRAIN_STEPS
+    check(launches == want, f"K1 forward launched {launches} times in LMDB-fed training, expected {want}")
+    check(backward_launches == want, f"K1 backward launched {backward_launches} times in LMDB-fed training, "
+          f"expected {want}")
+    out = {"wire": name, "batch": BATCH, "steps": TRAIN_STEPS, "images_per_s": BATCH * TRAIN_STEPS / event_s,
+           "ms_per_step": event_s * 1e3 / TRAIN_STEPS, "event_s": event_s, "host_s": host_s,
+           "loader_wait_s": wait_s, "k1_launches": launches, "k1_backward_launches": backward_launches,
+           "loss_first": float(metrics[0]["loss_total"]), "loss_last": float(metrics[-1]["loss_total"])}
+    print("lmdb train " + json.dumps(out), flush=True)
+    return out
+
+
+def timed_eval(step, models, splits):
+    """(images/s by CUDA events, host s, metric dicts) of ``evaluate`` over
+    each split's batches in turn."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    per_split = [evaluate(step, models, batches) for batches in splits]
+    end.record()
+    torch.cuda.synchronize()
+    return sum(VAL_PAIRS) / (start.elapsed_time(end) / 1e3), time.perf_counter() - t0, per_split
+
+
+def phase_lmdb_eval(val_dirs):
+    """(d) ``evaluate`` over the three ``val_loaders`` (one worker each, the
+    short last batches unpadded): a first pass starts the workers and fills
+    the caches, the second is timed by CUDA events with K1's launches
+    counted.  Then the same batches, preloaded: the twin with the same
+    shapes, which tells the loader's share from the short batches'."""
+    models, step = entry.flagship(device="cuda", seed=0)
+    loaders = trainer.val_loaders(val_dirs, "tsrn_tl_cascade", mask=True, **loader_kw(BATCH, "cuda"))
+    for loader in loaders:
+        evaluate(step, models, loader)
+    gru_seq.LAUNCHES = 0
+    images_per_s, host_s, per_split = timed_eval(step, models, loaders)
+    launches = gru_seq.LAUNCHES
+    preloaded_ips, _, preloaded = timed_eval(step, models, [list(loader) for loader in loaders])
+    for got, want in zip(preloaded, per_split):
+        check(all(got[k] == want[k] if k.startswith(("accuracy", "images")) else np.isclose(got[k], want[k], rtol=1e-5)
+                  for k in want), f"preloaded val batches: {got} against the loaders' {want}")
+    n_images = sum(VAL_PAIRS)
+    n_batches = sum(-(-n // BATCH) for n in VAL_PAIRS)
+    for n, m in zip(VAL_PAIRS, per_split):
+        print("lmdb eval metrics " + json.dumps(m), flush=True)
+        check(m["images"] == n, f"val split: {m['images']} images, expected {n}")
+        check(all(np.isfinite(v) for v in m.values()), "non-finite eval metric")
+        check(all(0.0 <= m[k] <= 1.0 for k in m if k.startswith("accuracy")), "accuracy outside [0, 1]")
+    want = 2 * N_SRB * n_batches
+    check(launches == want, f"K1 launched {launches} times in LMDB-fed eval, expected {want}")
+    out = {"splits": list(VAL_PAIRS), "batches": n_batches, "images": n_images, "images_per_s": images_per_s,
+           "preloaded_images_per_s": preloaded_ips, "host_s": host_s, "k1_launches": launches}
+    print("lmdb eval " + json.dumps(out), flush=True)
+    del loaders
+    return out
+
+
+def phase_data(serve_ips: float, train_ips: float):
+    """Phase 9 in a temporary directory, removed at the end."""
+    with tempfile.TemporaryDirectory(prefix="textzoom-") as root:
+        t0 = time.perf_counter()
+        half = TRAIN_PAIRS // 2
+        train_dirs = [make_textzoom_lmdb(f"{root}/train{i}", n, seed=i + 1)
+                      for i, n in enumerate((half, TRAIN_PAIRS - half))]
+        val_dirs = [make_textzoom_lmdb(f"{root}/{name}", n, seed=10 + i)
+                    for i, (name, n) in enumerate(zip(("easy", "medium", "hard"), VAL_PAIRS))]
+        check(len(ConcatDataset([TextZoomDataset(d) for d in train_dirs])) == TRAIN_PAIRS, "train pairs")
+        print(f"data: wrote {TRAIN_PAIRS} train pairs in 2 LMDBs and val splits {VAL_PAIRS} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        phase_data_card_vs_cpu(train_dirs, val_dirs)
+        loader = phase_loader_only("port", port_loader(train_dirs))
+        tensor_wire = phase_loader_only("torch tensors", tensor_wire_loader(train_dirs))
+        train = phase_lmdb_train("port", port_loader(train_dirs))
+        ev = phase_lmdb_eval(val_dirs)
+        tensor_wire_train = phase_lmdb_train("torch tensors", tensor_wire_loader(train_dirs))
+    summary = {"loader_epoch1_pairs_per_s": loader["epoch1_pairs_per_s"],
+               "loader_epoch2_pairs_per_s": loader["epoch2_pairs_per_s"],
+               "tensor_wire_epoch1_pairs_per_s": tensor_wire["epoch1_pairs_per_s"],
+               "tensor_wire_epoch2_pairs_per_s": tensor_wire["epoch2_pairs_per_s"],
+               "lmdb_train_images_per_s": train["images_per_s"], "phase8_train_images_per_s": train_ips,
+               "tensor_wire_train_images_per_s": tensor_wire_train["images_per_s"],
+               "lmdb_eval_images_per_s": ev["images_per_s"],
+               "lmdb_eval_preloaded_images_per_s": ev["preloaded_images_per_s"], "phase5_eval_images_per_s": serve_ips}
+    print("data " + json.dumps(summary), flush=True)
+    return train, ev
 
 
 def main() -> int:
@@ -509,13 +766,16 @@ def main() -> int:
 
     # 4. card vs CPU, 5. serve
     models, step = phase_card_vs_cpu()
-    launches = phase_serve(models, step)
+    launches, serve_ips = phase_serve(models, step)
     del models, step
 
     # 6. K1's backward against its plain version, 7. train step card vs CPU, 8. train
     bwd_err, bwd_shapes = phase_k1_backward()
     phase_train_card_vs_cpu()
-    train_launches, backward_launches = phase_train()
+    train_launches, backward_launches, train_ips = phase_train()
+
+    # 9. the TextZoom data path
+    lmdb_train, lmdb_eval = phase_data(serve_ips, train_ips)
 
     # per SR forward at B=48: N_SRB sweeps of each shape
     per_forward = {k: N_SRB * sum(row[k] for row in shapes)
@@ -545,6 +805,8 @@ def main() -> int:
         "shapes": shapes,
         "ptxas": ptxas,
         "train_launches": train_launches,
+        "lmdb_train_launches": lmdb_train["k1_launches"],
+        "lmdb_eval_launches": lmdb_eval["k1_launches"],
     }]
     per_backward = {k: N_SRB * sum(row[k] for row in bwd_shapes)
                     for k in ("ms", "kernel_only_ms", "fwd_bwd_ms", "library_ms", "plain_ms", "bytes_ms",
@@ -568,6 +830,7 @@ def main() -> int:
         "library_ms": per_backward["library_ms"],
         "shapes": bwd_shapes,
         "ptxas": bwd_ptxas,
+        "lmdb_train_launches": lmdb_train["k1_backward_launches"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,8 @@ import torch
 
 from tpgsr_tpu_torch import device as port_device
 from tpgsr_tpu_torch import entry
+from tpgsr_tpu_torch.data.loader import make_loader
+from tpgsr_tpu_torch.train import trainer
 from tpgsr_tpu_torch.train.step import make_eval_step, make_train_step
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -35,6 +37,9 @@ def test_port_imports_no_jax():
     lambda: entry.flagship_train(),
     lambda: make_eval_step({"stu_iter": 1}),
     lambda: make_train_step({"stu_iter": 1}),
+    lambda: make_loader(list(range(4)), 2, None),
+    lambda: trainer.train_loader(["no-such-lmdb"]),
+    lambda: trainer.val_loaders(["no-such-lmdb"]),
     lambda: port_device.resolve_device(),
     lambda: port_device.resolve_device("cuda:0"),
 ])

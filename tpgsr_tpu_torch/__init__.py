@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of tpgsr_tpu for one NVIDIA Hopper (H100) card.
 
-The JAX package ``tpgsr_tpu`` is the reference; this package imports torch
-and numpy only.  Modules are NCHW and carry the original TPGSR's
+The JAX package ``tpgsr_tpu`` is the reference; this package imports torch,
+numpy and, for the TextZoom data path (``data/``), PIL.  Modules are NCHW and carry the original TPGSR's
 ``state_dict`` keys; the public step functions keep the JAX package's NHWC
 batch layouts so the two packages compare like with like.
 

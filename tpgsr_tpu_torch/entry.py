@@ -26,7 +26,8 @@ from tpgsr_tpu_torch.models.tsrn import TSRN_TL
 from tpgsr_tpu_torch.train.state import TrainState, create_train_state
 from tpgsr_tpu_torch.train.step import EvalModels, EvalStep, TrainStep, make_eval_step, make_train_step
 
-FLAGSHIP_ARGS = {"stu_iter": 1, "sr_share": True, "tpg_share": False, "use_distill": True, "gradient": True}
+FLAGSHIP_ARGS = {"stu_iter": 1, "sr_share": True, "tpg_share": False, "use_distill": True, "gradient": True,
+                 "mask": True}
 LR_SIZE = (16, 64)  # h, w; SR and HR are 32x128
 TRAIN_WIDTH = 128
 

@@ -1,10 +1,11 @@
-"""Image metrics and the gradient map (counterpart of
-tpgsr_tpu/ops/image.py:60-142).
+"""Image metrics, the gradient map and the device-side contour mask
+(counterpart of tpgsr_tpu/ops/image.py:24-142).
 
 NHWC in [0, 1], as the JAX package: PSNR (reference utils/ssim_psnr.py:9-15)
 and SSIM (:18-89) over the first 3 channels; SSIM with an 11x11 Gaussian
 window (sigma 1.5) and zero "same" padding, border bias included; the
 central-difference gradient magnitude that the gradient prior loss reads.
+The contour mask works on uint8 NHWC in exact int32 arithmetic.
 """
 
 from __future__ import annotations
@@ -13,6 +14,28 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+
+def pil_gray_u8(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """PIL's ``convert('L')`` exactly: libImaging's integer formula
+    ``(R*19595 + G*38470 + B*7471 + 0x8000) >> 16``.  [..., 3] uint8 ->
+    [...] int32 in [0, 255]."""
+    r, g, b = (rgb_u8[..., i].to(torch.int32) for i in range(3))
+    return (r * 19595 + g * 38470 + b * 7471 + 32768) >> 16
+
+
+def append_contour_mask_u8(img: torch.Tensor) -> torch.Tensor:
+    """Append the contour-mask channel to uint8 NHWC RGB, [..., H, W, 3] ->
+    [..., H, W, 4], the mask in {0, 255}: the same bytes as the host
+    collate's mask (data/transforms.py, ``resize_normalize(as_uint8=True,
+    mask=True)``).  A pixel is 0 where its gray exceeds the image's mean,
+    tested as ``gray * (H * W) > sum(gray)`` in int32 (at most 255 * H * W),
+    since a float mean could flip pixels where gray equals it."""
+    gray = pil_gray_u8(img)
+    hw = gray.shape[-1] * gray.shape[-2]
+    total = gray.sum(dim=(-2, -1), keepdim=True, dtype=torch.int32)
+    mask = (gray * hw <= total).to(torch.uint8) * 255
+    return torch.cat([img, mask.unsqueeze(-1)], dim=-1)
 
 
 def rgb_to_gray(x: torch.Tensor) -> torch.Tensor:

@@ -20,9 +20,10 @@ from tpgsr_tpu_torch.train.step import EvalModels, EvalStep
 
 
 def evaluate(eval_step: EvalStep, models: EvalModels, batches: Iterable[Mapping]) -> Dict[str, float]:
-    """Run ``eval_step`` over ``{"hr", "lr", "labels"}`` batches; returns the
-    metric dict {accuracy, accuracy_lr, accuracy_hr, psnr_avg, ssim_avg,
-    images, accuracy_stage<i>}."""
+    """Run ``eval_step`` over ``{"hr", "lr", "labels"}`` batches (numpy or a
+    loader's tensors; other keys are ignored, and a short last batch counts
+    its own rows, unpadded); returns the metric dict {accuracy, accuracy_lr,
+    accuracy_hr, psnr_avg, ssim_avg, images, accuracy_stage<i>}."""
     models.eval()
     totals = {"c": 0, "c_lr": 0, "c_hr": 0, "n": 0}
     stage_correct: Dict[int, int] = {}

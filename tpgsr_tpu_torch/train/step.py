@@ -9,11 +9,15 @@ earlier stage's SR for the word accuracies: what ``TextSR.test()`` and
 teacher's softmax on HR is the distillation target, and the step ends with
 backward, the SR clip and Adam.
 
-Batches are NHWC with the mask channel attached, float in [0, 1] or uint8
-(the compact wire, divided by 255 on the device): ``hr`` [B, 2h, 2w, 4],
-``lr`` [B, h, w, 4].  Outputs keep the JAX layouts: ``sr`` NHWC, per-sample
-``mse`` and ``ssim`` [B], logits [T, B, C].  Only the ``tsrn_tl_cascade``
-arch is ported; the factories raise for any other.
+Batches are NHWC numpy arrays or tensors (a loader's, pinned), float in
+[0, 1] or uint8 (the compact wire, divided by 255 on the device): ``hr``
+[B, 2h, 2w, 4], ``lr`` [B, h, w, 4].  With ``mask`` a uint8 batch may carry
+RGB only, and the steps append the contour mask on the device
+(``_ensure_mask``).  The train step also reads ``ctc_labels``,
+``ctc_lengths`` and ``weighted_tics`` under ``use_label``; only the keys of
+``train_wire_keys`` cross to the device.  Outputs keep the JAX layouts:
+``sr`` NHWC, per-sample ``mse`` and ``ssim`` [B], logits [T, B, C].  Only
+the ``tsrn_tl_cascade`` arch is ported; the factories raise for any other.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import torch.nn as nn
 
 from tpgsr_tpu_torch.device import DeviceLike, resolve_device
 from tpgsr_tpu_torch.losses import image_loss, semantic_loss
-from tpgsr_tpu_torch.ops.image import ssim
+from tpgsr_tpu_torch.ops.ctc import ctc_loss
+from tpgsr_tpu_torch.ops.image import append_contour_mask_u8, ssim
 from tpgsr_tpu_torch.train.priors import logits_to_prior, parse_crnn_data, prior_dropout_first_quarter
 from tpgsr_tpu_torch.train.state import TrainState, clip_sr_grads
 
@@ -60,13 +65,23 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _as_image(arr, dev: torch.device) -> torch.Tensor:
+def _ensure_mask(t: torch.Tensor, want: bool) -> torch.Tensor:
+    """Append the contour-mask channel to a uint8 RGB batch when the model
+    takes the mask (tpgsr_tpu/train/step.py:74-82): the collate's
+    ``device_mask`` wire ships RGB only.  Any other batch is returned as is."""
+    if want and t.dtype == torch.uint8 and t.shape[-1] == 3:
+        return append_contour_mask_u8(t)
+    return t
+
+
+def _as_image(arr, dev: torch.device, want_mask: bool = False) -> torch.Tensor:
     """Batch image -> fp32 in [0, 1] on ``dev`` (tpgsr_tpu/train/step.py,
-    ``_as_image``): a uint8 array crosses as uint8 and is divided by 255 on
-    the device, in fp32; any other is cast to fp32."""
+    ``_ensure_mask`` then ``_as_image``): a uint8 array crosses as uint8,
+    takes its mask channel there if it lacks one and ``want_mask``, and is
+    divided by 255 in fp32; any other is cast to fp32."""
     t = torch.as_tensor(arr)
     if t.dtype == torch.uint8:
-        return t.to(dev, non_blocking=True).to(torch.float32) / 255.0
+        return _ensure_mask(t.to(dev, non_blocking=True), want_mask).to(torch.float32) / 255.0
     return t.to(dev, torch.float32, non_blocking=True)
 
 
@@ -76,18 +91,27 @@ def _check_arch(args: Mapping) -> None:
         raise NotImplementedError(f"arch {arch!r} is not ported: the steps run the tsrn_tl_cascade branch only")
 
 
+def train_wire_keys(arch: str = "tsrn_tl_cascade") -> frozenset:
+    """The batch keys the train step reads, the only ones it copies to the
+    device (tpgsr_tpu/train/step.py:85-98): the collate's ``label_vecs`` and
+    ``labels`` stay on the host."""
+    _check_arch({"arch": arch})
+    return frozenset({"hr", "lr", "ctc_labels", "ctc_lengths", "weighted_tics"})
+
+
 EvalStep = Callable[[EvalModels, Mapping[str, np.ndarray]], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
 def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -> EvalStep:
     """``eval_step(models, batch) -> (sr, outs)``.
 
-    ``args`` reads ``arch``, ``stu_iter``, ``sr_share`` and ``tpg_share`` as
-    the CLI names them; ``width`` is TRAIN.width (it sets the CRNN input
-    width).  The batch's arrays go to ``device`` (the card unless told
-    otherwise)."""
+    ``args`` reads ``arch``, ``stu_iter``, ``sr_share``, ``tpg_share`` and
+    ``mask`` as the CLI names them; ``width`` is TRAIN.width (it sets the
+    CRNN input width).  The batch's ``hr`` and ``lr`` go to ``device`` (the
+    card unless told otherwise)."""
     _check_arch(args)
     dev = resolve_device(device)
+    want_mask = bool(args.get("mask", False))
     stu_iter = int(args.get("stu_iter", 1))
     sr_share = bool(args.get("sr_share", False))
     tpg_share = bool(args.get("tpg_share", False))
@@ -98,7 +122,7 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
 
     @torch.no_grad()
     def eval_step(models: EvalModels, batch: Mapping[str, np.ndarray]):
-        hr, lr = _as_image(batch["hr"], dev), _as_image(batch["lr"], dev)
+        hr, lr = _as_image(batch["hr"], dev, want_mask), _as_image(batch["lr"], dev, want_mask)
         cascade = lr
         sr_list = []
         for i in range(stu_iter):
@@ -126,7 +150,7 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
 
 
 TrainStep = Callable[[TrainState, Mapping[str, np.ndarray]], Dict[str, torch.Tensor]]
-_NOT_PORTED = ("use_label", "ssim_loss")
+_NOT_PORTED = ("ssim_loss",)
 
 
 def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None) -> TrainStep:
@@ -134,17 +158,21 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None) 
 
     Follows tpgsr_tpu/train/step.py:148-279 for ``tsrn_tl_cascade``: the
     teacher reads HR without grad; each stage runs its student in train mode
-    on the previous stage's image, adds ``semantic_loss x 100`` against the
-    teacher (``use_distill``), zeroes the prior of the first B // 4 samples,
+    on the previous stage's image, adds the mean of its CTC loss against the
+    batch's labels times ``weighted_tics`` (``use_label``) and
+    ``semantic_loss x 100`` against the teacher (``use_distill``), both to
+    ``loss_distill``, zeroes the prior of the first B // 4 samples,
     runs its SR model in train mode on the LR and adds ``image_loss x 100``
     (with the gradient prior when ``gradient``).  Gradients flow through the
     whole cascade; then each SR model is clipped and Adam steps.  BatchNorm
     running statistics update by torch's own rule.  ``args`` reads ``arch``,
-    ``stu_iter``, ``sr_share``, ``tpg_share``, ``use_distill`` and
-    ``gradient`` as the CLI names them; ``use_label`` and ``ssim_loss`` are
-    not ported and raise.  Metrics are detached tensors on the device:
-    ``loss_img_{i}``, ``loss_img``, ``loss_distill``, ``loss_total``."""
+    ``stu_iter``, ``sr_share``, ``tpg_share``, ``use_label``,
+    ``use_distill``, ``gradient`` and ``mask`` as the CLI names them;
+    ``ssim_loss`` is not ported and raises.  Metrics are detached tensors on
+    the device: ``loss_img_{i}``, ``loss_img``, ``loss_distill``,
+    ``loss_total``."""
     _check_arch(args)
+    wire_keys = train_wire_keys(args.get("arch", "tsrn_tl_cascade"))
     for name in _NOT_PORTED:
         if args.get(name, False):
             raise NotImplementedError(f"--{name} is not ported to the train step yet")
@@ -152,12 +180,15 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None) 
     stu_iter = int(args.get("stu_iter", 1))
     sr_share = bool(args.get("sr_share", False))
     tpg_share = bool(args.get("tpg_share", False))
+    use_label = bool(args.get("use_label", False))
     use_distill = bool(args.get("use_distill", False))
     gradient = bool(args.get("gradient", False))
+    want_mask = bool(args.get("mask", False))
     cw = crnn_width(int(width))
 
     def train_step(state: TrainState, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        hr, lr = _as_image(batch["hr"], dev), _as_image(batch["lr"], dev)
+        wire = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True) for k in wire_keys if k in batch}
+        hr, lr = _as_image(wire["hr"], dev, want_mask), _as_image(wire["lr"], dev, want_mask)
         for m in (*state.sr, *state.stu):
             m.train()
         state.optimizer.zero_grad(set_to_none=True)
@@ -170,6 +201,9 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None) 
         cascade = lr
         for i in range(stu_iter):
             logits = state.stu[0 if tpg_share else i](_nchw(parse_crnn_data(cascade, cw)))
+            if use_label:
+                per = ctc_loss(logits, wire["ctc_labels"], wire["ctc_lengths"])
+                loss_distill = loss_distill + torch.mean(per * wire["weighted_tics"])
             if use_distill:
                 loss_distill = loss_distill + semantic_loss(torch.softmax(logits, -1), target) * 100.0
             prior = prior_dropout_first_quarter(logits_to_prior(logits))
