@@ -39,7 +39,17 @@ package beside this script):
    a second pass timed, K1's launches counted, then the same batches
    preloaded, for the twin of the same shapes.  (b) and (c) also run the
    same dataset and collate through torch's default wire (tensors from the
-   workers, pinned by the ``DataLoader``) for comparison.
+   workers, pinned by the ``DataLoader``) for comparison;
+10. the trainer and the CLI: ``tpgsr_tpu_torch.cli.main`` in-process over
+   phase 9's TextZoom and two more train LMDBs (an epoch of 44 batches of
+   48), in the same temporary directory, from a config with
+   ``compute_dtype: fp32``: one epoch with val and saves at 22 and 44, its
+   files and scalar log, its first two iterations against a CPU ``TextSR``,
+   ``--resume`` for a second epoch (step 88, global epoch 2's first batch),
+   then ``--go_test``, ``--test --rec crnn`` and ``--demo`` from the
+   checkpoint against the same commands on the CPU; the ``trainer`` line
+   has the loop's images/s between the vals, the first iteration, a val, a
+   save, ``--test``'s fps and K1's launches in the train window.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -47,9 +57,11 @@ The line before the last is ``{"kernels": [...]}``; the last is
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -61,8 +73,9 @@ import numpy as np
 import torch
 from PIL import Image, ImageDraw
 
-from tpgsr_tpu_torch import entry
+from tpgsr_tpu_torch import cli, entry
 from tpgsr_tpu_torch.bench_k1 import device_ms, ptxas_report
+from tpgsr_tpu_torch.config import AttrDict, build_arg_parser, load_config
 from tpgsr_tpu_torch.data.datasets import ConcatDataset, TextZoomDataset
 from tpgsr_tpu_torch.data.lmdb import write_lmdb
 from tpgsr_tpu_torch.data.loader import EpochBatchSampler
@@ -699,24 +712,23 @@ def phase_lmdb_eval(val_dirs):
     return out
 
 
-def phase_data(serve_ips: float, train_ips: float):
-    """Phase 9 in a temporary directory, removed at the end."""
-    with tempfile.TemporaryDirectory(prefix="textzoom-") as root:
-        t0 = time.perf_counter()
-        half = TRAIN_PAIRS // 2
-        train_dirs = [make_textzoom_lmdb(f"{root}/train{i}", n, seed=i + 1)
-                      for i, n in enumerate((half, TRAIN_PAIRS - half))]
-        val_dirs = [make_textzoom_lmdb(f"{root}/{name}", n, seed=10 + i)
-                    for i, (name, n) in enumerate(zip(("easy", "medium", "hard"), VAL_PAIRS))]
-        check(len(ConcatDataset([TextZoomDataset(d) for d in train_dirs])) == TRAIN_PAIRS, "train pairs")
-        print(f"data: wrote {TRAIN_PAIRS} train pairs in 2 LMDBs and val splits {VAL_PAIRS} in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        phase_data_card_vs_cpu(train_dirs, val_dirs)
-        loader = phase_loader_only("port", port_loader(train_dirs))
-        tensor_wire = phase_loader_only("torch tensors", tensor_wire_loader(train_dirs))
-        train = phase_lmdb_train("port", port_loader(train_dirs))
-        ev = phase_lmdb_eval(val_dirs)
-        tensor_wire_train = phase_lmdb_train("torch tensors", tensor_wire_loader(train_dirs))
+def phase_data(root: str, serve_ips: float, train_ips: float):
+    """Phase 9 under ``root``; returns (train, eval, train dirs, val dirs)."""
+    t0 = time.perf_counter()
+    half = TRAIN_PAIRS // 2
+    train_dirs = [make_textzoom_lmdb(f"{root}/train{i}", n, seed=i + 1)
+                  for i, n in enumerate((half, TRAIN_PAIRS - half))]
+    val_dirs = [make_textzoom_lmdb(f"{root}/{name}", n, seed=10 + i)
+                for i, (name, n) in enumerate(zip(("easy", "medium", "hard"), VAL_PAIRS))]
+    check(len(ConcatDataset([TextZoomDataset(d) for d in train_dirs])) == TRAIN_PAIRS, "train pairs")
+    print(f"data: wrote {TRAIN_PAIRS} train pairs in 2 LMDBs and val splits {VAL_PAIRS} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_data_card_vs_cpu(train_dirs, val_dirs)
+    loader = phase_loader_only("port", port_loader(train_dirs))
+    tensor_wire = phase_loader_only("torch tensors", tensor_wire_loader(train_dirs))
+    train = phase_lmdb_train("port", port_loader(train_dirs))
+    ev = phase_lmdb_eval(val_dirs)
+    tensor_wire_train = phase_lmdb_train("torch tensors", tensor_wire_loader(train_dirs))
     summary = {"loader_epoch1_pairs_per_s": loader["epoch1_pairs_per_s"],
                "loader_epoch2_pairs_per_s": loader["epoch2_pairs_per_s"],
                "tensor_wire_epoch1_pairs_per_s": tensor_wire["epoch1_pairs_per_s"],
@@ -726,7 +738,237 @@ def phase_data(serve_ips: float, train_ips: float):
                "lmdb_eval_images_per_s": ev["images_per_s"],
                "lmdb_eval_preloaded_images_per_s": ev["preloaded_images_per_s"], "phase5_eval_images_per_s": serve_ips}
     print("data " + json.dumps(summary), flush=True)
-    return train, ev
+    return train, ev, train_dirs, val_dirs
+
+
+# phase 10: an epoch of 44 batches (phase 9's train LMDBs and two more of the
+# same size), val and a save every 22 iterations
+TRAINER_PAIRS = 2 * TRAIN_PAIRS
+TRAINER_EPOCH = TRAINER_PAIRS // BATCH
+TRAINER_INTERVAL = TRAINER_EPOCH // 2
+TRAINER_FLAGS = ["--arch", "tsrn_tl_cascade", "--STN", "--mask", "--use_distill", "--gradient", "--sr_share",
+                 "--stu_iter=1", "--vis_dir", "smoke"]
+DEMO_WORDS = ("scene", "Text", "zoom42", "prior")
+SAVE_FILES = ("checkpoint_0.pth", "recognizer_0.pth", "opt_state.pth", "info.json")
+
+
+class TrainerProbe:
+    """What phase 10 reads of a ``TextSR`` run, by wrappers installed for
+    one run: the first two train steps' metrics, the first batch, the end of
+    the first step, and each val's and save's start and end (the card
+    synchronized at both) with K1's counts there."""
+
+    def __init__(self):
+        self.metrics, self.first_batch, self.first_step_end, self.events = [], None, None, []
+
+    @contextlib.contextmanager
+    def installed(self):
+        make, run_val, save = trainer.make_train_step, trainer.TextSR._run_val, trainer.TextSR._save
+
+        def make_train_step(*a, **k):
+            step = make(*a, **k)
+
+            def recorded(state, batch):
+                metrics = step(state, batch)
+                if not self.metrics:
+                    torch.cuda.synchronize()
+                    self.first_step_end = time.perf_counter()
+                    self.first_batch = {"labels": list(batch["labels"]), "hr": batch["hr"].clone()}
+                if len(self.metrics) < 2:
+                    self.metrics.append(metrics)
+                return metrics
+
+            return recorded
+
+        def timed(name, method):
+            def run(mission, *a, **k):
+                torch.cuda.synchronize()
+                t0, counts0 = time.perf_counter(), (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES)
+                out = method(mission, *a, **k)
+                torch.cuda.synchronize()
+                self.events.append({"name": name, "t0": t0, "t1": time.perf_counter(), "counts0": counts0,
+                                    "counts1": (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES)})
+                return out
+
+            return run
+
+        trainer.make_train_step = make_train_step
+        trainer.TextSR._run_val, trainer.TextSR._save = timed("val", run_val), timed("save", save)
+        try:
+            yield self
+        finally:
+            trainer.make_train_step, trainer.TextSR._run_val, trainer.TextSR._save = make, run_val, save
+
+    def window(self):
+        """(seconds, K1 forward and backward launches) of the train iterations
+        between the end of the first val's saves and the start of the second
+        val."""
+        second_val = [e for e in self.events if e["name"] == "val"][1]
+        last = max((e for e in self.events if e["t1"] <= second_val["t0"]), key=lambda e: e["t1"])
+        launches = [b - a for a, b in zip(last["counts1"], second_val["counts0"])]
+        return second_val["t0"] - last["t1"], launches
+
+
+def check_metric_dicts(got, want, what):
+    """PSNR and SSIM at phase 4's rtol (1e-4), everything else equal."""
+    check(sorted(got) == sorted(want), f"{what}: keys {sorted(got)} vs {sorted(want)}")
+    for k, v in want.items():
+        if k in ("psnr_avg", "ssim_avg"):
+            ok = np.isfinite(got[k]) and abs(got[k] - v) <= 1e-4 * abs(v)
+        else:
+            ok = k == "fps" or got[k] == v
+        check(ok, f"{what} {k}: card {got[k]} vs CPU {v}")
+
+
+def phase_trainer(root: str, train_dirs, val_dirs, lmdb_train_ips: float):
+    """Phase 10: ``python -m tpgsr_tpu_torch.cli`` in-process on the card, at
+    the flagship's full width, batch 48, fp32 (TF32 off), in ``root``:
+
+    1. one epoch (44 iterations, val and a save at 22 and 44) from a config
+       with ``compute_dtype: fp32``; the files it writes, the first two
+       iterations' losses against a CPU ``TextSR`` from the same seed and
+       batches (1e-5, then 1e-4: one Adam update apart, the bound the CPU
+       tests hold the port's second step to against JAX);
+    2. ``--resume`` for one more epoch: the step reaches 88 and the first
+       batch is global epoch 2's;
+    3. ``--go_test``, ``--test --rec crnn`` over the easy split and ``--demo``
+       over four PNGs, each from the checkpoint, against the same command on
+       the CPU;
+    4. the ``trainer`` line: images/s between the first val and the end
+       (synchronized wall time, val and save excluded), the first
+       iteration, a val, a save and its bytes, ``--test``'s fps, K1's
+       launches in that window."""
+    t0 = time.perf_counter()
+    half = TRAIN_PAIRS // 2
+    train_dirs = list(train_dirs) + [make_textzoom_lmdb(f"{root}/train{i}", n, seed=i + 1)
+                                     for i, n in ((2, half), (3, TRAIN_PAIRS - half))]
+    check(len(ConcatDataset([TextZoomDataset(d) for d in train_dirs])) == TRAINER_PAIRS, "trainer pairs")
+    demo_dir = f"{root}/demo_imgs"
+    os.makedirs(demo_dir)
+    for i, word in enumerate(DEMO_WORDS):
+        render_word(word, (96 + 16 * i, 28 + 2 * i), seed=50 + i).save(f"{demo_dir}/{i}_{word}.png")
+    cfg = load_config()
+    t = cfg.TRAIN
+    t.update(train_data_dir=train_dirs, batch_size=BATCH, compute_dtype="fp32", epochs=1,
+             saveInterval=TRAINER_INTERVAL, displayInterval=TRAINER_INTERVAL // 2, workers=1,
+             ckpt_dir=f"{root}/ckpt")
+    t.VAL.update(val_data_dir=list(val_dirs), valInterval=TRAINER_INTERVAL)
+    config_path = f"{root}/trainer.yaml"
+    with open(config_path, "w") as f:
+        json.dump(cfg, f)  # JSON is YAML
+    argv = TRAINER_FLAGS + ["--config", config_path]
+    ckpt_dir = f"{root}/ckpt/smoke"
+    print(f"trainer: wrote {TRAINER_PAIRS - TRAIN_PAIRS} more train pairs and the config in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        return trainer_runs(argv, ckpt_dir, train_dirs, val_dirs, demo_dir, lmdb_train_ips)
+    finally:
+        os.chdir(cwd)
+
+
+def trainer_runs(argv, ckpt_dir, train_dirs, val_dirs, demo_dir, lmdb_train_ips: float):
+    n_val_batches = sum(-(-n // BATCH) for n in VAL_PAIRS)
+    # 1. one epoch through the CLI
+    probe = TrainerProbe()
+    gru_seq.LAUNCHES = 0
+    gru_seq.BACKWARD_LAUNCHES = 0
+    start = time.perf_counter()
+    with probe.installed():
+        state = cli.main(argv)
+    torch.cuda.synchronize()
+    run_launches = (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES)
+    check(state.step == TRAINER_EPOCH, f"trainer at step {state.step}, expected {TRAINER_EPOCH}")
+    want = (2 * N_SRB * (TRAINER_EPOCH + 2 * n_val_batches), 2 * N_SRB * TRAINER_EPOCH)
+    check(run_launches == want, f"K1 launched {run_launches} times (forward, backward) in the trainer, expected {want}")
+    for name in SAVE_FILES:
+        check(os.path.exists(f"{ckpt_dir}/{name}"), f"trainer wrote no {name}")
+    with open(f"{ckpt_dir}/info.json") as f:
+        info = json.load(f)
+    check(info["step"] == TRAINER_EPOCH and info["arch"] == "tsrn_tl_cascade"
+          and {"easy", "medium", "hard"} <= set(info["best_history_res"]), f"info.json: {info}")
+    with open("tensorboard/smoke/scalars.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    tags = {r["tag"] for r in records}
+    want_tags = {"loss/total", "loss/SR", "loss/distill"} | {f"eval/{k}_{s}" for k in ("psnr_avg", "ssim_avg", "accuracy")
+                                                              for s in ("easy", "medium", "hard")}
+    check(tags == want_tags, f"scalar tags {sorted(tags)}")
+    check(all(np.isfinite(r["value"]) for r in records), "a non-finite logged scalar")
+    window_s, window_launches = probe.window()
+    want = 2 * N_SRB * (TRAINER_EPOCH - TRAINER_INTERVAL)
+    check(window_launches == [want, want], f"K1 launched {window_launches} times in the train window, expected {want}")
+    vals = [e for e in probe.events if e["name"] == "val"]
+    saves = [e for e in probe.events if e["name"] == "save"]
+    card = [{k: float(v) for k, v in m.items()} for m in probe.metrics]
+    first_batch = probe.first_batch
+    out = {"batch": BATCH, "epoch_iterations": TRAINER_EPOCH,
+           "window_iterations": TRAINER_EPOCH - TRAINER_INTERVAL, "window_s": window_s,
+           "images_per_s": BATCH * (TRAINER_EPOCH - TRAINER_INTERVAL) / window_s,
+           "lmdb_train_images_per_s": lmdb_train_ips,
+           "first_iteration_s": probe.first_step_end - start, "run_s": time.perf_counter() - start,
+           "val_s": vals[-1]["t1"] - vals[-1]["t0"], "first_val_s": vals[0]["t1"] - vals[0]["t0"],
+           "save_s": saves[-1]["t1"] - saves[-1]["t0"],
+           "save_bytes": sum(os.path.getsize(f"{ckpt_dir}/{name}") for name in SAVE_FILES),
+           "k1_launches": window_launches[0], "k1_backward_launches": window_launches[1],
+           "run_k1_launches": run_launches[0], "run_k1_backward_launches": run_launches[1]}
+    del state
+
+    # the first two iterations on the CPU, from the same seed and batches
+    args = AttrDict(vars(build_arg_parser().parse_args(argv)))
+    cpu_cfg = load_config(argv[-1])
+    cpu_cfg.TRAIN.workers = 0
+    cpu = trainer.TextSR(cpu_cfg, args, device="cpu")
+    cpu_state = cpu.init_state()
+    cpu._build_steps()
+    loader = cpu.get_train_data()
+    loader.batch_sampler.epoch = 0
+    batches = iter(loader)
+    cpu_losses = [{k: float(v) for k, v in cpu._train_step(cpu_state, next(batches)).items()} for _ in range(2)]
+    del batches, loader, cpu, cpu_state
+    for i, rtol in enumerate((1e-5, 1e-4)):
+        for k, v in cpu_losses[i].items():
+            check(np.isfinite(card[i][k]) and abs(card[i][k] - v) <= rtol * abs(v),
+                  f"trainer iteration {i + 1} {k}: card {card[i][k]} vs CPU {v} (rtol {rtol})")
+    out["card_losses"], out["cpu_losses"] = card, cpu_losses
+    print(f"trainer card vs CPU: iterations 1-2 losses card {card} CPU {cpu_losses}", flush=True)
+
+    # 2. resume for one more epoch
+    probe = TrainerProbe()
+    with probe.installed():
+        state = cli.main(argv + ["--resume", ckpt_dir])
+    check(state.step == 2 * TRAINER_EPOCH, f"resumed trainer at step {state.step}")
+    with open(f"{ckpt_dir}/info.json") as f:
+        check(json.load(f)["step"] == 2 * TRAINER_EPOCH, "info.json after the resume")
+    ref_loader = trainer.train_loader(train_dirs, "tsrn_tl_cascade", mask=True, **loader_kw(BATCH, "cpu", workers=0))
+    ref_loader.batch_sampler.epoch = 1
+    ref = next(iter(ref_loader))
+    check(probe.first_batch["labels"] == list(ref["labels"]) and torch.equal(probe.first_batch["hr"], ref["hr"]),
+          "the first resumed batch is not global epoch 2's")
+    print(f"trainer resumed to step {state.step}; first batch is global epoch 2's", flush=True)
+    del state
+
+    # 3. the eval-only modes from the checkpoint, card against CPU
+    eval_argv = argv + ["--resume", ckpt_dir]
+    modes = {}
+    for dev in ("cuda", "cpu"):
+        go = cli.main(eval_argv + ["--go_test", "--vis_dir", f"go_{dev}"], device=dev)
+        test = cli.main(eval_argv + ["--test", "--rec", "crnn", "--test_data_dir", val_dirs[0]], device=dev)
+        demo = cli.main(eval_argv + ["--demo", "--demo_dir", demo_dir], device=dev)
+        modes[dev] = (go, test, demo, sorted(os.listdir(f"demo/go_{dev}/1")))
+    (go, test, demo, vis), (cpu_go, cpu_test, cpu_demo, cpu_vis) = modes["cuda"], modes["cpu"]
+    check(list(go) == ["easy", "medium", "hard"], f"--go_test splits {list(go)}")
+    for name in go:
+        check_metric_dicts(go[name], cpu_go[name], f"--go_test {name}")
+    check_metric_dicts(test, cpu_test, "--test")
+    check(test["images"] == VAL_PAIRS[0] and test["fps"] > 0, f"--test: {test}")
+    check(demo == cpu_demo and len(demo) == len(DEMO_WORDS), f"--demo card {demo} vs CPU {cpu_demo}")
+    check(vis and vis == cpu_vis, "--go_test visualizations differ")
+    print(f"trainer modes: --go_test {json.dumps(go)}; --test {json.dumps(test)}; --demo {demo}; card equals CPU",
+          flush=True)
+    out["test_fps"] = test["fps"]
+    print(json.dumps({"trainer": out}), flush=True)
+    return out
 
 
 def main() -> int:
@@ -774,8 +1016,10 @@ def main() -> int:
     phase_train_card_vs_cpu()
     train_launches, backward_launches, train_ips = phase_train()
 
-    # 9. the TextZoom data path
-    lmdb_train, lmdb_eval = phase_data(serve_ips, train_ips)
+    # 9. the TextZoom data path, 10. the trainer and the CLI, in one temporary directory
+    with tempfile.TemporaryDirectory(prefix="textzoom-") as root:
+        lmdb_train, lmdb_eval, train_dirs, val_dirs = phase_data(root, serve_ips, train_ips)
+        trainer_run = phase_trainer(root, train_dirs, val_dirs, lmdb_train["images_per_s"])
 
     # per SR forward at B=48: N_SRB sweeps of each shape
     per_forward = {k: N_SRB * sum(row[k] for row in shapes)
@@ -807,6 +1051,7 @@ def main() -> int:
         "train_launches": train_launches,
         "lmdb_train_launches": lmdb_train["k1_launches"],
         "lmdb_eval_launches": lmdb_eval["k1_launches"],
+        "trainer_launches": trainer_run["k1_launches"],
     }]
     per_backward = {k: N_SRB * sum(row[k] for row in bwd_shapes)
                     for k in ("ms", "kernel_only_ms", "fwd_bwd_ms", "library_ms", "plain_ms", "bytes_ms",
@@ -831,6 +1076,7 @@ def main() -> int:
         "shapes": bwd_shapes,
         "ptxas": bwd_ptxas,
         "lmdb_train_launches": lmdb_train["k1_backward_launches"],
+        "trainer_launches": trainer_run["k1_backward_launches"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

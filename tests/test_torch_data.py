@@ -428,16 +428,38 @@ def test_ctc_loss_and_gradient_match_jax():
 
 def test_ctc_loss_of_a_label_longer_than_its_alignments_departs_from_jax():
     """A label that needs more than T = 26 frames (15 characters, 14 of them
-    repeats, so 29 frames with the blanks between): ``nn.CTCLoss`` gives inf
-    (the port keeps it: ``zero_infinity`` would change the reference's
-    semantics), optax's log-space floor a large finite value (1.0008e5 here).
-    The feasible labels beside it agree.  ROADMAP.md queue 3 records this."""
+    repeats, so 29 frames with the blanks between) has no alignment:
+    ``nn.CTCLoss`` gives inf there, and optax's log-space floor a large finite
+    value (1.0008e5 here), which the port now gives too.  The loss and the
+    gradient of ``mean(loss)`` equal the JAX package's at rtol 1e-4 (the
+    gradient with atol 1e-6 for its zeros), beside feasible labels."""
     words = ["aaaaaaaaaaaaaaa", "hello", "abababababababa"]
     logits, labels, lengths = _ctc_case(words, seed=1)
     want = np.asarray(jax_ctc.ctc_loss(logits, labels, lengths))
+    want_grad = np.asarray(jax.grad(lambda x: jax.numpy.mean(jax_ctc.ctc_loss(x, labels, lengths)))(logits))
+    x = torch.from_numpy(logits).requires_grad_(True)
+    got = ctc.ctc_loss(x, torch.from_numpy(labels), torch.from_numpy(lengths))
+    got.mean().backward()
+    assert np.isfinite(want[0]) and want[0] > 1e4
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-4)
+    np.testing.assert_allclose(x.grad.numpy(), want_grad, rtol=1e-4, atol=1e-6)
+
+
+def test_ctc_loss_of_feasible_labels_equals_torch_ctc_loss_and_jax():
+    """Wherever an alignment exists the port's loss equals both
+    ``F.ctc_loss`` (blank 0, ``reduction='none'``, the reference's
+    ``nn.CTCLoss``) and optax, at rtol 1e-4: labels of 1 to 15 characters,
+    repeats, and one that fills all 26 frames (13 repeats: 13 + 12 blanks)."""
+    words = ["hello", "ab", "supercalifragil", "x", "aabbccdd", "zzz", "0123456789abcde", "aaaaaaaaaaaaa"]
+    logits, labels, lengths = _ctc_case(words, seed=2)
     got = ctc.ctc_loss(torch.from_numpy(logits), torch.from_numpy(labels), torch.from_numpy(lengths)).numpy()
-    assert np.isinf(got[0]) and np.isfinite(want[0]) and want[0] > 1e4
-    np.testing.assert_allclose(got[1:], want[1:], rtol=1e-4, atol=1e-4)
+    frames = torch.full((len(words),), logits.shape[0], dtype=torch.long)
+    torch_ref = torch.nn.functional.ctc_loss(torch.log_softmax(torch.from_numpy(logits), -1),
+                                             torch.from_numpy(labels).long(), frames,
+                                             torch.from_numpy(lengths).long(), blank=0, reduction="none").numpy()
+    assert np.isfinite(torch_ref).all()
+    np.testing.assert_allclose(got, torch_ref, rtol=1e-4)
+    np.testing.assert_allclose(got, np.asarray(jax_ctc.ctc_loss(logits, labels, lengths)), rtol=1e-4)
 
 
 # ---------------------------------------------------------------- steps on loader batches
@@ -463,32 +485,36 @@ def flagship_tiny():
     return args, sr_model, stu_model, jax.jit(build)(jax.random.PRNGKey(0))
 
 
-def test_use_label_train_step_on_a_loader_batch_matches_jax(tmp_path, flagship_tiny):
-    """One flagship ``--use_label`` step on the first batch of the train
-    loader (3-channel uint8, the mask appended on the device; one word with
-    no label, weight 0) against the JAX step on the JAX loader's batch, at
-    tests/test_torch_train.py's first-step tolerances: every metric, Adam's
-    moments, BN statistics, parameters within Adam's reach.  Only the wire
-    keys reach the step."""
-    args, sr_model, stu_model, state = flagship_tiny
-    root = _write_textzoom(tmp_path, ["Hello", "!!", "zoom", "abc123", "scene", "tpu"])
+@pytest.fixture(scope="module")
+def jax_label_step(flagship_tiny):
+    """The JAX ``--use_label`` train step, jitted once for the module."""
+    args, sr_model, stu_model, _ = flagship_tiny
+    return jax_make_train_step(ARCH, ARCHS[ARCH], sr_model, stu_model, args, _jax_config([], []), donate=False)
+
+
+def _check_use_label_step(tmp_path, flagship_tiny, jax_step, words):
+    """One flagship ``--use_label`` step on the first train-loader batch of
+    an LMDB of ``words`` against the JAX step on the JAX loader's batch, at
+    tests/test_torch_train.py's first-step tolerances; returns the JAX
+    step's metrics."""
+    args, _, _, state = flagship_tiny
+    root = _write_textzoom(tmp_path, words)
     config = _jax_config([root], [])
     ref_batch = next(iter(_JaxData(config, args).get_train_data()))
     batch = next(iter(trainer.train_loader([root], ARCH, mask=True, batch_size=B, height=2 * H, width=2 * W,
                                            workers=0, device="cpu")))
     _assert_batches_equal(batch, ref_batch, tensors=True)
-    assert batch["hr"].shape[-1] == 3 and 0.0 in batch["weighted_tics"].tolist()
+    assert batch["hr"].shape[-1] == 3
     assert train_wire_keys(ARCH) == jax_train_wire_keys(ARCH)
 
-    jax_step = jax_make_train_step(ARCH, ARCHS[ARCH], sr_model, stu_model, args, config, donate=False)
     new_state, ref = jax_step(state, {k: v for k, v in ref_batch.items() if k in jax_train_wire_keys(ARCH)})
     port = _port_state(state)
     init = [{k: t.clone() for k, t in m.state_dict().items()} for m in (*port.sr, *port.stu)]
     got = make_train_step(args, width=2 * W, device="cpu")(port, batch)
     assert sorted(got) == sorted(ref)
     for name in got:
+        assert np.isfinite(float(got[name])), name
         np.testing.assert_allclose(float(got[name]), float(ref[name]), rtol=LOSS_RTOL[0], err_msg=name)
-    assert float(ref["loss_distill"]) > 0
     adam = new_state.opt_state[0]
     for j, (kind, m, to_sd) in enumerate((("sr", port.sr[0], _sr_sd), ("stu", port.stu[0], _crnn_sd))):
         stats = (new_state.sr_stats if kind == "sr" else new_state.stu_stats)[0]
@@ -502,8 +528,34 @@ def test_use_label_train_step_on_a_loader_batch_matches_jax(tmp_path, flagship_t
         running = [n for n in sd if "running" in n]
         assert _rel([(sd[n], ref_sd[n]) for n in running]) <= STATS_RTOL[0], kind
         for n in named:
+            assert torch.isfinite(sd[n]).all(), (kind, n)
             assert float((sd[n] - ref_sd[n]).abs().max()) <= 2.5e-3, (kind, n)
         assert _rel([(sd[n] - init[j][n], ref_sd[n] - init[j][n]) for n in tracked]) <= 0.05, kind
+    return batch, ref
+
+
+def test_use_label_train_step_on_a_loader_batch_matches_jax(tmp_path, flagship_tiny, jax_label_step):
+    """One flagship ``--use_label`` step on the first batch of the train
+    loader (3-channel uint8, the mask appended on the device; one word with
+    no label, weight 0) against the JAX step on the JAX loader's batch, at
+    tests/test_torch_train.py's first-step tolerances: every metric, Adam's
+    moments, BN statistics, parameters within Adam's reach.  Only the wire
+    keys reach the step."""
+    batch, ref = _check_use_label_step(tmp_path, flagship_tiny, jax_label_step,
+                                       ["Hello", "!!", "zoom", "abc123", "scene", "tpu"])
+    assert 0.0 in batch["weighted_tics"].tolist()
+    assert float(ref["loss_distill"]) > 0
+
+
+def test_use_label_train_step_with_an_infeasible_label_matches_jax(tmp_path, flagship_tiny, jax_label_step):
+    """The same step on a batch holding a label that no alignment fits into
+    26 frames (15 repeated letters need 29): the losses, the moments and
+    every parameter stay finite and equal the JAX step's at the same
+    tolerances (``F.ctc_loss`` would give inf and NaN gradients)."""
+    batch, ref = _check_use_label_step(tmp_path, flagship_tiny, jax_label_step,
+                                       ["aaaaaaaaaaaaaaa", "hello", "zoom", "scene"])
+    assert int(batch["ctc_lengths"].max()) == 15 and batch["weighted_tics"].tolist() == [1.0] * B
+    assert float(ref["loss_distill"]) > 1e4
 
 
 def test_evaluate_over_a_val_loader_matches_jax(tmp_path, flagship_tiny):

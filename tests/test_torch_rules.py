@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from tpgsr_tpu_torch import device as port_device
-from tpgsr_tpu_torch import entry
+from tpgsr_tpu_torch import cli, entry
+from tpgsr_tpu_torch.config import default_args, load_config
 from tpgsr_tpu_torch.data.loader import make_loader
 from tpgsr_tpu_torch.train import trainer
 from tpgsr_tpu_torch.train.step import make_eval_step, make_train_step
@@ -40,6 +41,8 @@ def test_port_imports_no_jax():
     lambda: make_loader(list(range(4)), 2, None),
     lambda: trainer.train_loader(["no-such-lmdb"]),
     lambda: trainer.val_loaders(["no-such-lmdb"]),
+    lambda: trainer.TextSR(load_config(), default_args(arch="tsrn_tl_cascade")),
+    lambda: cli.main(["--arch", "tsrn_tl_cascade"]),
     lambda: port_device.resolve_device(),
     lambda: port_device.resolve_device("cuda:0"),
 ])

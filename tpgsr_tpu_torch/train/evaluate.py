@@ -6,6 +6,8 @@ Aggregation is the reference's: per-batch PSNR from the batch-mean MSE, then
 a plain mean over batches; accuracy is an exact match after
 ``str_filt(., 'lower')``.  Batch i's outputs are read back only after batch
 i+1 has been queued on the card, so host-side decoding overlaps device work.
+With ``vis_dir`` the first batch is also saved as LR|SR|HR grids
+(``utils.visualize``; reference interfaces/base.py:488-544).
 """
 
 from __future__ import annotations
@@ -13,28 +15,44 @@ from __future__ import annotations
 from typing import Dict, Iterable, Mapping
 
 import numpy as np
+import torch
 
 from tpgsr_tpu_torch.charset import str_filt
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
 from tpgsr_tpu_torch.train.step import EvalModels, EvalStep
+from tpgsr_tpu_torch.utils import visualize
 
 
-def evaluate(eval_step: EvalStep, models: EvalModels, batches: Iterable[Mapping]) -> Dict[str, float]:
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def evaluate(eval_step: EvalStep, models: EvalModels, batches: Iterable[Mapping], max_batches: int = 0,
+             vis_dir: str = "", n_vis: int = 10) -> Dict[str, float]:
     """Run ``eval_step`` over ``{"hr", "lr", "labels"}`` batches (numpy or a
     loader's tensors; other keys are ignored, and a short last batch counts
-    its own rows, unpadded); returns the metric dict {accuracy, accuracy_lr,
-    accuracy_hr, psnr_avg, ssim_avg, images, accuracy_stage<i>}."""
+    its own rows, unpadded), the first ``max_batches`` only when it is
+    above 0; returns the metric dict {accuracy, accuracy_lr, accuracy_hr,
+    psnr_avg, ssim_avg, images, accuracy_stage<i>}.  With ``vis_dir`` the
+    first batch's first ``n_vis`` samples go to ``./demo/<vis_dir>/1/`` and
+    the ones SR fixed to ``./display/<vis_dir>/``."""
     models.eval()
     totals = {"c": 0, "c_lr": 0, "c_hr": 0, "n": 0}
     stage_correct: Dict[int, int] = {}
     psnr_batches, ssim_batches = [], []
 
-    def process(labels, outs):
+    def process(bi, batch, sr, outs):
+        labels = batch["labels"]
         mse = float(outs["mse"].mean())
         psnr_batches.append(20.0 * np.log10(255.0 / np.sqrt(max(mse, 1e-12))))
         ssim_batches.append(float(outs["ssim"].mean()))
         totals["n"] += len(labels)
         preds = {k: decode_crnn(v) for k, v in outs.items() if k.startswith("logits_")}
+        if vis_dir and bi == 0:
+            lr, sr, hr = _numpy(batch["lr"]), _numpy(sr), _numpy(batch["hr"])
+            visualize.tripple_display(lr, sr, hr, preds["logits_lr"], preds["logits_sr"], labels, index=1,
+                                      vis_dir=vis_dir, n_vis=n_vis)
+            visualize.test_display(lr, sr, hr, preds["logits_lr"], preds["logits_sr"], labels, str_filt, vis_dir)
         for j, gt in enumerate(labels):
             gt_f = str_filt(gt, "lower")
             for key, name in (("c", "logits_sr"), ("c_lr", "logits_lr"), ("c_hr", "logits_hr")):
@@ -45,11 +63,13 @@ def evaluate(eval_step: EvalStep, models: EvalModels, batches: Iterable[Mapping]
                     stage_correct[i] = stage_correct.get(i, 0) + int(str_filt(p[j], "lower") == gt_f)
 
     pending = None
-    for batch in batches:
-        _, outs = eval_step(models, batch)
+    for bi, batch in enumerate(batches):
+        if max_batches and bi >= max_batches:
+            break
+        sr, outs = eval_step(models, batch)
         if pending is not None:
             process(*pending)
-        pending = (batch["labels"], outs)
+        pending = (bi, batch, sr, outs)
     if pending is not None:
         process(*pending)
 

@@ -39,9 +39,11 @@ class TrainState:
     step: int = 0
 
 
-def create_train_state(sr: Sequence[nn.Module], teacher: nn.Module, n_stu: int = 1) -> TrainState:
+def create_train_state(sr: Sequence[nn.Module], teacher: nn.Module, n_stu: int = 1, lr: float = LR,
+                       beta1: float = BETA1) -> TrainState:
     """The state for ``sr`` and ``n_stu`` students copied from ``teacher``,
-    all on the teacher's device."""
+    all on the teacher's device; Adam at ``lr`` and ``beta1`` (the YAML's
+    TRAIN.lr and beta1)."""
     teacher.eval().requires_grad_(False)
     stu = [copy.deepcopy(teacher).train().requires_grad_(True) for _ in range(n_stu)]
     for m in stu:  # a copy's LSTM weights are no longer one cuDNN block
@@ -49,7 +51,7 @@ def create_train_state(sr: Sequence[nn.Module], teacher: nn.Module, n_stu: int =
             if isinstance(rnn, nn.RNNBase):
                 rnn.flatten_parameters()
     params = [p for m in (*sr, *stu) for p in m.parameters()]
-    optimizer = torch.optim.Adam(params, lr=LR, betas=(BETA1, 0.999))
+    optimizer = torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999))
     return TrainState(sr=list(sr), stu=stu, teacher=teacher, optimizer=optimizer)
 
 

@@ -31,6 +31,7 @@ import torch.nn as nn
 
 from tpgsr_tpu_torch.device import DeviceLike, resolve_device
 from tpgsr_tpu_torch.losses import image_loss, semantic_loss
+from tpgsr_tpu_torch.models.registry import check_arch
 from tpgsr_tpu_torch.ops.ctc import ctc_loss
 from tpgsr_tpu_torch.ops.image import append_contour_mask_u8, ssim
 from tpgsr_tpu_torch.train.priors import logits_to_prior, parse_crnn_data, prior_dropout_first_quarter
@@ -86,9 +87,7 @@ def _as_image(arr, dev: torch.device, want_mask: bool = False) -> torch.Tensor:
 
 
 def _check_arch(args: Mapping) -> None:
-    arch = args.get("arch", "tsrn_tl_cascade")
-    if arch != "tsrn_tl_cascade":
-        raise NotImplementedError(f"arch {arch!r} is not ported: the steps run the tsrn_tl_cascade branch only")
+    check_arch(args.get("arch", "tsrn_tl_cascade"))
 
 
 def train_wire_keys(arch: str = "tsrn_tl_cascade") -> frozenset:
@@ -175,7 +174,7 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None) 
     wire_keys = train_wire_keys(args.get("arch", "tsrn_tl_cascade"))
     for name in _NOT_PORTED:
         if args.get(name, False):
-            raise NotImplementedError(f"--{name} is not ported to the train step yet")
+            raise NotImplementedError(f"--{name} is not ported to the train step yet (ROADMAP.md queue 1 item 5)")
     dev = resolve_device(device)
     stu_iter = int(args.get("stu_iter", 1))
     sr_share = bool(args.get("sr_share", False))

@@ -1,28 +1,55 @@
-"""The data half of ``TextSR`` (counterpart of tpgsr_tpu/train/trainer.py:
-``_collate_kind`` :113, ``_collate`` :206, ``get_train_data`` :258 and
-``get_val_data`` :282, on TextZoom LMDBs).
+"""``TextSR``: config and flags to ``train()`` / ``test()`` / ``demo()``
+(counterpart of tpgsr_tpu/train/trainer.py; reference
+interfaces/super_resolution.py:49-1523 and interfaces/base.py).
 
-Plain functions of the TRAIN keys (``configs/super_resolution.yaml``), with
-the YAML's defaults and the JAX trainer's wire defaults: the uint8 wire with
-the contour mask appended on the device.  ``workers`` is the number of
-loader processes, as in the reference's torch ``DataLoader``
-(interfaces/base.py:250-255); the val loaders take as many.
+The data half is plain functions of the TRAIN keys
+(``configs/super_resolution.yaml``), with the YAML's defaults and the JAX
+trainer's wire defaults: the uint8 wire with the contour mask appended on
+the device.  ``workers`` is the number of loader processes, as in the
+reference's torch ``DataLoader`` (interfaces/base.py:250-255); the val
+loaders take as many.
+
+``TextSR`` runs the loop of the JAX class: the train step once an
+iteration, the losses logged every 5 iterations and a display line every
+``displayInterval`` (the only places it reads a metric back from the card),
+val over the splits of TRAIN.VAL.val_data_dir at ``valInterval`` with the
+best-checkpoint policy, a save at ``saveInterval``, global epochs and
+iterations from the restored step.  ``--go_test`` runs val with
+visualizations, ``--test`` times eval over TEST.test_data_dir, ``--demo``
+reads the images of ``--demo_dir``.  What is not ported raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item (``check_ported``);
+``dispatch_chain``, ``eval_tile`` and ``wire_uint8`` are read by nothing:
+the port runs one step a dispatch on the uint8 wire.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Sequence
+import os
+import time
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
+import numpy as np
+import torch
+from PIL import Image
+
+from tpgsr_tpu_torch.charset import CTC_NUM_CLASSES
+from tpgsr_tpu_torch.config import AttrDict, apply_arg_overrides, registry_dicts
 from tpgsr_tpu_torch.data.collate import COLLATES, CollateConfig
 from tpgsr_tpu_torch.data.datasets import ConcatDataset, TextZoomDataset
 from tpgsr_tpu_torch.data.loader import Loader, make_loader
+from tpgsr_tpu_torch.data.transforms import resize_normalize
 from tpgsr_tpu_torch.device import DeviceLike, resolve_device
-
-# archs trained through the cascade (reference super_resolution.py:44) and
-# the TL archs with one student (tpgsr_tpu/models/registry.py:22-26)
-ABLATION_SET = ("tsrn_tl_cascade", "srcnn_tl", "srresnet_tl", "rdn_tl", "vdsr_tl")
-TL_SIMPLE = ("tsrn_tl", "tsrn_tl_wmask", "esrgan_tl")
+from tpgsr_tpu_torch.models.crnn import CRNN
+from tpgsr_tpu_torch.models.layers import init_torch_defaults_
+from tpgsr_tpu_torch.models.registry import ABLATION_SET, TL_SIMPLE, build_model, check_arch
+from tpgsr_tpu_torch.ops.ctc import decode_crnn
+from tpgsr_tpu_torch.ops.gru_seq import SUPPORTED_HIDDEN
+from tpgsr_tpu_torch.train import checkpoint as ckpt
+from tpgsr_tpu_torch.train.evaluate import evaluate
+from tpgsr_tpu_torch.train.logging import ScalarLogger
+from tpgsr_tpu_torch.train.state import TrainState, create_train_state
+from tpgsr_tpu_torch.train.step import EvalModels, make_eval_step, make_train_step
 
 
 def collate_kind(arch: str, train: bool) -> str:
@@ -80,3 +107,292 @@ def val_loaders(val_data_dir: Sequence[str], arch: str = "tsrn_tl_cascade", mask
                         int(batch_size), collate, shuffle=False, drop_last=False, workers=int(workers),
                         device=dev)
             for d in val_data_dir]
+
+
+def split_name(path: str) -> str:
+    """A val split's name: the last part of its directory."""
+    return os.path.basename(str(path).rstrip("/"))
+
+
+class BestTracker:
+    """Best-checkpoint selection (interfaces/super_resolution.py:505-533), as
+    the JAX package's ``BestTracker``:
+
+    * ``best_history_acc[split]`` rises whenever that split improves, with an
+      ``epoch`` stamp, whether or not the eval is the best overall;
+    * ``is_best`` compares the accuracy summed over the splits;
+    * on a new best, ``best_model_info`` takes the accuracies (with the
+      epoch) and the PSNR and SSIM of the last split only (the reference
+      reads them after its split loop, :528-529)."""
+
+    def __init__(self, split_names: Sequence[str]):
+        self.best_history_acc: Dict = {k: 0.0 for k in split_names}
+        self.best_model_acc: Dict = {k: 0.0 for k in split_names}
+        self.best_model_psnr: Dict = {k: 0.0 for k in split_names}
+        self.best_model_ssim: Dict = {k: 0.0 for k in split_names}
+        self.best_sum = 0.0
+
+    def update(self, metrics_by_split: Mapping[str, Mapping[str, float]], epoch: int) -> bool:
+        """``metrics_by_split``: {split: metric_dict} in evaluation order."""
+        accs = {k: float(md["accuracy"]) for k, md in metrics_by_split.items()}
+        for k, v in accs.items():
+            if v > self.best_history_acc.get(k, 0.0):
+                self.best_history_acc[k] = v
+                self.best_history_acc["epoch"] = epoch
+        is_best = sum(accs.values()) > self.best_sum
+        if is_best:
+            self.best_sum = sum(accs.values())
+            self.best_model_acc = dict(accs)
+            self.best_model_acc["epoch"] = epoch
+            last = list(metrics_by_split)[-1]
+            self.best_model_psnr[last] = float(metrics_by_split[last]["psnr_avg"])
+            self.best_model_ssim[last] = float(metrics_by_split[last]["ssim_avg"])
+        return is_best
+
+    @property
+    def best_model_info(self) -> Dict:
+        return {"accuracy": dict(self.best_model_acc), "psnr": dict(self.best_model_psnr),
+                "ssim": dict(self.best_model_ssim)}
+
+
+def check_ported(config: AttrDict, args: Mapping, device: torch.device) -> None:
+    """Raise ``NotImplementedError``, naming its ``ROADMAP.md`` item, for
+    what the run asks that the port does not do yet."""
+    t = config.TRAIN
+
+    def missing(what: str, item: str) -> None:
+        raise NotImplementedError(f"{what}: not ported yet (ROADMAP.md {item})")
+
+    check_arch(args["arch"])
+    if str(t.get("compute_dtype", "fp32")) != "fp32":
+        missing(f"TRAIN.compute_dtype {t.compute_dtype!r} (set 'fp32')", "queue 1 item 4")
+    if int(t.get("n_devices", 0) or 0) > 1:
+        missing(f"TRAIN.n_devices {t.n_devices}: data parallelism over several cards", "queue 1 item 10")
+    if int(args.get("srb", 5)) > 5:
+        missing(f"--srb {args['srb']}: TSRN_TL with plain SRBs beyond the fifth", "queue 1 item 7")
+    if args.get("tpg", "CRNN") != "CRNN":
+        missing(f"--tpg {args['tpg']}", "queue 1 item 8")
+    if str(args.get("test_model") or "CRNN") != "CRNN":
+        missing(f"--test_model {args['test_model']}", "queue 1 item 8")
+    if args.get("test") and args.get("rec", "aster") != "crnn":
+        missing(f"--test with --rec {args.get('rec', 'aster')} (pass --rec crnn)", "queue 1 item 8")
+    for flag in ("syn", "mixed", "ic15sr", "random_reso"):
+        if args.get(flag):
+            missing(f"--{flag}", "queue 1 item 9")
+    hidden = int(args.get("hd_u", 32))
+    if device.type == "cuda" and hidden not in SUPPORTED_HIDDEN:
+        missing(f"--hd_u {hidden} on the card (K1 takes hidden sizes {SUPPORTED_HIDDEN})", "queue 2 item 3")
+
+
+class TextSR:
+    """config + flags -> ``train()`` / ``test()`` / ``demo()`` (main.py:10-18),
+    on ``device`` (the card unless told otherwise)."""
+
+    def __init__(self, config: AttrDict, args: AttrDict, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.config = apply_arg_overrides(config, args)
+        self.args = args
+        check_ported(self.config, args, self.device)
+        self.scale_factor = int(self.config.TRAIN.down_sample_scale)
+        self.arch = args["arch"]
+        self.vis_dir = args.get("vis_dir") or self.arch
+        self.ckpt_dir = os.path.join(self.config.TRAIN.ckpt_dir, self.vis_dir)
+        self.stu_iter = int(args.get("stu_iter", 1))
+        self.n_sr = 1 if args.get("sr_share") else self.stu_iter
+        self.n_stu = 1 if args.get("tpg_share") else self.stu_iter
+        self._state: Optional[TrainState] = None
+        self._train_step: Optional[Callable] = None
+        self._eval_step: Optional[Callable] = None
+
+    # ------------------------------------------------------------------ data
+    def _loader_kw(self) -> Dict:
+        t = self.config.TRAIN
+        return dict(batch_size=int(t.batch_size), height=int(t.height), width=int(t.width),
+                    down_sample_scale=self.scale_factor, keep_ratio=bool(t.get("keep_ratio", False)),
+                    cache_images=bool(t.get("cache_images", True)), workers=int(t.get("workers", 1)),
+                    voc_type=t.voc_type, max_len=int(t.max_len), device=self.device)
+
+    def get_train_data(self) -> Loader:
+        t = self.config.TRAIN
+        return train_loader(t.train_data_dir, self.arch, bool(self.args.get("mask")),
+                            manualSeed=int(t.get("manualSeed", 1234)), **self._loader_kw())
+
+    def get_val_data(self, dirs: Optional[Sequence[str]] = None) -> List[Loader]:
+        dirs = self.config.TRAIN.VAL.val_data_dir if dirs is None else dirs
+        return val_loaders(dirs, self.arch, bool(self.args.get("mask")), **self._loader_kw())
+
+    # ----------------------------------------------------------------- state
+    def _eval_only(self) -> bool:
+        return bool(self.args.get("go_test") or self.args.get("test") or self.args.get("demo"))
+
+    def _teacher(self, gen: torch.Generator) -> CRNN:
+        """The frozen CRNN: TRAIN.VAL.crnn_pretrained when that file exists (a
+        plain ``state_dict``; interfaces/base.py:634-660), drawn otherwise."""
+        teacher = CRNN(nclass=CTC_NUM_CLASSES)
+        path = self.config.TRAIN.VAL.get("crnn_pretrained", "")
+        if path and os.path.exists(path):
+            teacher.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+        else:
+            init_torch_defaults_(teacher, gen)
+        return teacher
+
+    def init_state(self) -> TrainState:
+        """SR models drawn from TRAIN.manualSeed (then the teacher, when it is
+        not loaded), students copied from the teacher, Adam; then
+        ``--resume`` (or TRAIN.resume): the periodic files, Adam and the
+        step, or for an eval-only run the best files alone."""
+        t = self.config.TRAIN
+        gen = torch.Generator().manual_seed(int(t.get("manualSeed", 1234)))
+        a, cfg = registry_dicts(self.config, self.args)
+        sr = [init_torch_defaults_(build_model(self.arch, a, cfg), gen).to(self.device) for _ in range(self.n_sr)]
+        teacher = self._teacher(gen).to(self.device)
+        state = create_train_state(sr, teacher, n_stu=self.n_stu, lr=float(t.lr), beta1=float(t.beta1))
+        resume = self.args.get("resume") or t.get("resume")
+        if resume:
+            ckpt.restore_checkpoint(resume, state, prefer_best=self._eval_only())
+        self._state = state
+        return state
+
+    def _build_steps(self, with_train: bool = True) -> None:
+        width = int(self.config.TRAIN.width)
+        if with_train and self._train_step is None:
+            self._train_step = make_train_step(self.args, width, device=self.device)
+        if self._eval_step is None:
+            self._eval_step = make_eval_step(self.args, width, device=self.device)
+
+    @staticmethod
+    def _eval_models(state: TrainState) -> EvalModels:
+        return EvalModels(sr=state.sr, stu=state.stu, teacher=state.teacher).eval()
+
+    # ----------------------------------------------------------------- train
+    def train(self):
+        """The train loop (tpgsr_tpu/train/trainer.py:506-642); with
+        ``--go_test``, one val over the splits with visualizations, and its
+        {split: metric_dict}.  Returns the state otherwise."""
+        val_data = self.get_val_data()
+        state = self._state if self._state is not None else self.init_state()
+        go_test = bool(self.args.get("go_test"))
+        self._build_steps(with_train=not go_test)
+        # a fresh run clears the event dir (super_resolution.py:98-101); a
+        # continuation (chunked train() calls, resume) appends to it
+        logger = ScalarLogger(os.path.join("tensorboard", self.vis_dir), clear=state.step == 0)
+        try:
+            if go_test:
+                return self._run_val(state, val_data, logger, iters=0)
+            self._train_epochs(state, self.get_train_data(), val_data, logger)
+        finally:
+            logger.close()
+        return state
+
+    def _train_epochs(self, state: TrainState, loader: Loader, val_data: List[Loader], logger: ScalarLogger):
+        t = self.config.TRAIN
+        tracker = BestTracker([split_name(d) for d in t.VAL.val_data_dir])
+        converge_list: List[Dict] = []
+        display, val_int, save_int = int(t.displayInterval), int(t.VAL.valInterval), int(t.saveInterval)
+        times: List[float] = []
+        # global epochs and iterations from the restored step, so that every
+        # global epoch has its own shuffle and val/save fire on global
+        # iterations across chunked calls and resumes
+        spe = len(loader)
+        start_epoch = state.step // spe if spe else 0
+
+        def log_scalars(m: Mapping[str, float], iters: int) -> None:
+            logger.add_scalar("loss/total", m["loss_total"], iters)
+            logger.add_scalar("loss/SR", m["loss_img"], iters)
+            logger.add_scalar("loss/distill", m["loss_distill"], iters)
+
+        def display_line(m: Mapping[str, float], epoch: int, iters: int) -> None:
+            ips = int(t.batch_size) / (sum(times[-display:]) / min(len(times), display))
+            print(f"[epoch {epoch} iter {iters}] loss_total={m['loss_total']:.4f} "
+                  f"loss_img={m['loss_img']:.4f} loss_distill={m['loss_distill']:.4f} {ips:.1f} img/s", flush=True)
+
+        def val_and_save(iters: int, epoch: int) -> None:
+            if iters % val_int == 0:
+                mds = self._run_val(state, val_data, logger, iters)
+                converge_list.append({"iters": iters, **{k: md["accuracy"] for k, md in mds.items()}})
+                is_best = tracker.update(mds, epoch)
+                self._save(state, self._info(iters, epoch, tracker), is_best, converge_list)
+            if iters % save_int == 0:
+                self._save(state, self._info(iters, epoch, tracker), False, converge_list)
+
+        for epoch in range(start_epoch, start_epoch + int(t.epochs)):
+            loader.batch_sampler.epoch = epoch  # iterating advances it to epoch + 1
+            for j, batch in enumerate(loader):
+                iters = spe * epoch + j + 1
+                t0 = time.time()
+                metrics = self._train_step(state, batch)
+                if iters % 5 == 0:
+                    log_scalars({k: float(v) for k, v in metrics.items()}, iters)
+                times.append(time.time() - t0)
+                if iters % display == 0:
+                    display_line({k: float(v) for k, v in metrics.items()}, epoch, iters)
+                val_and_save(iters, epoch)
+
+    def _save(self, state: TrainState, info: Dict, is_best: bool, converge_list: List[Dict]) -> None:
+        ckpt.save_checkpoint(self.ckpt_dir, state, info, is_best, converge_list)
+
+    def _info(self, iters: int, epoch: int, tracker: BestTracker) -> Dict:
+        t = self.config.TRAIN
+        return {"arch": self.arch, "iters": iters, "epochs": epoch, "batch_size": int(t.batch_size),
+                "voc_type": t.voc_type, "up_scale_factor": self.scale_factor,
+                "best_history_res": dict(tracker.best_history_acc), "best_model_info": tracker.best_model_info}
+
+    def _run_val(self, state: TrainState, val_data: Sequence[Loader], logger: ScalarLogger,
+                 iters: int) -> Dict[str, Dict[str, float]]:
+        """Evaluate every val split; {split: metric_dict} in order."""
+        t = self.config.TRAIN
+        models = self._eval_models(state)
+        kw = {"vis_dir": self.vis_dir, "n_vis": int(t.VAL.get("n_vis", 10))} if self.args.get("go_test") else {}
+        mds = {}
+        for d, loader in zip(t.VAL.val_data_dir, val_data):
+            name = split_name(d)
+            md = evaluate(self._eval_step, models, loader, **kw)
+            print(f"  [val {name}] acc={md['accuracy']:.4f} (lr={md['accuracy_lr']:.4f} "
+                  f"hr={md['accuracy_hr']:.4f}) psnr={md['psnr_avg']:.2f} ssim={md['ssim_avg']:.4f}", flush=True)
+            for k in ("psnr_avg", "ssim_avg", "accuracy"):
+                logger.add_scalar(f"eval/{k}_{name}", md[k], iters)
+            mds[name] = md
+        return mds
+
+    # ------------------------------------------------------------------ test
+    def test(self) -> Dict[str, float]:
+        """Eval over TEST.test_data_dir (``--test``), fed the LR as the JAX
+        package does (the reference feeds HR, super_resolution.py:1381): one
+        warm batch, then a timed pass; its metric dict with ``fps``."""
+        (loader,) = self.get_val_data([self.config.TEST.test_data_dir])
+        state = self._state if self._state is not None else self.init_state()
+        self._build_steps(with_train=False)
+        models = self._eval_models(state)
+        evaluate(self._eval_step, models, loader, max_batches=1)
+        t0 = time.time()
+        md = evaluate(self._eval_step, models, loader)
+        md["fps"] = md["images"] / (time.time() - t0)
+        print({k: round(v, 4) if isinstance(v, float) else v for k, v in md.items()}, flush=True)
+        return md
+
+    # ------------------------------------------------------------------ demo
+    def demo(self) -> List[tuple]:
+        """SR each image of ``--demo_dir`` at batch 1 and read LR and SR;
+        returns [(file, LR string, SR string)] in file order."""
+        t = self.config.TRAIN
+        state = self._state if self._state is not None else self.init_state()
+        self._build_steps(with_train=False)
+        models = self._eval_models(state)
+        size = (int(t.width) // self.scale_factor, int(t.height) // self.scale_factor)
+        preds = []
+        t0 = time.time()
+        for fn in sorted(os.listdir(self.args["demo_dir"])):
+            try:
+                img = Image.open(os.path.join(self.args["demo_dir"], fn))
+            except OSError:  # not an image
+                continue
+            lr = resize_normalize(img, size, bool(self.args.get("mask")))[None]
+            # hr is read by no output the demo uses: zeros at the HR size
+            batch = {"lr": lr, "hr": np.zeros((1, int(t.height), int(t.width), lr.shape[-1]), np.float32)}
+            _, outs = self._eval_step(models, batch)
+            pred_sr, pred_lr = decode_crnn(outs["logits_sr"])[0], decode_crnn(outs["logits_lr"])[0]
+            print(f"{fn}: LR='{pred_lr}' SR='{pred_sr}'", flush=True)
+            preds.append((fn, pred_lr, pred_sr))
+        if preds:
+            print(f"fps={len(preds) / (time.time() - t0):.2f}", flush=True)
+        return preds
