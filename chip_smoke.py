@@ -822,10 +822,11 @@ def check_metric_dicts(got, want, what):
 
 def phase_trainer(root: str, train_dirs, val_dirs, lmdb_train_ips: float):
     """Phase 10: ``python -m tpgsr_tpu_torch.cli`` in-process on the card, at
-    the flagship's full width, batch 48, fp32 (TF32 off), in ``root``:
+    the flagship's full width, batch 48, fp32, in ``root``:
 
     1. one epoch (44 iterations, val and a save at 22 and 44) from a config
-       with ``compute_dtype: fp32``; the files it writes, the first two
+       with ``compute_dtype: fp32``, started with TF32 on for cuBLAS and
+       cuDNN: the entry point turns both off; the files it writes, the first two
        iterations' losses against a CPU ``TextSR`` from the same seed and
        batches (1e-5, then 1e-4: one Adam update apart, the bound the CPU
        tests hold the port's second step to against JAX);
@@ -872,12 +873,16 @@ def trainer_runs(argv, ckpt_dir, train_dirs, val_dirs, demo_dir, lmdb_train_ips:
     n_val_batches = sum(-(-n // BATCH) for n in VAL_PAIRS)
     # 1. one epoch through the CLI
     probe = TrainerProbe()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
     gru_seq.LAUNCHES = 0
     gru_seq.BACKWARD_LAUNCHES = 0
     start = time.perf_counter()
     with probe.installed():
         state = cli.main(argv)
     torch.cuda.synchronize()
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "the trainer left TF32 on")
     run_launches = (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES)
     check(state.step == TRAINER_EPOCH, f"trainer at step {state.step}, expected {TRAINER_EPOCH}")
     want = (2 * N_SRB * (TRAINER_EPOCH + 2 * n_val_batches), 2 * N_SRB * TRAINER_EPOCH)

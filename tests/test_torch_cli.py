@@ -112,9 +112,17 @@ def test_the_flagship_runs_with_an_fp32_yaml_only():
     trainer.TextSR(_fp32_config(), config.default_args(arch="tsrn_tl_cascade", test=True, rec="crnn"), device="cpu")
 
 
+def _allow_tf32(monkeypatch):
+    """TF32 on for cuBLAS and cuDNN, as a caller may leave it; the flags are
+    restored after the test."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+
+
 def test_hidden_sizes_beyond_k1_raise_on_the_card_only(monkeypatch):
     """``--hd_u 12``: the CPU takes any hidden size; the card (CUDA patched
     in) raises before it builds anything, naming K1's sizes."""
+    _allow_tf32(monkeypatch)
     args = config.default_args(arch="tsrn_tl_cascade", hd_u=12)
     trainer.TextSR(_fp32_config(), args, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -122,6 +130,20 @@ def test_hidden_sizes_beyond_k1_raise_on_the_card_only(monkeypatch):
         trainer.TextSR(_fp32_config(), args)
     for h in (8, 16, 32):
         trainer.TextSR(_fp32_config(), config.default_args(arch="tsrn_tl_cascade", hd_u=h))
+
+
+def test_textsr_turns_tf32_off_on_the_card_only(monkeypatch):
+    """fp32 on the card is IEEE fp32: ``TextSR`` (CUDA patched in) turns off
+    the TF32 that PyTorch allows cuDNN by default, and cuBLAS's; on the CPU
+    it leaves both flags as they are."""
+    _allow_tf32(monkeypatch)
+    args = config.default_args(arch="tsrn_tl_cascade")
+    trainer.TextSR(_fp32_config(), args, device="cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    trainer.TextSR(_fp32_config(), args)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
 
 
 def test_ssim_loss_raises_when_training_starts(tmp_path, monkeypatch):

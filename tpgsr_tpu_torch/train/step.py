@@ -86,15 +86,11 @@ def _as_image(arr, dev: torch.device, want_mask: bool = False) -> torch.Tensor:
     return t.to(dev, torch.float32, non_blocking=True)
 
 
-def _check_arch(args: Mapping) -> None:
-    check_arch(args.get("arch", "tsrn_tl_cascade"))
-
-
 def train_wire_keys(arch: str = "tsrn_tl_cascade") -> frozenset:
     """The batch keys the train step reads, the only ones it copies to the
     device (tpgsr_tpu/train/step.py:85-98): the collate's ``label_vecs`` and
     ``labels`` stay on the host."""
-    _check_arch({"arch": arch})
+    check_arch(arch)
     return frozenset({"hr", "lr", "ctc_labels", "ctc_lengths", "weighted_tics"})
 
 
@@ -108,7 +104,7 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
     ``mask`` as the CLI names them; ``width`` is TRAIN.width (it sets the
     CRNN input width).  The batch's ``hr`` and ``lr`` go to ``device`` (the
     card unless told otherwise)."""
-    _check_arch(args)
+    check_arch(args.get("arch", "tsrn_tl_cascade"))
     dev = resolve_device(device)
     want_mask = bool(args.get("mask", False))
     stu_iter = int(args.get("stu_iter", 1))
@@ -170,7 +166,6 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None) 
     ``ssim_loss`` is not ported and raises.  Metrics are detached tensors on
     the device: ``loss_img_{i}``, ``loss_img``, ``loss_distill``,
     ``loss_total``."""
-    _check_arch(args)
     wire_keys = train_wire_keys(args.get("arch", "tsrn_tl_cascade"))
     for name in _NOT_PORTED:
         if args.get(name, False):

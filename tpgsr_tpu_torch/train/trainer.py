@@ -186,13 +186,20 @@ def check_ported(config: AttrDict, args: Mapping, device: torch.device) -> None:
 
 class TextSR:
     """config + flags -> ``train()`` / ``test()`` / ``demo()`` (main.py:10-18),
-    on ``device`` (the card unless told otherwise)."""
+    on ``device`` (the card unless told otherwise).  On the card it turns
+    TF32 off for the process, cuBLAS's and cuDNN's: fp32 is the one
+    ``compute_dtype`` ported."""
 
     def __init__(self, config: AttrDict, args: AttrDict, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.config = apply_arg_overrides(config, args)
         self.args = args
         check_ported(self.config, args, self.device)
+        if self.device.type == "cuda":
+            # fp32 is IEEE fp32 on the card too: PyTorch lets cuDNN's
+            # convolutions run in TF32 unless told otherwise.
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         self.scale_factor = int(self.config.TRAIN.down_sample_scale)
         self.arch = args["arch"]
         self.vis_dir = args.get("vis_dir") or self.arch
