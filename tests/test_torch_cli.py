@@ -76,7 +76,6 @@ def _fp32_config():
 
 
 @pytest.mark.parametrize("args_over,train_over,item", [
-    ({}, {"compute_dtype": "bf16"}, "queue 1 item 4"),
     ({"arch": "tsrn"}, {}, "queue 1 item 7"),
     ({"arch": "tsrn_tl_wmask"}, {}, "queue 1 item 7"),
     ({"srb": 6}, {}, "queue 1 item 7"),
@@ -89,12 +88,11 @@ def _fp32_config():
     ({"ic15sr": True}, {}, "queue 1 item 9"),
     ({"random_reso": True}, {}, "queue 1 item 9"),
     ({}, {"n_devices": 2}, "queue 1 item 10"),
-], ids=["bf16", "tsrn", "tsrn_tl_wmask", "srb", "tpg", "test_model", "rec_default", "rec_moran", "syn", "mixed",
+], ids=["tsrn", "tsrn_tl_wmask", "srb", "tpg", "test_model", "rec_default", "rec_moran", "syn", "mixed",
         "ic15sr", "random_reso", "n_devices"])
 def test_what_is_not_ported_raises_naming_its_item(args_over, train_over, item):
     """Each raises ``NotImplementedError`` naming its ``ROADMAP.md`` item when
-    ``TextSR`` is built, before anything runs; the packaged YAML's
-    ``compute_dtype`` (bf16) among them."""
+    ``TextSR`` is built, before anything runs."""
     cfg = _fp32_config()
     cfg.TRAIN.update(train_over)
     with pytest.raises(NotImplementedError, match=item):
@@ -102,14 +100,27 @@ def test_what_is_not_ported_raises_naming_its_item(args_over, train_over, item):
 
 
 def test_the_flagship_runs_with_an_fp32_yaml_only():
-    """The packaged YAML (bf16) raises; with ``compute_dtype: fp32`` the
-    flagship's flags and ``--test --rec crnn`` build."""
+    """The flagship's flags and ``--test --rec crnn`` build ``TextSR`` with
+    the packaged YAML as it is (``compute_dtype: bf16``) and with an fp32
+    one; the train step takes the YAML's precision.  (The name is from before
+    bf16 was ported, when the packaged YAML raised.)"""
     argv = _script_argv("train_TPGSR-TSRN.sh")
     args = config.AttrDict(vars(config.build_arg_parser().parse_args(argv)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        trainer.TextSR(config.load_config(), args, device="cpu")
-    trainer.TextSR(_fp32_config(), args, device="cpu")
-    trainer.TextSR(_fp32_config(), config.default_args(arch="tsrn_tl_cascade", test=True, rec="crnn"), device="cpu")
+    for cfg, dtype in ((config.load_config(), "bf16"), (_fp32_config(), "fp32")):
+        mission = trainer.TextSR(cfg, args, device="cpu")
+        assert mission.config.TRAIN.compute_dtype == dtype
+        trainer.TextSR(cfg, config.default_args(arch="tsrn_tl_cascade", test=True, rec="crnn"), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["fp16", "float32", ""])
+def test_an_unknown_compute_dtype_raises(dtype):
+    """TRAIN.compute_dtype is 'fp32' or 'bf16'; anything else raises
+    ``ValueError`` when ``TextSR`` is built (the JAX package would run it as
+    fp32)."""
+    cfg = config.load_config()
+    cfg.TRAIN.compute_dtype = dtype
+    with pytest.raises(ValueError, match="compute_dtype"):
+        trainer.TextSR(cfg, config.default_args(arch="tsrn_tl_cascade"), device="cpu")
 
 
 def _allow_tf32(monkeypatch):
@@ -134,16 +145,20 @@ def test_hidden_sizes_beyond_k1_raise_on_the_card_only(monkeypatch):
 
 def test_textsr_turns_tf32_off_on_the_card_only(monkeypatch):
     """fp32 on the card is IEEE fp32: ``TextSR`` (CUDA patched in) turns off
-    the TF32 that PyTorch allows cuDNN by default, and cuBLAS's; on the CPU
-    it leaves both flags as they are."""
-    _allow_tf32(monkeypatch)
+    the TF32 that PyTorch allows cuDNN by default, and cuBLAS's, with an fp32
+    YAML and with the packaged one (bf16, whose losses, BatchNorm, K1's state,
+    clip, Adam and eval are fp32); on the CPU it leaves both flags as they
+    are."""
     args = config.default_args(arch="tsrn_tl_cascade")
-    trainer.TextSR(_fp32_config(), args, device="cpu")
-    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    trainer.TextSR(_fp32_config(), args)
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert not torch.backends.cudnn.allow_tf32
+    for cfg in (_fp32_config(), config.load_config()):
+        _allow_tf32(monkeypatch)
+        trainer.TextSR(cfg, args, device="cpu")
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+        with monkeypatch.context() as mp:
+            mp.setattr(torch.cuda, "is_available", lambda: True)
+            trainer.TextSR(cfg, args)
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
 
 
 def test_ssim_loss_raises_when_training_starts(tmp_path, monkeypatch):

@@ -125,12 +125,13 @@ def test_launch_config_backward_falls_back_when_four_rows_fit_fewer_blocks():
 
 def test_backward_config_reads_the_backward_occupancy(monkeypatch):
     """``config_for`` feeds ``launch_config`` the occupancy of the kernel it
-    configures, and caches the two directions apart."""
+    configures, and caches the two directions and the two storage types
+    apart."""
     calls = []
 
-    def limits(index, hidden, backward=False):
-        calls.append(backward)
-        return 132, ((1, 3), (2, 3), (4, 2 if backward else 3))
+    def limits(index, hidden, backward=False, bf16=0):
+        calls.append((backward, bf16))
+        return 132, ((1, 3), (2, 3), (4, 2 if backward or bf16 else 3))
 
     monkeypatch.setattr(gru_seq, "_device_limits", limits)
     gru_seq._config.cache_clear()
@@ -139,7 +140,10 @@ def test_backward_config_reads_the_backward_occupancy(monkeypatch):
         assert gru_seq.config_for(3072, 32, dev) == gru_seq.LaunchConfig(4, 384, 3, 1)
         assert gru_seq.config_for(3072, 32, dev, backward=True) == gru_seq.LaunchConfig(4, 384, 2, 2)
         assert gru_seq.config_for(3072, 32, dev, backward=True).waves == 2
-        assert calls == [False, True]
+        assert gru_seq.config_for(3072, 32, dev, dtype=torch.bfloat16) == gru_seq.LaunchConfig(4, 384, 2, 2)
+        assert calls == [(False, 0), (True, 0), (False, 1)]
+        with pytest.raises(TypeError):
+            gru_seq.config_for(3072, 32, dev, dtype=torch.float16)
     finally:
         gru_seq._config.cache_clear()
 
@@ -196,16 +200,17 @@ def test_bigru_kernel_rejects_unsupported_hidden(cuda):
         gru_seq.bigru(x, fw, bw)
 
 
-def backward_case(rng, n, t, c, h, device):
+def backward_case(rng, n, t, c, h, device, dtype=torch.float32):
     """Projections, weights, the forward's output and a cotangent for K1's
-    backward, on ``device``."""
-    x = torch.from_numpy(rng.random((n, t, c), dtype=np.float32)).to(device)
+    backward, on ``device``: x, xp, out and the cotangent in ``dtype``, the
+    weights in fp32."""
+    x = torch.from_numpy(rng.random((n, t, c), dtype=np.float32)).to(device, dtype)
     fw, bw = (torch_params(p, device) for p in gru_params(rng, c, h))
     xp = rnn.input_projection(x, fw, bw).contiguous()
     w_hh = torch.stack([fw["w_hh"], bw["w_hh"]]).contiguous()
     b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
     out = rnn.bigru_recurrence(xp, w_hh, b_hh)
-    grad_out = torch.from_numpy(rng.standard_normal((n, t, 2 * h)).astype(np.float32)).to(device)
+    grad_out = torch.from_numpy(rng.standard_normal((n, t, 2 * h)).astype(np.float32)).to(device, dtype)
     return xp, w_hh, b_hh, out, grad_out
 
 
@@ -273,39 +278,174 @@ def test_bigru_autograd_on_card_launches_both_kernels(cuda):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
+def bf16_ulp(t):
+    """The spacing of bf16 values at each element of ``t``: 2^(e - 7) for |t|
+    in [2^e, 2^(e+1))."""
+    mag = t.float().abs().clamp_min(2.0**-126)
+    return torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(torch.log2(mag)))
+
+
+def assert_within_bf16_ulp(got, want, atol):
+    """Each element of ``got`` (bf16) within one bf16 ulp of ``want`` plus
+    ``atol``: the fp32 states of kernel and plain version differ by the order
+    of their sums (``atol``, the fp32 tests' tolerance), which can move the
+    rounding to bf16 by one ulp."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    diff = (got.float() - want.float()).abs()
+    bound = bf16_ulp(want) + atol
+    assert bool((diff <= bound).all()), f"max excess {float((diff - bound).max()):.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,c,h", GRU_CASES + MAIN_PATH_CASES + EDGE_CASES)
+def test_bigru_kernel_bf16_matches_plain_on_card(cuda, n, t, c, h):
+    """K1 in bf16 (bf16 x, fp32 parameters) against its bf16 plain version on
+    the card: out within one bf16 ulp; one launch."""
+    rng = np.random.default_rng(n + t + 1)
+    x = torch.from_numpy(rng.random((n, t, c), dtype=np.float32)).to(cuda).bfloat16()
+    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, c, h))
+    before = gru_seq.LAUNCHES
+    got = gru_seq.bigru(x, fw, bw)
+    torch.cuda.synchronize()
+    assert gru_seq.LAUNCHES == before + 1
+    assert_within_bf16_ulp(got, rnn.bigru(x, fw, bw), atol=2e-5 if t >= 64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpt", gru_seq.RPTS)
+@pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
+def test_bigru_kernel_bf16_every_instantiation_matches_plain(cuda, h, rpt):
+    """Each bf16 (H, rows a thread), forced, on a ragged N with T = 13 and T = 3."""
+    rng = np.random.default_rng(h * rpt + 1)
+    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, 16, h))
+    w_hh = torch.stack([fw["w_hh"], bw["w_hh"]])
+    b_hh = torch.stack([fw["b_hh"], bw["b_hh"]])
+    rows = gru_seq.THREADS // h * rpt
+    for n, t in ((2 * rows + 3, 13), (rows - 1, 3)):
+        x = torch.from_numpy(rng.random((n, t, 16), dtype=np.float32)).to(cuda).bfloat16()
+        xp = rnn.input_projection(x, fw, bw).contiguous()
+        got = gru_seq._recurrence(xp, *gru_seq._kernel_weights(xp, w_hh, b_hh),
+                                  config=gru_seq.LaunchConfig(rpt, 0, 0, 0))
+        torch.cuda.synchronize()
+        assert_within_bf16_ulp(got, rnn.bigru_recurrence(xp, w_hh, b_hh), atol=1e-5)
+
+
+def assert_backward_bf16_close(got, want, atol):
+    """dxp within one bf16 ulp plus ``atol``; dW_hh and db_hh, fp32 sums of
+    fp32 terms, at 1e-4 of their largest entry."""
+    assert_within_bf16_ulp(got[0], want[0], atol)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,c,h", GRU_CASES + MAIN_PATH_CASES + EDGE_CASES)
+def test_bigru_kernel_bf16_backward_matches_plain_on_card(cuda, n, t, c, h):
+    """K1's backward in bf16 (xp, out, grad_out and dxp in bf16) and the fp32
+    GEMM for dW_hh, db_hh, against the bf16 plain BPTT on the card."""
+    rng = np.random.default_rng(10 * n + t + 1)
+    xp, w_hh, b_hh, out, grad_out = backward_case(rng, n, t, c, h, cuda, torch.bfloat16)
+    before = gru_seq.BACKWARD_LAUNCHES
+    got = gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+    torch.cuda.synchronize()
+    assert gru_seq.BACKWARD_LAUNCHES == before + 1
+    assert_backward_bf16_close(got, rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out),
+                               atol=5e-5 if t >= 64 else 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpt", gru_seq.RPTS)
+@pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
+def test_bigru_kernel_bf16_backward_every_instantiation_matches_plain(cuda, h, rpt):
+    """Each bf16 (H, rows a thread) of the backward kernel, forced, on a
+    ragged N with T = 13 and T = 3 (at four rows a thread h_{t-1} passes
+    through shared memory in bf16, copied two columns an even lane)."""
+    rng = np.random.default_rng(100 * h + rpt + 1)
+    rows = gru_seq.THREADS // h * rpt
+    for n, t in ((2 * rows + 3, 13), (rows - 1, 3)):
+        xp, w_hh, b_hh, out, grad_out = backward_case(rng, n, t, 16, h, cuda, torch.bfloat16)
+        dxp, dhp, h_prev = gru_seq._backward_kernel(xp, *gru_seq._kernel_weights(xp, w_hh, b_hh), out, grad_out,
+                                                    config=gru_seq.LaunchConfig(rpt, 0, 0, 0))
+        got = (dxp, *gru_seq.recurrent_weight_grads(dhp, h_prev))
+        torch.cuda.synchronize()
+        assert_backward_bf16_close(got, rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out), atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_bigru_autograd_bf16_on_card_launches_both_kernels(cuda):
+    """The wrapper in bf16 on the card: x's gradient in bf16, the fp32
+    parameters' in fp32, each within 1e-2 relative L2 of autograd through the
+    bf16 plain version, which recomputes from its fp32 state where the
+    kernel reads out's bf16 values."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.random((37, 13, 16), dtype=np.float32)).to(cuda).bfloat16()
+    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, 16, 16))
+    grads = []
+    for fn in (gru_seq.bigru, rnn.bigru):
+        leaves = [x.clone().requires_grad_(True)] + [
+            {k: v.clone().requires_grad_(True) for k, v in d.items()} for d in (fw, bw)]
+        before = (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES)
+        fn(*leaves).float().square().sum().backward()
+        torch.cuda.synchronize()
+        launched = (gru_seq.LAUNCHES - before[0], gru_seq.BACKWARD_LAUNCHES - before[1])
+        assert launched == ((1, 1) if fn is gru_seq.bigru else (0, 0))
+        grads.append([leaves[0].grad] + [d[k].grad for d in leaves[1:] for k in sorted(d)])
+    assert grads[0][0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in grads[0][1:])
+    for g, w in zip(*grads):
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= 1e-2, rel
+
+
 PTXAS_LOG = """ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116bigru_seq_kernelILi32ELi4EEEvPKfS2_S2_Pfii' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_116bigru_seq_kernelILi32ELi4EEEvPKfS2_S2_Pfii
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116bigru_seq_kernelIfLi32ELi4EEEvPKT_PKfS6_PS3_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116bigru_seq_kernelIfLi32ELi4EEEvPKT_PKfS6_PS3_ii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116bigru_seq_kernelILi8ELi1EEEvPKfS2_S2_Pfii' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_116bigru_seq_kernelILi8ELi1EEEvPKfS2_S2_Pfii
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116bigru_seq_kernelI13__nv_bfloat16Li8ELi1EEEvPKT_PKfS7_PS4_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116bigru_seq_kernelI13__nv_bfloat16Li8ELi1EEEvPKT_PKfS7_PS4_ii
     16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 61 registers, used 1 barriers, 400 bytes cmem[0]
 """
 
 
 def test_ptxas_report_reads_each_instantiation():
+    """Each instantiation by storage type, with its xp ring (4 slots of the
+    storage type) and two fp32 h buffers as shared memory."""
     assert ptxas_report(PTXAS_LOG) == [
-        {"H": 32, "rpt": 4, "registers": 168, "spill_bytes": 0, "stack_bytes": 0,
+        {"dtype": "fp32", "H": 32, "rpt": 4, "registers": 168, "spill_bytes": 0, "stack_bytes": 0,
          "smem_bytes": 4 * (4 * 16 * 96 + 2 * 16 * 32)},
-        {"H": 8, "rpt": 1, "registers": 61, "spill_bytes": 12, "stack_bytes": 16,
-         "smem_bytes": 4 * (4 * 16 * 24 + 2 * 16 * 8)},
+        {"dtype": "bf16", "H": 8, "rpt": 1, "registers": 61, "spill_bytes": 12, "stack_bytes": 16,
+         "smem_bytes": 2 * 4 * 16 * 24 + 4 * 2 * 16 * 8},
     ]
 
 
-BWD_PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125bigru_seq_backward_kernelILi32ELi4EEEvPKfS2_S2_S2_S2_PfS3_S3_iii' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_125bigru_seq_backward_kernelILi32ELi4EEEvPKfS2_S2_S2_S2_PfS3_S3_iii
+BWD_PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125bigru_seq_backward_kernelIfLi32ELi4EEEvPKT_PKfS6_S4_S4_PS2_PfS8_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125bigru_seq_backward_kernelIfLi32ELi4EEEvPKT_PKfS6_S4_S4_PS2_PfS8_iii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 166 registers, used 0 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125bigru_seq_backward_kernelI13__nv_bfloat16Li32ELi4EEEvPKT_PKfS7_S5_S5_PS3_PfS9_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125bigru_seq_backward_kernelI13__nv_bfloat16Li32ELi4EEEvPKT_PKfS7_S5_S5_PS3_PfS9_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 160 registers, used 0 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125bigru_seq_backward_kernelI13__nv_bfloat16Li32ELi1EEEvPKT_PKfS7_S5_S5_PS3_PfS9_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125bigru_seq_backward_kernelI13__nv_bfloat16Li32ELi1EEEvPKT_PKfS7_S5_S5_PS3_PfS9_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 150 registers, used 0 barriers, 432 bytes cmem[0]
 """
 
 
 def test_ptxas_report_reads_the_backward():
     """The backward's instantiations, with its two h_{t-1} buffers as shared
-    memory; the forward's report skips them, and the reverse."""
+    memory: of the storage type at four rows a thread (copied by cp.async),
+    fp32 below; the forward's report skips them, and the reverse."""
     assert ptxas_report(BWD_PTXAS_LOG, backward=True) == [
-        {"H": 32, "rpt": 4, "registers": 166, "spill_bytes": 0, "stack_bytes": 0, "smem_bytes": 4 * 2 * 16 * 32}]
+        {"dtype": "fp32", "H": 32, "rpt": 4, "registers": 166, "spill_bytes": 0, "stack_bytes": 0,
+         "smem_bytes": 4 * 2 * 16 * 32},
+        {"dtype": "bf16", "H": 32, "rpt": 4, "registers": 160, "spill_bytes": 0, "stack_bytes": 0,
+         "smem_bytes": 2 * 2 * 16 * 32},
+        {"dtype": "bf16", "H": 32, "rpt": 1, "registers": 150, "spill_bytes": 0, "stack_bytes": 0,
+         "smem_bytes": 4 * 2 * 4 * 32}]
     assert ptxas_report(BWD_PTXAS_LOG) == []
     assert ptxas_report(PTXAS_LOG, backward=True) == []
 

@@ -11,7 +11,7 @@ wrong by design, and only its time is read.  The difference between a
 variant's time and the full kernel's is what the removed part costs on the
 critical path.  Every substitution must match the source once, so an edit of
 the kernel that moves one of them stops this script instead of timing the
-wrong thing.
+wrong thing.  It times the fp32 instantiations.
 """
 
 from __future__ import annotations
@@ -36,9 +36,10 @@ VARIANTS = {
     "fast_math": ((), ("--use_fast_math",), "accurate expf, tanhf and division (fast approximations instead)"),
     "no_matvec": ((("for (int k = 0; k < H; k += 4) {", "for (int k = 0; k < 0; k += 4) {"),), (),
                   "the recurrent mat-vec h W_hh^T"),
-    "no_gates": ((("const float rg = sigmoid_f32(x[j] + sr);", "const float rg = x[j] + sr;"),
-                  ("const float zg = sigmoid_f32(x[H + j] + sz);", "const float zg = x[H + j] + sz;"),
-                  ("const float ng = tanhf(x[2 * H + j] + rg * sn);", "const float ng = x[2 * H + j] + rg * sn;")),
+    "no_gates": ((("const float rg = sigmoid_f32(to_f32(x[j]) + sr);", "const float rg = to_f32(x[j]) + sr;"),
+                  ("const float zg = sigmoid_f32(to_f32(x[H + j]) + sz);", "const float zg = to_f32(x[H + j]) + sz;"),
+                  ("const float ng = tanhf(to_f32(x[2 * H + j]) + rg * sn);",
+                   "const float ng = to_f32(x[2 * H + j]) + rg * sn;")),
                  (), "the gates' sigmoid and tanh"),
     "no_out_store": ((("if (row < n) out[", "if (row < n && t == t_len - 1) out["),), (),
                      "the store of out at every step but the last"),
@@ -111,7 +112,7 @@ def build_variants(backward: bool = False):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
         regs = {f"rpt{r['rpt']}": [r["registers"], r["spill_bytes"]] for r in ptxas_report(log, backward)
-                if r["H"] == H}
+                if r["H"] == H and r["dtype"] == "fp32"}
         libs[name] = (ctypes.CDLL(str(lib)), regs)
     return libs
 
@@ -119,7 +120,7 @@ def build_variants(backward: bool = False):
 def _forward_calls(lib, stream):
     """[(label, call(rpt), rpt of the launch configuration)] at both sweeps."""
     fn = lib.tpgsr_bigru_seq_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     calls = []
     for i, (label, n, t) in enumerate(SWEEPS):
@@ -130,7 +131,7 @@ def _forward_calls(lib, stream):
         out = torch.empty(n, t, 2 * H, device="cuda")
 
         def call(rpt, n=n, t=t, args=(xp, w_t, b_hh, out)):
-            return fn(*(a.data_ptr() for a in args), n, t, H, rpt, stream)
+            return fn(*(a.data_ptr() for a in args), n, t, H, rpt, 0, stream)
 
         calls.append((label, call, gru_seq.config_for(n, H, x.device).rpt))
     return calls
@@ -140,7 +141,7 @@ def _backward_calls(lib, stream):
     """As ``_forward_calls``, for the backward kernel on the forward's output
     and a random cotangent."""
     fn = lib.tpgsr_bigru_seq_backward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     calls = []
     for i, (label, n, t) in enumerate(SWEEPS):
@@ -155,7 +156,7 @@ def _backward_calls(lib, stream):
         dxp, dhp, h_prev = torch.empty_like(xp), xp.new_zeros(2, n_pad, t, 3 * H), xp.new_zeros(2, n_pad, t, H)
 
         def call(rpt, n=n, t=t, n_pad=n_pad, args=(xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev)):
-            return fn(*(a.data_ptr() for a in args), n, n_pad, t, H, rpt, stream)
+            return fn(*(a.data_ptr() for a in args), n, n_pad, t, H, rpt, 0, stream)
 
         calls.append((label, call, gru_seq.config_for(n, H, x.device, backward=True).rpt))
     return calls

@@ -77,21 +77,33 @@ def ptxas_entries(log: str):
     return rows
 
 
+# the storage type's template argument, as the Itanium ABI mangles it
+_MANGLED_DTYPES = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+
+
 def ptxas_report(log: str, backward: bool = False):
     """Registers and spilled bytes of each instantiation of K1's forward (or,
-    with ``backward``, its backward), from -Xptxas -v, with the dynamic
-    shared memory the launcher asks for: the forward's xp ring and h
-    buffers, the backward's h_{t-1} buffers."""
+    with ``backward``, its backward) by storage type, from -Xptxas -v, with
+    the dynamic shared memory the launcher asks for: the forward's xp ring
+    (of the storage type) and fp32 h buffers, the backward's h_{t-1}
+    buffers (of the storage type where the kernel copies them by cp.async,
+    at four rows a thread and at two in bf16, else fp32)."""
     kernel = "bigru_seq_backward_kernel" if backward else "bigru_seq_kernel"
     rows = []
     for e in ptxas_entries(log):
-        t = re.search(kernel + r"ILi(\d+)ELi(\d+)E", e["kernel"])
+        t = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", e["kernel"])
         if t:
-            h, rpt = (int(v) for v in t.groups())
+            dtype = _MANGLED_DTYPES[t.group(1)]
+            h, rpt = int(t.group(2)), int(t.group(3))
+            size = 2 if dtype == "bf16" else 4
             rows_blk = gru_seq.THREADS // h * rpt
-            ring = 0 if backward else gru_seq.RING_STAGES * rows_blk * 3 * h
-            rows.append({"H": h, "rpt": rpt, "registers": e["registers"], "spill_bytes": e["spill_bytes"],
-                         "stack_bytes": e["stack_bytes"], "smem_bytes": 4 * (ring + 2 * rows_blk * h)})
+            if backward:  # two buffers at every rows a thread
+                staged = rpt == 4 or (rpt == 2 and dtype == "bf16")
+                smem = (size if staged else 4) * 2 * rows_blk * h
+            else:
+                smem = size * gru_seq.RING_STAGES * rows_blk * 3 * h + 4 * 2 * rows_blk * h
+            rows.append({"dtype": dtype, "H": h, "rpt": rpt, "registers": e["registers"],
+                         "spill_bytes": e["spill_bytes"], "stack_bytes": e["stack_bytes"], "smem_bytes": smem})
     return rows
 
 

@@ -31,7 +31,8 @@
 //      by cp.async.cg, 16 B a lane, one commit group a step (an empty one
 //      where there is nothing to load, so the count stays uniform for ragged
 //      rows and T < S), and wait_group S-2 before each step.  A slot holds the
-//      block's rows times 3H fp32 (1,536 B x RPT for every H).  Each warp
+//      block's rows times 3H values of T (1,536 B x RPT for every H in fp32,
+//      768 B x RPT in bf16).  Each warp
 //      copies its own rows, with addresses set once before the loop.
 //   2. RPT rows a thread (1, 2 or 4): thread (j, g) owns hidden unit j of rows
 //      g*RPT .. g*RPT+RPT-1 and loads its 3H weights once for all of them.  The
@@ -51,6 +52,16 @@
 // fp32 throughout with accurate tanhf (sigmoid through tanhf); only the order
 // of the sums differs from the plain version.
 //
+// Storage type T (float or __nv_bfloat16).  xp and out are T in device memory
+// and in the ring; everything else is fp32: W_hh and b_hh (the wrapper hands
+// over the bf16-rounded values as fp32 when T is bf16, as the JAX layers cast
+// their weights to the activation dtype), the state h in registers and in its
+// shared-memory buffers, the sums and the gates.  Each value of xp is widened
+// to fp32 where the gates read it, and h is rounded to T only where it is
+// stored to out, so that the bf16 instantiation keeps the TPU kernel's fp32
+// state (pallas_gru.py:52-65) and halves the bytes.  A 16-byte cp.async moves
+// 4 fp32 or 8 bf16 values of a row; a bf16 slot is half the bytes.
+//
 // Measured (tpgsr_tpu_torch/ablate_k1.py, H100 SXM at 700 W; PERF.md): 36.9 us
 // over W and 31.5 us over H.  Over H the FMAs alone take about the 9 us of the
 // fp32 peak; the gates' tanhf chains, the out stores and the ring's refill add
@@ -58,8 +69,14 @@
 //
 // -Xptxas -v on sm_90a (registers and dynamic shared memory a block; no
 // spills, no stack frame): H = 32: RPT 1 155 (7,168 B), RPT 2 147 (14,336 B),
-// RPT 4 168 (28,672 B); H = 16: 89, 98, 133; H = 8: 61, 71, 89.
+// RPT 4 168 (28,672 B); H = 16: 89, 98, 133; H = 8: 61, 71, 89.  bf16:
+// H = 32: 155 (4,096 B), 160 (8,192 B), 168 (16,384 B); H = 16: 91, 98, 132;
+// H = 8: 61, 70, 84.  In bf16 the bytes halve (0.075 ms per SR forward at
+// 3.35 TB/s) but the fp32 recurrent products (0.090 ms at 67 TFLOP/s) and
+// the step chain bind: alone it takes 4 % less than fp32 (chip_smoke.py,
+// H100 SXM at 700 W; PERF.md).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -72,7 +89,17 @@ constexpr int kStages = 4;     // slots of the xp ring
 // division, within 1e-7 of 1 / (1 + exp(-x)).
 __device__ __forceinline__ float sigmoid_f32(float x) { return fmaf(0.5f, tanhf(0.5f * x), 0.5f); }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
+// The storage type to fp32 and back (round to nearest even, as torch's .to()).
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int src_bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(src_bytes)
@@ -86,29 +113,33 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <int H, int RPT>
+template <typename T, int H, int RPT>
 struct Shape {
   static constexpr int kGroups = kThreads / H;           // row groups (threadIdx.y)
   static constexpr int kRows = kGroups * RPT;            // rows of a block
-  static constexpr int kSlice = kRows * 3 * H;           // floats of xp a step
+  static constexpr int kSlice = kRows * 3 * H;           // values of xp a step
   static constexpr int kWarpRows = 32 / H * RPT;        // rows of a warp
-  static constexpr int kRowChunks = 3 * H / 4;           // 16-byte chunks a row
+  static constexpr int kChunk = 16 / sizeof(T);          // values a 16-byte copy
+  static constexpr int kRowChunks = 3 * H / kChunk;      // 16-byte chunks a row
   static constexpr int kPassRows = 32 / kRowChunks;      // rows a warp copies at once
   static constexpr int kPasses = (kWarpRows + kPassRows - 1) / kPassRows;
   static constexpr int kPartials = 2;                    // partial sums a gate
-  static_assert(H % 4 == 0 && H % kPartials == 0, "H must be a multiple of 4");
+  static_assert(H % 8 == 0 && H % kPartials == 0, "H must be a multiple of 8");
 };
 
-template <int H, int RPT>
+// The xp ring of T, then the fp32 h buffers (16-byte aligned: a slot is a
+// multiple of 16 bytes).
+template <typename T, int H, int RPT>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (kStages * Shape<H, RPT>::kSlice + 2 * Shape<H, RPT>::kRows * H);
+  using Sh = Shape<T, H, RPT>;
+  return sizeof(T) * kStages * Sh::kSlice + sizeof(float) * 2 * Sh::kRows * H;
 }
 
-template <int H, int RPT>
+template <typename T, int H, int RPT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    bigru_seq_kernel(const float* __restrict__ xp, const float* __restrict__ w_t,
-                     const float* __restrict__ b_hh, float* __restrict__ out, int n, int t_len) {
-  using Sh = Shape<H, RPT>;
+    bigru_seq_kernel(const T* __restrict__ xp, const float* __restrict__ w_t,
+                     const float* __restrict__ b_hh, T* __restrict__ out, int n, int t_len) {
+  using Sh = Shape<T, H, RPT>;
   constexpr int P = Sh::kPartials;
   constexpr int S = kStages;
   const int j = threadIdx.x;
@@ -119,8 +150,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int row0 = blockIdx.x * Sh::kRows;
 
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;                      // [S][kRows][3H]
-  float* h_buf = smem + S * Sh::kSlice;    // [2][kRows][H]
+  T* ring = reinterpret_cast<T*>(smem);                      // [S][kRows][3H]
+  float* h_buf = reinterpret_cast<float*>(ring + S * Sh::kSlice);  // [2][kRows][H]
 
   // Cause 3: w_t[dir][k][gate*H + j] is contiguous across j for a fixed k.
   float wr[H], wz[H], wn[H];
@@ -143,8 +174,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // are zero-filled from a valid address.
   const int sub = lane / Sh::kRowChunks;
   const int chunk = lane % Sh::kRowChunks;
-  const float* lane_src = xp + static_cast<size_t>(row0 + warp_row0 + sub) * x_row + dir * 3 * H + chunk * 4;
-  float* lane_dst = ring + (warp_row0 + sub) * 3 * H + chunk * 4;
+  const T* lane_src = xp + static_cast<size_t>(row0 + warp_row0 + sub) * x_row + dir * 3 * H + chunk * Sh::kChunk;
+  T* lane_dst = ring + (warp_row0 + sub) * 3 * H + chunk * Sh::kChunk;
   const size_t pass_stride = Sh::kPassRows * x_row;
   unsigned copies = 0, valid = 0;  // bit p: pass p copies a row of the warp / a row below n
 #pragma unroll
@@ -155,8 +186,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
   auto stage = [&](int t) {
     const int t_eff = dir ? t_len - 1 - t : t;
-    const float* src = lane_src + static_cast<size_t>(t_eff) * 6 * H;
-    float* dst = lane_dst + (t % S) * Sh::kSlice;
+    const T* src = lane_src + static_cast<size_t>(t_eff) * 6 * H;
+    T* dst = lane_dst + (t % S) * Sh::kSlice;
 #pragma unroll
     for (int p = 0; p < Sh::kPasses; ++p) {
       const bool ok = (valid >> p) & 1u;
@@ -203,7 +234,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   };
   // Row i's gates at step t from its sums and the ring's slice xs; h goes to
   // buffer hn and to out.
-  auto gates = [&](const float* xs, float* hn, int i, int t) {
+  auto gates = [&](const T* xs, float* hn, int i, int t) {
     float sr = ar[i][0], sz = az[i][0], sn = an[i][0];
 #pragma unroll
     for (int p = 1; p < P; ++p) {
@@ -212,15 +243,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       sn += an[i][p];
     }
     const int lr = g * RPT + i;
-    const float* x = xs + lr * 3 * H;
-    const float rg = sigmoid_f32(x[j] + sr);
-    const float zg = sigmoid_f32(x[H + j] + sz);
-    const float ng = tanhf(x[2 * H + j] + rg * sn);
+    const T* x = xs + lr * 3 * H;
+    const float rg = sigmoid_f32(to_f32(x[j]) + sr);
+    const float zg = sigmoid_f32(to_f32(x[H + j]) + sz);
+    const float ng = tanhf(to_f32(x[2 * H + j]) + rg * sn);
     h[i] = (1.0f - zg) * ng + zg * h[i];
     hn[lr * H + j] = h[i];
     const int row = row0 + lr;
     const int t_eff = dir ? t_len - 1 - t : t;
-    if (row < n) out[row * o_row + static_cast<size_t>(t_eff) * 2 * H + dir * H + j] = h[i];
+    if (row < n) out[row * o_row + static_cast<size_t>(t_eff) * 2 * H + dir * H + j] = from_f32<T>(h[i]);
   };
 
 #pragma unroll
@@ -245,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     const float* hc = h_buf + (t & 1) * Sh::kRows * H;
     float* hn = h_buf + ((t + 1) & 1) * Sh::kRows * H;
-    const float* xs = ring + (t % S) * Sh::kSlice;
+    const T* xs = ring + (t % S) * Sh::kSlice;
 #pragma unroll
     for (int i = RA; i < RPT; ++i) matvec(hc, i);  // B, step t
 #pragma unroll
@@ -259,21 +290,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   cp_async_wait<0>();
 }
 
-// Ops run by dispatch() on the kernel instantiation of (hidden, rpt).  Shared
-// memory stays under the 48 KB a launch gets without opting in.
+// Ops run by dispatch() on the kernel instantiation of (storage type, hidden,
+// rpt).  Shared memory stays under the 48 KB a launch gets without opting in.
 struct Forward {
-  const float *xp, *w_t, *b_hh;
-  float* out;
+  const void* xp;
+  const float *w_t, *b_hh;
+  void* out;
   int n, t_len;
   cudaStream_t stream;
 
-  template <int H, int RPT>
+  template <typename T, int H, int RPT>
   int run() const {
-    static_assert(smem_bytes<H, RPT>() <= 48 * 1024, "the ring needs an opt-in to more shared memory");
-    constexpr int rows = Shape<H, RPT>::kRows;
+    static_assert(smem_bytes<T, H, RPT>() <= 48 * 1024, "the ring needs an opt-in to more shared memory");
+    constexpr int rows = Shape<T, H, RPT>::kRows;
     const dim3 grid((n + rows - 1) / rows, 2);
     const dim3 block(H, kThreads / H);
-    bigru_seq_kernel<H, RPT><<<grid, block, smem_bytes<H, RPT>(), stream>>>(xp, w_t, b_hh, out, n, t_len);
+    bigru_seq_kernel<T, H, RPT><<<grid, block, smem_bytes<T, H, RPT>(), stream>>>(
+        static_cast<const T*>(xp), w_t, b_hh, static_cast<T*>(out), n, t_len);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -281,53 +314,60 @@ struct Forward {
 struct Occupancy {
   int* blocks;
 
-  template <int H, int RPT>
+  template <typename T, int H, int RPT>
   int run() const {
-    return static_cast<int>(
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, bigru_seq_kernel<H, RPT>, kThreads, smem_bytes<H, RPT>()));
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, bigru_seq_kernel<T, H, RPT>, kThreads, smem_bytes<T, H, RPT>()));
   }
 };
 
-template <int H, class Op>
+template <typename T, int H, class Op>
 int by_rpt(const Op& op, int rpt) {
   switch (rpt) {
     case 1:
-      return op.template run<H, 1>();
+      return op.template run<T, H, 1>();
     case 2:
-      return op.template run<H, 2>();
+      return op.template run<T, H, 2>();
     case 4:
-      return op.template run<H, 4>();
+      return op.template run<T, H, 4>();
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <class Op>
-int dispatch(const Op& op, int hidden, int rpt) {
+template <typename T, class Op>
+int by_hidden(const Op& op, int hidden, int rpt) {
   switch (hidden) {
     case 8:
-      return by_rpt<8>(op, rpt);
+      return by_rpt<T, 8>(op, rpt);
     case 16:
-      return by_rpt<16>(op, rpt);
+      return by_rpt<T, 16>(op, rpt);
     case 32:
-      return by_rpt<32>(op, rpt);
+      return by_rpt<T, 32>(op, rpt);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// bf16: 0 for float storage, 1 for __nv_bfloat16.
+template <class Op>
+int dispatch(const Op& op, int bf16, int hidden, int rpt) {
+  return bf16 ? by_hidden<__nv_bfloat16>(op, hidden, rpt) : by_hidden<float>(op, hidden, rpt);
 }
 
 }  // namespace
 
-// Both return a cudaError_t as int: 0 on success.
-extern "C" int tpgsr_bigru_seq_forward(const float* xp, const float* w_t, const float* b_hh, float* out,
-                                       int n, int t_len, int hidden, int rpt, void* stream) {
+// Both return a cudaError_t as int: 0 on success.  xp and out are float, or
+// __nv_bfloat16 with bf16 = 1; w_t and b_hh are float either way.
+extern "C" int tpgsr_bigru_seq_forward(const void* xp, const float* w_t, const float* b_hh, void* out,
+                                       int n, int t_len, int hidden, int rpt, int bf16, void* stream) {
   if (n <= 0 || t_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Forward op{xp, w_t, b_hh, out, n, t_len, static_cast<cudaStream_t>(stream)};
-  return dispatch(op, hidden, rpt);
+  return dispatch(op, bf16, hidden, rpt);
 }
 
-// Resident blocks an SM for the instantiation (hidden, rpt), written to *blocks.
-extern "C" int tpgsr_bigru_seq_occupancy(int hidden, int rpt, int* blocks) {
+// Resident blocks an SM for the instantiation (storage, hidden, rpt), written to *blocks.
+extern "C" int tpgsr_bigru_seq_occupancy(int hidden, int rpt, int bf16, int* blocks) {
   const Occupancy op{blocks};
-  return dispatch(op, hidden, rpt);
+  return dispatch(op, bf16, hidden, rpt);
 }

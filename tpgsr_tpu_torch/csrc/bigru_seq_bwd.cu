@@ -59,14 +59,30 @@
 // fp32 throughout with accurate tanhf; only the order of the sums differs
 // from the plain version.
 //
+// Storage type T (float or __nv_bfloat16), as in the forward: xp, out,
+// grad_out and dxp are T in device memory; W_hh and b_hh arrive as fp32 (the
+// bf16-rounded values when T is bf16), and every value is widened to fp32 on
+// load, so the gates, dh, the shuffles' sums and dh_next are fp32, and dxp is
+// rounded to T only where it is stored.  dhp and h_{t-1}, which feed the
+// GEMM for dW_hh, stay fp32 in both instantiations.  In bf16 the recompute
+// reads h_{t-1} as out stored it, rounded to bf16, where the forward carried
+// it in fp32; the plain version reads out the same way.  At four rows a
+// thread h_{t-1} stays in shared memory as T: cp.async copies 4 bytes, so in
+// bf16 the even lanes copy two columns each.
+//
 // Measured (tpgsr_tpu_torch/bench_k1.py and ablate_k1.py --backward, H100 SXM
 // at 700 W): 0.0785 ms over W and 0.073 over H, 1.6-1.75x the byte bound.
 // Taking out the stores, the recompute or accurate tanhf each saves 10-15 us
 // over W, 5-11 us over H; the shuffles 4 us.  -Xptxas -v on sm_90a: H = 32:
 // 168 registers at RPT 1, 2 and 4; H = 16: 128, 135, 168; H = 8: 96, 95,
-// 126; no spills, no stack frame.
+// 126; bf16: H = 32: 168 at every RPT; H = 16: 133, 124, 162; H = 8: 96,
+// 90, 126; no spills, no stack frame.  The bf16 instantiations take 6 %
+// longer than fp32's alone (chip_smoke.py, H100 SXM at 700 W; PERF.md).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -78,19 +94,43 @@ constexpr unsigned kFullMask = 0xffffffffu;
 template <int RPT>
 constexpr int kDepth = RPT == 1 ? 4 : 1;
 // Whether h_{t-1} reaches shared memory by cp.async (at four rows a thread,
-// where its registers would spill) or through a register.
-template <int RPT>
-constexpr bool kAsyncH = RPT == 4;
+// and at two in bf16, where its registers would spill: the bf16 loads' and
+// conversions' registers spilled 16 bytes there) or through a register.
+template <typename T, int RPT>
+constexpr bool kAsyncH = RPT == 4 || (RPT == 2 && sizeof(T) == 2);
 // Buffers of h_{t-1} in shared memory: one a step in flight and the current.
-template <int RPT>
-constexpr int kHBuffers = kAsyncH<RPT> ? kDepth<RPT> + 1 : 2;
+template <typename T, int RPT>
+constexpr int kHBuffers = kAsyncH<T, RPT> ? kDepth<RPT> + 1 : 2;
+// Their element type: the storage type where cp.async copies out as it is,
+// fp32 where h_{t-1} passes through a register (widened there).
+template <typename T, int RPT>
+using HStore = std::conditional_t<kAsyncH<T, RPT>, T, float>;
 
 // As in the forward: sigmoid(x) = tanh(x / 2) / 2 + 1 / 2.
 __device__ __forceinline__ float sigmoid_f32(float x) { return fmaf(0.5f, tanhf(0.5f * x), 0.5f); }
 
+// The storage type to fp32 and back (round to nearest even, as torch's .to()).
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+
+// Four consecutive values from shared memory, widened to fp32: one 16-byte
+// load in fp32, one 8-byte load in bf16 (a bf16 is the top half of its fp32).
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
 // 4 bytes from global to shared memory, in flight until a wait_group; zeros
 // where !valid (no byte is read then).
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool valid) {
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem), "r"(valid ? 4 : 0)
                : "memory");
@@ -115,9 +155,9 @@ struct Shape {
   static_assert(H % 4 == 0 && 32 % H == 0, "H must divide 32 and be a multiple of 4");
 };
 
-template <int H, int RPT>
+template <typename T, int H, int RPT>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * kHBuffers<RPT> * Shape<H, RPT>::kRows * H;  // h_{t-1}, [buffers][kRows][H]
+  return sizeof(HStore<T, RPT>) * kHBuffers<T, RPT> * Shape<H, RPT>::kRows * H;  // h_{t-1}, [buffers][kRows][H]
 }
 
 // The levels of the reduce-scatter over j's bits above the lowest two: slot m
@@ -151,14 +191,15 @@ __device__ __forceinline__ float wt_dhp(const float (&wr)[H], const float (&wz)[
   return (b0 ? u1 : u0) + exchange(b0 ? u0 : u1, 1);
 }
 
-template <int H, int RPT>
+template <typename T, int H, int RPT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    bigru_seq_backward_kernel(const float* __restrict__ xp, const float* __restrict__ w_t,
-                              const float* __restrict__ b_hh, const float* __restrict__ out,
-                              const float* __restrict__ grad_out, float* __restrict__ dxp,
+    bigru_seq_backward_kernel(const T* __restrict__ xp, const float* __restrict__ w_t,
+                              const float* __restrict__ b_hh, const T* __restrict__ out,
+                              const T* __restrict__ grad_out, T* __restrict__ dxp,
                               float* __restrict__ dhp, float* __restrict__ h_prev_out, int n, int n_pad,
                               int t_len) {
   using Sh = Shape<H, RPT>;
+  using HS = HStore<T, RPT>;
   constexpr int G = Sh::kGates;
   const int j = threadIdx.x;
   const int g = threadIdx.y;
@@ -168,7 +209,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int perm = j & ~3;                         // P: the column permutation of the weights
   const int quad = j >> 2;                         // P / 4
 
-  extern __shared__ __align__(16) float smem[];  // h_{t-1} of the block's rows, [buffers][kRows][H]
+  extern __shared__ __align__(16) float smem_f32[];
+  HS* smem = reinterpret_cast<HS*>(smem_f32);  // h_{t-1} of the block's rows, [buffers][kRows][H]
 
   // Row j of W_hh for each gate, slot m holding column m ^ P (part 1).
   float wr[H], wz[H], wn[H];
@@ -191,7 +233,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   unsigned valid = 0;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) valid |= static_cast<unsigned>(row0 + i < n) << i;
-  const int x_row = t_len * 6 * H, o_row = t_len * 2 * H;  // floats a row
+  const int x_row = t_len * 6 * H, o_row = t_len * 2 * H;  // values a row
   const int x0 = row0 * x_row + dir * G + j;                // xp, dxp
   const int o0 = row0 * o_row + dir * H + j;                // out, grad_out
   const int p0 = (dir * n_pad + row0) * t_len;              // dhp, h_prev_out: row-steps
@@ -206,26 +248,29 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // is known to the compiler.  With kAsyncH, h_{t-1} goes by cp.async
   // straight to the buffer s % (D + 1) instead, one commit group a step.
   constexpr int D = kDepth<RPT>;
-  constexpr int NB = kHBuffers<RPT>;
+  constexpr int NB = kHBuffers<T, RPT>;
   float x_r[D][RPT], x_z[D][RPT], x_n[D][RPT], go[D][RPT], hp[D][RPT], dh_next[RPT];
   auto load_x = [&](int s, int d, int i) {
     const bool ok = ((valid >> i) & 1u) && s >= 0;
     const int x = x0 + i * x_row + time_of(s) * 6 * H;
-    x_r[d][i] = ok ? xp[x] : 0.f;
-    x_z[d][i] = ok ? xp[x + H] : 0.f;
-    x_n[d][i] = ok ? xp[x + 2 * H] : 0.f;
-    go[d][i] = ok ? grad_out[o0 + i * o_row + time_of(s) * 2 * H] : 0.f;
+    x_r[d][i] = ok ? to_f32(xp[x]) : 0.f;
+    x_z[d][i] = ok ? to_f32(xp[x + H]) : 0.f;
+    x_n[d][i] = ok ? to_f32(xp[x + 2 * H]) : 0.f;
+    go[d][i] = ok ? to_f32(grad_out[o0 + i * o_row + time_of(s) * 2 * H]) : 0.f;
   };
   auto h_src = [&](int s, int i) { return out + o0 + i * o_row + time_of(s - 1) * 2 * H; };
   auto load_h = [&](int s, int d, int i) {
-    hp[d][i] = ((valid >> i) & 1u) && s > 0 ? *h_src(s, i) : 0.f;
+    hp[d][i] = ((valid >> i) & 1u) && s > 0 ? to_f32(*h_src(s, i)) : 0.f;
   };
+  // 4 bytes a copy: one fp32 column a lane, or two bf16 columns an even lane.
   auto stage_h = [&](int s) {
-    float* hb = smem + (s % NB) * Sh::kRows * H;
+    HS* hb = smem + (s % NB) * Sh::kRows * H;
+    if (sizeof(HS) == 4 || (j & 1) == 0) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const bool ok = ((valid >> i) & 1u) && s > 0;
-      cp_async4(hb + (lrow0 + i) * H + j, ok ? h_src(s, i) : out, ok);
+      for (int i = 0; i < RPT; ++i) {
+        const bool ok = ((valid >> i) & 1u) && s > 0;
+        cp_async4(hb + (lrow0 + i) * H + j, ok ? h_src(s, i) : out, ok);
+      }
     }
   };
 #pragma unroll
@@ -233,9 +278,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       load_x(t_len - 1 - d, d, i);
-      if constexpr (!kAsyncH<RPT>) load_h(t_len - 1 - d, d, i);
+      if constexpr (!kAsyncH<T, RPT>) load_h(t_len - 1 - d, d, i);
     }
-    if constexpr (kAsyncH<RPT>) {
+    if constexpr (kAsyncH<T, RPT>) {
       if (t_len - 1 - d >= 0) stage_h(t_len - 1 - d);
       cp_async_commit();
     }
@@ -249,8 +294,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const int s = s0 - d;
       if (s < 0) break;
       const int te = time_of(s);
-      float* hb = smem + (s % NB) * Sh::kRows * H;
-      if constexpr (kAsyncH<RPT>) {
+      HS* hb = smem + (s % NB) * Sh::kRows * H;
+      if constexpr (kAsyncH<T, RPT>) {
         // Step s's group is complete once at most D - 1 newer ones are
         // pending; the barrier makes every lane's copy visible and closes the
         // reads of step s+1, whose buffer the copy for step s - D overwrites.
@@ -272,11 +317,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         // The recompute: W_hh h_{t-1} + b_hh for unit j, columns in slot order.
-        const float* hrow = hb + (lrow0 + i) * H;
+        const HS* hrow = hb + (lrow0 + i) * H;
         float ar[2] = {br, 0.f}, az[2] = {bz, 0.f}, an[2] = {bn, 0.f};
 #pragma unroll
         for (int a = 0; a < H / 4; ++a) {
-          const float4 h4 = *reinterpret_cast<const float4*>(hrow + 4 * (a ^ quad));
+          const float4 h4 = load4(hrow + 4 * (a ^ quad));
           const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
@@ -285,7 +330,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
             an[q & 1] = fmaf(wn[4 * a + q], hv[q], an[q & 1]);
           }
         }
-        const float h_prev = hrow[j];
+        const float h_prev = to_f32(hrow[j]);
         const float hn = an[0] + an[1];
         const float rg = sigmoid_f32(x_r[d][i] + (ar[0] + ar[1]));
         const float zg = sigmoid_f32(x_z[d][i] + (az[0] + az[1]));
@@ -299,9 +344,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         const float dhn_j = dn_hat * rg;
         if ((valid >> i) & 1u) {
           const int x = x0 + i * x_row + te * 6 * H, p = p0 + i * t_len + te;
-          dxp[x] = dr_hat;
-          dxp[x + H] = dz_hat;
-          dxp[x + 2 * H] = dn_hat;
+          dxp[x] = from_f32<T>(dr_hat);
+          dxp[x + H] = from_f32<T>(dz_hat);
+          dxp[x + 2 * H] = from_f32<T>(dn_hat);
           dhp[p * G + j] = dr_hat;
           dhp[p * G + H + j] = dz_hat;
           dhp[p * G + 2 * H + j] = dhn_j;
@@ -313,21 +358,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-// Ops run by dispatch() on the kernel instantiation of (hidden, rpt).
+// Ops run by dispatch() on the kernel instantiation of (storage type, hidden, rpt).
 struct Backward {
-  const float *xp, *w_t, *b_hh, *out, *grad_out;
-  float *dxp, *dhp, *h_prev;
+  const void* xp;
+  const float *w_t, *b_hh;
+  const void *out, *grad_out;
+  void* dxp;
+  float *dhp, *h_prev;
   int n, n_pad, t_len;
   cudaStream_t stream;
 
-  template <int H, int RPT>
+  template <typename T, int H, int RPT>
   int run() const {
-    static_assert(smem_bytes<H, RPT>() <= 48 * 1024, "shared memory beyond the default 48 KB needs an opt-in");
+    static_assert(smem_bytes<T, H, RPT>() <= 48 * 1024, "shared memory beyond the default 48 KB needs an opt-in");
     constexpr int rows = Shape<H, RPT>::kRows;
     const dim3 grid((n + rows - 1) / rows, 2);
     const dim3 block(H, kThreads / H);
-    bigru_seq_backward_kernel<H, RPT><<<grid, block, smem_bytes<H, RPT>(), stream>>>(
-        xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev, n, n_pad, t_len);
+    bigru_seq_backward_kernel<T, H, RPT><<<grid, block, smem_bytes<T, H, RPT>(), stream>>>(
+        static_cast<const T*>(xp), w_t, b_hh, static_cast<const T*>(out), static_cast<const T*>(grad_out),
+        static_cast<T*>(dxp), dhp, h_prev, n, n_pad, t_len);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -335,55 +384,63 @@ struct Backward {
 struct Occupancy {
   int* blocks;
 
-  template <int H, int RPT>
+  template <typename T, int H, int RPT>
   int run() const {
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, bigru_seq_backward_kernel<H, RPT>, kThreads, smem_bytes<H, RPT>()));
+        blocks, bigru_seq_backward_kernel<T, H, RPT>, kThreads, smem_bytes<T, H, RPT>()));
   }
 };
 
-template <int H, class Op>
+template <typename T, int H, class Op>
 int by_rpt(const Op& op, int rpt) {
   switch (rpt) {
     case 1:
-      return op.template run<H, 1>();
+      return op.template run<T, H, 1>();
     case 2:
-      return op.template run<H, 2>();
+      return op.template run<T, H, 2>();
     case 4:
-      return op.template run<H, 4>();
+      return op.template run<T, H, 4>();
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <class Op>
-int dispatch(const Op& op, int hidden, int rpt) {
+template <typename T, class Op>
+int by_hidden(const Op& op, int hidden, int rpt) {
   switch (hidden) {
     case 8:
-      return by_rpt<8>(op, rpt);
+      return by_rpt<T, 8>(op, rpt);
     case 16:
-      return by_rpt<16>(op, rpt);
+      return by_rpt<T, 16>(op, rpt);
     case 32:
-      return by_rpt<32>(op, rpt);
+      return by_rpt<T, 32>(op, rpt);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// bf16: 0 for float storage, 1 for __nv_bfloat16.
+template <class Op>
+int dispatch(const Op& op, int bf16, int hidden, int rpt) {
+  return bf16 ? by_hidden<__nv_bfloat16>(op, hidden, rpt) : by_hidden<float>(op, hidden, rpt);
 }
 
 }  // namespace
 
-// Both return a cudaError_t as int: 0 on success.
-extern "C" int tpgsr_bigru_seq_backward(const float* xp, const float* w_t, const float* b_hh, const float* out,
-                                        const float* grad_out, float* dxp, float* dhp, float* h_prev, int n,
-                                        int n_pad, int t_len, int hidden, int rpt, void* stream) {
+// Both return a cudaError_t as int: 0 on success.  xp, out, grad_out and dxp
+// are float, or __nv_bfloat16 with bf16 = 1; w_t, b_hh, dhp and h_prev are
+// float either way.
+extern "C" int tpgsr_bigru_seq_backward(const void* xp, const float* w_t, const float* b_hh, const void* out,
+                                        const void* grad_out, void* dxp, float* dhp, float* h_prev, int n,
+                                        int n_pad, int t_len, int hidden, int rpt, int bf16, void* stream) {
   if (n <= 0 || t_len <= 0 || n_pad < n) return static_cast<int>(cudaErrorInvalidValue);
   const Backward op{xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev, n, n_pad, t_len,
                     static_cast<cudaStream_t>(stream)};
-  return dispatch(op, hidden, rpt);
+  return dispatch(op, bf16, hidden, rpt);
 }
 
-// Resident blocks an SM for the instantiation (hidden, rpt), written to *blocks.
-extern "C" int tpgsr_bigru_seq_backward_occupancy(int hidden, int rpt, int* blocks) {
+// Resident blocks an SM for the instantiation (storage, hidden, rpt), written to *blocks.
+extern "C" int tpgsr_bigru_seq_backward_occupancy(int hidden, int rpt, int bf16, int* blocks) {
   const Occupancy op{blocks};
-  return dispatch(op, hidden, rpt);
+  return dispatch(op, bf16, hidden, rpt);
 }

@@ -9,7 +9,7 @@ for the prior and a teacher CRNN, weights drawn from a seeded
 ``torch.Generator`` on the CPU and then moved to ``device``, so the same
 seed gives the same weights on every device.  ``flagship`` serves in eval
 mode; ``flagship_train`` returns the train state (the student a copy of the
-teacher, Adam) and its fp32 train step.
+teacher, Adam) and its train step in fp32 or bf16 (TRAIN.compute_dtype).
 """
 
 from __future__ import annotations
@@ -50,10 +50,12 @@ def flagship(device: DeviceLike = None, seed: int = 0) -> Tuple[EvalModels, Eval
     return eval_models, make_eval_step(FLAGSHIP_ARGS, TRAIN_WIDTH, device=dev)
 
 
-def flagship_train(device: DeviceLike = None, seed: int = 0) -> Tuple[TrainState, TrainStep]:
-    """(train state on ``device``, its fp32 train step).  The same draws as
-    ``flagship``; the student starts as a copy of the teacher."""
+def flagship_train(device: DeviceLike = None, seed: int = 0,
+                   compute_dtype: str = "fp32") -> Tuple[TrainState, TrainStep]:
+    """(train state on ``device``, its train step with the models in
+    ``compute_dtype``, 'fp32' or 'bf16').  The same draws as ``flagship``;
+    the student starts as a copy of the teacher."""
     dev = resolve_device(device)
     sr, _, teacher = _flagship_models(torch.Generator().manual_seed(seed), dev)
     state = create_train_state([sr], teacher, n_stu=1)
-    return state, make_train_step(FLAGSHIP_ARGS, TRAIN_WIDTH, device=dev)
+    return state, make_train_step(FLAGSHIP_ARGS, TRAIN_WIDTH, device=dev, compute_dtype=compute_dtype)

@@ -13,7 +13,12 @@ import torch.nn as nn
 
 
 class BidirectionalLSTM(nn.Module):
-    """nn.LSTM(bidirectional) over [T, B, C], then a per-step Linear."""
+    """nn.LSTM(bidirectional) over [T, B, C], then a per-step Linear.
+
+    A bf16 ``x`` (the trunk's output under autocast) runs the LSTM in bf16
+    with its fp32 weights cast to bf16, as the JAX layers cast theirs
+    (tpgsr_tpu/models/layers.py:259), and autocast off around it: CUDA's
+    autocast would run cuDNN's LSTM in fp16 whatever dtype it was given."""
 
     def __init__(self, n_in: int, hidden: int, n_out: int):
         super().__init__()
@@ -21,7 +26,12 @@ class BidirectionalLSTM(nn.Module):
         self.embedding = nn.Linear(hidden * 2, n_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        rec, _ = self.rnn(x)
+        if x.dtype == torch.float32:
+            rec, _ = self.rnn(x)
+        else:
+            weights = {k: p.to(x.dtype) for k, p in self.rnn.named_parameters()}
+            with torch.autocast(x.device.type, enabled=False):
+                rec, _ = torch.func.functional_call(self.rnn, weights, (x,))
         return self.embedding(rec)
 
 

@@ -3,6 +3,15 @@
 NCHW, with the original TPGSR's module names so its ``state_dict`` keys
 load unchanged.  PReLU and BatchNorm are ``nn.PReLU(1)`` and
 ``nn.BatchNorm2d`` (eps 1e-5) themselves.
+
+In bf16 the modules run under ``torch.autocast``, with fp32 parameters.
+Where autocast's per-op policy departs from the JAX package's rule (every
+op in the activation dtype, weights cast to it; BatchNorm normalizes in
+fp32 with fp32 statistics and casts back), the port follows the JAX rule:
+``mish`` rounds softplus to the activation dtype (CUDA autocast runs it in
+fp32), and ``GruBlock``'s BiGRU takes bf16 activations with fp32
+parameters.  BatchNorm of a bf16 input computes its statistics and the
+normalization in fp32 and keeps fp32 running statistics, on both devices.
 """
 
 from __future__ import annotations
@@ -18,8 +27,9 @@ from tpgsr_tpu_torch.ops import gru_seq
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
-    """x * tanh(softplus(x)) (reference model/tsrn.py:480-488)."""
-    return x * torch.tanh(F.softplus(x))
+    """x * tanh(softplus(x)) (reference model/tsrn.py:480-488), each op in x's
+    dtype as in the JAX package (autocast would keep softplus in fp32)."""
+    return x * torch.tanh(F.softplus(x).to(x.dtype))
 
 
 def init_torch_defaults_(module: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -6,6 +6,12 @@ sources are ``csrc/bigru_seq.cu`` (forward) and ``csrc/bigru_seq_bwd.cu``
 (backward); their plain versions are ``ops.rnn.bigru_recurrence`` and
 ``ops.rnn.bigru_recurrence_backward``.
 
+* ``x`` is fp32 or bf16 (``SUPPORTED_DTYPES``), its parameters fp32.  In
+  bf16 the kernels read and write xp, out, grad_out and dxp in bf16 and
+  keep the state and every sum in fp32; W_hh and b_hh reach
+  them rounded to bf16 and held as fp32, as the JAX layers cast weights to
+  the activation dtype (tpgsr_tpu/models/layers.py:231).  The gradients
+  return in each input's dtype: bf16 for xp, fp32 for the parameters.
 * A tensor on the CPU takes the plain versions, for that reason only.
 * A CUDA tensor launches the kernels or raises; nothing falls back.
 * ``LAUNCHES`` and ``BACKWARD_LAUNCHES`` count kernel launches, so a run can
@@ -34,6 +40,7 @@ from tpgsr_tpu_torch.ops.rnn import Params
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 SUPPORTED_HIDDEN = (8, 16, 32)
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)  # the storage types of xp, out, grad_out and dxp
 THREADS = 128  # threads a block: H hidden units x 128 / H row groups
 RPTS = (1, 2, 4)  # rows a thread, the kernel's instantiations
 RING_STAGES = 4  # steps of xp in the kernel's shared-memory ring (kStages)
@@ -70,9 +77,9 @@ def _lib() -> ctypes.CDLL:
     from tpgsr_tpu_torch.ops import _build
 
     lib = _build.load("bigru_seq")
-    lib.tpgsr_bigru_seq_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.tpgsr_bigru_seq_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.tpgsr_bigru_seq_forward.restype = ctypes.c_int
-    lib.tpgsr_bigru_seq_occupancy.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tpgsr_bigru_seq_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.tpgsr_bigru_seq_occupancy.restype = ctypes.c_int
     return lib
 
@@ -82,39 +89,48 @@ def _bwd_lib() -> ctypes.CDLL:
     from tpgsr_tpu_torch.ops import _build
 
     lib = _build.load("bigru_seq_bwd")
-    lib.tpgsr_bigru_seq_backward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tpgsr_bigru_seq_backward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.tpgsr_bigru_seq_backward.restype = ctypes.c_int
-    lib.tpgsr_bigru_seq_backward_occupancy.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tpgsr_bigru_seq_backward_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.tpgsr_bigru_seq_backward_occupancy.restype = ctypes.c_int
     return lib
 
 
+def _bf16_flag(dtype: torch.dtype) -> int:
+    """The kernels' storage-type argument: 0 for fp32, 1 for bf16."""
+    if dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"K1 takes {SUPPORTED_DTYPES}, got {dtype}")
+    return int(dtype == torch.bfloat16)
+
+
 @functools.lru_cache(maxsize=None)
-def _device_limits(index: int, hidden: int, backward: bool) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
+def _device_limits(index: int, hidden: int, backward: bool, bf16: int) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
     """(SMs, ((rpt, resident blocks an SM), ...)) of card ``index`` for the
-    forward kernel, or the backward's with ``backward``."""
+    forward kernel, or the backward's with ``backward``, in fp32 storage or
+    with ``bf16`` in bf16 (their registers and shared memory differ)."""
     query = _bwd_lib().tpgsr_bigru_seq_backward_occupancy if backward else _lib().tpgsr_bigru_seq_occupancy
     occupancy = []
     with torch.cuda.device(index):
         for rpt in RPTS:
             blocks = ctypes.c_int(0)
-            err = query(hidden, rpt, ctypes.byref(blocks))
+            err = query(hidden, rpt, bf16, ctypes.byref(blocks))
             if err != 0:
                 raise RuntimeError(f"K1 occupancy query failed: cudaError {err}")
             occupancy.append((rpt, blocks.value))
     return torch.cuda.get_device_properties(index).multi_processor_count, tuple(occupancy)
 
 
-def config_for(n: int, hidden: int, device: torch.device, backward: bool = False) -> LaunchConfig:
+def config_for(n: int, hidden: int, device: torch.device, backward: bool = False,
+               dtype: torch.dtype = torch.float32) -> LaunchConfig:
     """The launch configuration K1's forward (or, with ``backward``, its
-    backward) takes for ``n`` rows on CUDA ``device``."""
+    backward) takes for ``n`` rows of storage type ``dtype`` on CUDA ``device``."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _config(index, n, hidden, backward)
+    return _config(index, n, hidden, backward, _bf16_flag(dtype))
 
 
 @functools.lru_cache(maxsize=1024)
-def _config(index: int, n: int, hidden: int, backward: bool) -> LaunchConfig:
-    sms, occupancy = _device_limits(index, hidden, backward)
+def _config(index: int, n: int, hidden: int, backward: bool, bf16: int) -> LaunchConfig:
+    sms, occupancy = _device_limits(index, hidden, backward, bf16)
     return launch_config(n, hidden, sms, dict(occupancy))
 
 
@@ -124,6 +140,8 @@ def _check(x: torch.Tensor, fw: Params, bw: Params) -> None:
     n, t, c = x.shape
     if n == 0 or t == 0:
         raise ValueError(f"x must have N >= 1 and T >= 1, got shape {tuple(x.shape)}")
+    if x.dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"K1 takes x in {SUPPORTED_DTYPES}, got {x.dtype}")
     h = fw["w_hh"].shape[-1]
     want = {"w_ih": (3 * h, c), "w_hh": (3 * h, h), "b_ih": (3 * h,), "b_hh": (3 * h,)}
     for d in (fw, bw):
@@ -131,37 +149,55 @@ def _check(x: torch.Tensor, fw: Params, bw: Params) -> None:
             p = d[k]
             if tuple(p.shape) != want[k]:
                 raise ValueError(f"{k} must have shape {want[k]}, got {tuple(p.shape)}")
-            if p.device != x.device or p.dtype != x.dtype:
-                raise ValueError(f"{k} is {p.dtype} on {p.device}; x is {x.dtype} on {x.device}")
+            if p.device != x.device or p.dtype != torch.float32:
+                raise ValueError(f"{k} must be float32 on {x.device}, got {p.dtype} on {p.device}")
+
+
+def _check_weights(xp: torch.Tensor, h: int, w_t: torch.Tensor, b_hh: torch.Tensor) -> None:
+    """``w_t`` [2, H, 3H] and ``b_hh`` [2, 3H], contiguous float32 on xp's
+    device, as the kernels take them."""
+    if tuple(w_t.shape) != (2, h, 3 * h) or tuple(b_hh.shape) != (2, 3 * h):
+        raise ValueError(f"w_t must be {(2, h, 3 * h)} and b_hh {(2, 3 * h)}, "
+                         f"got {tuple(w_t.shape)} and {tuple(b_hh.shape)}")
+    for name, tensor in (("w_t", w_t), ("b_hh", b_hh)):
+        if not tensor.is_contiguous() or tensor.device != xp.device or tensor.dtype != torch.float32:
+            raise ValueError(f"{name} must be contiguous float32 on {xp.device}, "
+                             f"got {tensor.dtype} on {tensor.device}")
+
+
+def _kernel_weights(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``w_hh`` [2, 3H, H] in torch layout and ``b_hh`` as the kernels take
+    them: rounded to xp's storage type and held in fp32 (no copy in fp32),
+    W_hh transposed per direction to [2, H, 3H]."""
+    return (rnn.rounded_to(w_hh, xp.dtype).transpose(1, 2).contiguous(),
+            rnn.rounded_to(b_hh, xp.dtype).contiguous())
 
 
 def _recurrence(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor,
                 config: Optional[LaunchConfig] = None) -> torch.Tensor:
-    """Run K1 on [N, T, 6H] projections with ``w_t`` [2, H, 3H] (W_hh
-    transposed per direction); returns [N, T, 2H].  ``config`` overrides
-    ``config_for`` (the tests use it to reach every instantiation)."""
+    """Run K1 on [N, T, 6H] projections (fp32 or bf16) with ``w_t`` [2, H,
+    3H] (W_hh transposed per direction) and ``b_hh`` [2, 3H] in fp32, holding
+    values of xp's dtype (``_kernel_weights``); returns [N, T, 2H] in xp's
+    dtype.  ``config`` overrides ``config_for`` (the tests use it to reach
+    every instantiation)."""
     global LAUNCHES
     n, t, g6 = xp.shape
     h = g6 // 6
-    if xp.dtype != torch.float32:
-        raise TypeError(f"K1 takes float32, got {xp.dtype}")
+    bf16 = _bf16_flag(xp.dtype)
     if h not in SUPPORTED_HIDDEN:
         raise ValueError(f"K1 supports hidden sizes {SUPPORTED_HIDDEN}, got {h}")
-    if tuple(w_t.shape) != (2, h, 3 * h) or tuple(b_hh.shape) != (2, 3 * h):
-        raise ValueError(f"w_t must be {(2, h, 3 * h)} and b_hh {(2, 3 * h)}, "
-                         f"got {tuple(w_t.shape)} and {tuple(b_hh.shape)}")
-    for name, tensor in (("xp", xp), ("w_t", w_t), ("b_hh", b_hh)):
-        if not tensor.is_contiguous() or tensor.device != xp.device or tensor.dtype != xp.dtype:
-            raise ValueError(f"{name} must be contiguous {xp.dtype} on {xp.device}")
+    if not xp.is_contiguous():
+        raise ValueError("xp must be contiguous")
+    _check_weights(xp, h, w_t, b_hh)
     if xp.data_ptr() % 16:
         raise ValueError("xp must be 16-byte aligned (the kernel copies it 16 bytes a thread)")
     if config is None:
-        config = config_for(n, h, xp.device)
+        config = config_for(n, h, xp.device, dtype=xp.dtype)
     fn = _lib().tpgsr_bigru_seq_forward
     out = torch.empty(n, t, 2 * h, device=xp.device, dtype=xp.dtype)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
-        err = fn(xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), n, t, h, config.rpt, stream)
+        err = fn(xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), n, t, h, config.rpt, bf16, stream)
     if err != 0:
         raise RuntimeError(f"K1 bigru_seq launch failed: cudaError {err}")
     LAUNCHES += 1
@@ -170,8 +206,8 @@ def _recurrence(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor,
 
 def _launch(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
     """Run K1 on [N, T, 6H] projections with ``w_hh`` [2, 3H, H] in torch
-    layout; returns [N, T, 2H]."""
-    return _recurrence(xp, w_hh.transpose(1, 2).contiguous(), b_hh)
+    layout (fp32); returns [N, T, 2H] in xp's dtype."""
+    return _recurrence(xp, *_kernel_weights(xp, w_hh, b_hh))
 
 
 def _chunk_rows(t: int) -> int:
@@ -182,36 +218,40 @@ def _chunk_rows(t: int) -> int:
 def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, out: torch.Tensor,
                      grad_out: torch.Tensor, config: Optional[LaunchConfig] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Run K1's backward kernel: ``xp`` [N, T, 6H], ``w_t`` [2, H, 3H], ``b_hh``
-    [2, 3H], the forward's ``out`` and ``grad_out`` [N, T, 2H] -> (dxp [N, T,
-    6H], dhp [2, Np, T, 3H], h_{t-1} [2, Np, T, H]), N padded with zero rows
-    to Np, a multiple of the GEMM's chunk of rows.  ``config`` overrides
+    """Run K1's backward kernel: ``xp`` [N, T, 6H], the forward's ``out`` and
+    ``grad_out`` [N, T, 2H], all fp32 or all bf16, with ``w_t`` [2, H, 3H]
+    and ``b_hh`` [2, 3H] in fp32 holding values of xp's dtype
+    (``_kernel_weights``) -> (dxp [N, T, 6H] in xp's dtype, and in
+    fp32 dhp [2, Np, T, 3H] and h_{t-1} [2, Np, T, H]), N padded with zero
+    rows to Np, a multiple of the GEMM's chunk of rows.  ``config`` overrides
     ``config_for(..., backward=True)`` (the tests use it to reach every
     instantiation)."""
     global BACKWARD_LAUNCHES
     n, t, g6 = xp.shape
     h = g6 // 6
-    if xp.dtype != torch.float32:
-        raise TypeError(f"K1's backward takes float32, got {xp.dtype}")
+    bf16 = _bf16_flag(xp.dtype)
     if h not in SUPPORTED_HIDDEN:
         raise ValueError(f"K1 supports hidden sizes {SUPPORTED_HIDDEN}, got {h}")
-    want = {"w_t": (2, h, 3 * h), "b_hh": (2, 3 * h), "out": (n, t, 2 * h), "grad_out": (n, t, 2 * h)}
-    for name, tensor in (("xp", xp), ("w_t", w_t), ("b_hh", b_hh), ("out", out), ("grad_out", grad_out)):
+    _check_weights(xp, h, w_t, b_hh)
+    want = {"out": (n, t, 2 * h), "grad_out": (n, t, 2 * h)}
+    for name, tensor in (("xp", xp), ("out", out), ("grad_out", grad_out)):
         if name in want and tuple(tensor.shape) != want[name]:
             raise ValueError(f"{name} must have shape {want[name]}, got {tuple(tensor.shape)}")
         if not tensor.is_contiguous() or tensor.device != xp.device or tensor.dtype != xp.dtype:
             raise ValueError(f"{name} must be contiguous {xp.dtype} on {xp.device}")
-        if tensor.data_ptr() % 4:
-            raise ValueError(f"{name} must be 4-byte aligned (the kernel reads fp32 scalars)")
+        if tensor.data_ptr() % tensor.element_size():
+            raise ValueError(f"{name} must be aligned to its element size")
+    if out.data_ptr() % 4:
+        raise ValueError("out must be 4-byte aligned (the kernel copies h_{t-1} from it 4 bytes at a time)")
     if config is None:
-        config = config_for(n, h, xp.device, backward=True)
+        config = config_for(n, h, xp.device, backward=True, dtype=xp.dtype)
     rows = _chunk_rows(t)
     n_pad = -(-n // rows) * rows
     if (n_pad + 64) * t * 6 * h >= 2**31:
         raise ValueError(f"K1's backward indexes with 32-bit offsets: N={n}, T={t}, H={h} is too large")
     dxp = torch.empty_like(xp)
-    dhp = xp.new_empty(2, n_pad, t, 3 * h)
-    h_prev = xp.new_empty(2, n_pad, t, h)
+    dhp = xp.new_empty(2, n_pad, t, 3 * h, dtype=torch.float32)
+    h_prev = xp.new_empty(2, n_pad, t, h, dtype=torch.float32)
     if n_pad > n:
         dhp[:, n:].zero_()
         h_prev[:, n:].zero_()
@@ -219,7 +259,7 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = fn(xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
-                 dxp.data_ptr(), dhp.data_ptr(), h_prev.data_ptr(), n, n_pad, t, h, config.rpt, stream)
+                 dxp.data_ptr(), dhp.data_ptr(), h_prev.data_ptr(), n, n_pad, t, h, config.rpt, bf16, stream)
     if err != 0:
         raise RuntimeError(f"K1 bigru_seq backward launch failed: cudaError {err}")
     BACKWARD_LAUNCHES += 1
@@ -244,16 +284,17 @@ def recurrent_weight_grads(dhp: torch.Tensor, h_prev: torch.Tensor) -> Tuple[tor
 def recurrence_backward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, out: torch.Tensor,
                         grad_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dxp, dw_hh, db_hh) of the recurrence on CUDA tensors: K1's backward
-    kernel, then ``recurrent_weight_grads``.  ``w_hh`` [2, 3H, H] in torch
-    layout, as ``rnn.bigru_recurrence_backward`` takes it."""
-    dxp, dhp, h_prev = _backward_kernel(xp, w_hh.transpose(1, 2).contiguous(), b_hh, out, grad_out)
+    kernel, then ``recurrent_weight_grads`` in fp32.  ``w_hh`` [2, 3H, H] in
+    torch layout, as ``rnn.bigru_recurrence_backward`` takes it."""
+    dxp, dhp, h_prev = _backward_kernel(xp, *_kernel_weights(xp, w_hh, b_hh), out, grad_out)
     dw_hh, db_hh = recurrent_weight_grads(dhp, h_prev)
     return dxp, dw_hh, db_hh
 
 
 class _BiGRUSeq(torch.autograd.Function):
-    """xp [N, T, 6H], w_hh [2, 3H, H], b_hh [2, 3H] -> out [N, T, 2H]; the
-    kernels on CUDA tensors, the plain versions on CPU ones."""
+    """xp [N, T, 6H] (fp32 or bf16), w_hh [2, 3H, H], b_hh [2, 3H] (fp32)
+    -> out [N, T, 2H] in xp's dtype; the kernels on CUDA tensors, the plain
+    versions on CPU ones."""
 
     @staticmethod
     def forward(ctx, xp, w_hh, b_hh):
@@ -272,8 +313,10 @@ class _BiGRUSeq(torch.autograd.Function):
 
 
 def bigru(x: torch.Tensor, fw: Params, bw: Params) -> torch.Tensor:
-    """Bidirectional GRU [N, T, C] -> [N, T, 2H]; ``fw``/``bw`` hold
-    ``w_ih`` [3H, C], ``w_hh`` [3H, H], ``b_ih``, ``b_hh`` [3H] in torch layout."""
+    """Bidirectional GRU [N, T, C] -> [N, T, 2H] in x's dtype (fp32 or
+    bf16); ``fw``/``bw`` hold ``w_ih`` [3H, C], ``w_hh`` [3H, H], ``b_ih``,
+    ``b_hh`` [3H] in torch layout, fp32.  The input projection runs in x's
+    dtype, with its weights cast to it."""
     _check(x, fw, bw)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, got {x.device}")

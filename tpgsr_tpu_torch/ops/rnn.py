@@ -15,6 +15,14 @@ Weights per direction: ``w_ih`` [3H, C], ``w_hh`` [3H, H], ``b_ih`` and
 
 ``bigru_recurrence_backward`` is the plain version of K1's backward kernel
 (``csrc/bigru_seq_bwd.cu``): BPTT of ``bigru_recurrence``, step by step.
+
+Both recurrences take ``xp`` (and ``out``, ``grad_out``) in fp32 or bf16 and
+compute in fp32 from those values, with W_hh and b_hh rounded to xp's dtype
+(``rounded_to``), as the JAX layers cast weights to the activation dtype:
+the state, the gates and every sum are fp32, as in the TPU kernel
+(tpgsr_tpu/ops/pallas_gru.py:52-65), and only the outputs ``out`` and
+``dxp`` are rounded to xp's dtype.  ``torch.autocast`` does not reach them.
+The input projection runs in x's dtype.
 """
 
 from __future__ import annotations
@@ -26,24 +34,37 @@ import torch
 Params = Dict[str, torch.Tensor]
 
 
+def rounded_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t``'s values rounded to ``dtype``, held in fp32 (``t`` itself when
+    it is fp32 and ``dtype`` too)."""
+    return t.to(dtype).float()
+
+
 def input_projection(x: torch.Tensor, fw: Params, bw: Params) -> torch.Tensor:
-    """[N, T, C] -> [N, T, 6H]: both directions' input projections in one
-    matmul (fw gates r,z,n then bw gates r,z,n), outside the recurrence as at
-    tpgsr_tpu/ops/pallas_gru.py:77-80."""
+    """[N, T, C] -> [N, T, 6H] in x's dtype: both directions' input
+    projections in one matmul (fw gates r,z,n then bw gates r,z,n), outside
+    the recurrence as at tpgsr_tpu/ops/pallas_gru.py:77-80, with the weights
+    cast to x's dtype."""
     n, t, c = x.shape
-    w_ih = torch.cat([fw["w_ih"], bw["w_ih"]], 0)  # [6H, C]
-    b_ih = torch.cat([fw["b_ih"], bw["b_ih"]], 0)
+    w_ih = torch.cat([fw["w_ih"], bw["w_ih"]], 0).to(x.dtype)  # [6H, C]
+    b_ih = torch.cat([fw["b_ih"], bw["b_ih"]], 0).to(x.dtype)
     return torch.addmm(b_ih, x.reshape(n * t, c), w_ih.t()).view(n, t, -1)
 
 
 def bigru_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
     """The recurrence K1 computes: ``xp`` [N, T, 6H] (from
-    ``input_projection``), ``w_hh`` [2, 3H, H], ``b_hh`` [2, 3H] -> [N, T, 2H],
-    from h0 = 0, forward direction over t = 0..T-1, backward over T-1..0."""
+    ``input_projection``), ``w_hh`` [2, 3H, H], ``b_hh`` [2, 3H] -> [N, T, 2H]
+    in xp's dtype, from h0 = 0, forward direction over t = 0..T-1, backward
+    over T-1..0; fp32 state and arithmetic."""
+    with torch.autocast(xp.device.type, enabled=False):
+        return _recurrence(xp.float(), rounded_to(w_hh, xp.dtype), rounded_to(b_hh, xp.dtype), xp.dtype)
+
+
+def _recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     n, t, g6 = xp.shape
     h = g6 // 6
     state = xp.new_zeros(2, n, h)
-    out = xp.new_empty(n, t, 2 * h)
+    out = xp.new_empty(n, t, 2 * h, dtype=out_dtype)
     for step in range(t):
         x_step = torch.stack([xp[:, step, : 3 * h], xp[:, t - 1 - step, 3 * h :]])
         hp = torch.baddbmm(b_hh[:, None, :], state, w_hh.transpose(1, 2))  # [2, N, 3H]
@@ -62,15 +83,25 @@ def bigru_recurrence_backward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.
                               grad_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """BPTT of ``bigru_recurrence``: ``out`` is its output (every hidden
     state, so h_{t-1} is read, not stored), ``grad_out`` [N, T, 2H] the
-    gradient of the loss with respect to it.  Returns (dxp [N, T, 6H],
-    dw_hh [2, 3H, H], db_hh [2, 3H]).  Each direction runs its steps in
-    reverse, recomputing the gates from h_{t-1}:
+    gradient of the loss with respect to it.  Returns (dxp [N, T, 6H] in
+    xp's dtype, dw_hh [2, 3H, H] and db_hh [2, 3H] in fp32),
+    computed in fp32 from the stored values (in bf16, h_{t-1} as ``out``
+    rounded it).  Each direction runs its steps in reverse, recomputing the
+    gates from h_{t-1}:
 
         dh = grad_out_t + dh_next;  dn = dh (1 - z);  dz = dh (h_{t-1} - n)
         dn^ = dn (1 - n^2);  dr^ = dn^ hn r (1 - r);  dz^ = dz z (1 - z)
         dxp_t = [dr^, dz^, dn^];  dhp_t = [dr^, dz^, dn^ r]
         dh_next = dh z + dhp_t W_hh;  dW_hh += dhp_t^T h_{t-1};  db_hh += dhp_t
     """
+    with torch.autocast(xp.device.type, enabled=False):
+        dxp, dw_hh, db_hh = _recurrence_backward(xp.float(), rounded_to(w_hh, xp.dtype), rounded_to(b_hh, xp.dtype),
+                                                 out.float(), grad_out.float())
+    return dxp.to(xp.dtype), dw_hh, db_hh
+
+
+def _recurrence_backward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, out: torch.Tensor,
+                         grad_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     n, t, g6 = xp.shape
     h = g6 // 6
     dxp = torch.empty_like(xp)

@@ -1,9 +1,10 @@
 """Where the flagship train step's time goes on one NVIDIA card.
 
-    python -m tpgsr_tpu_torch.profile_train       # from the root of a checkout; needs one card
+    python -m tpgsr_tpu_torch.profile_train [--compute_dtype fp32|bf16]   # needs one card
 
-Builds the flagship train state (``entry.flagship_train``) at batch 48, fp32
-with TF32 off, and:
+Builds the flagship train state (``entry.flagship_train``) at batch 48, in
+TRAIN.compute_dtype's precision (fp32 unless told; bf16 runs the models
+under autocast, as the train step does), with TF32 off, and:
 
 * times each part of the train step with CUDA events (median of 20 after
   warmup): the teacher on HR (no grad), the student's forward and backward
@@ -22,6 +23,7 @@ line; a card is required.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -34,37 +36,42 @@ from tpgsr_tpu_torch.losses import image_loss, semantic_loss
 from tpgsr_tpu_torch.profile_eval import median_ms, random_batch, trace
 from tpgsr_tpu_torch.train.priors import logits_to_prior, parse_crnn_data, prior_dropout_first_quarter
 from tpgsr_tpu_torch.train.state import clip_sr_grads
-from tpgsr_tpu_torch.train.step import crnn_width
+from tpgsr_tpu_torch.train.step import COMPUTE_DTYPES, compute_context, crnn_width
 
 BATCH = 48
 K1_KERNELS = ("bigru_seq_kernel", "bigru_seq_backward")
 
 
-def parts(state, step, batch, dev):
-    """Median ms of each part of the train step, on tensors already on the card."""
+def parts(state, step, batch, dev, dtype=torch.float32):
+    """Median ms of each part of the train step, on tensors already on the
+    card, with the models in ``dtype`` and the casts of the step."""
     cw = crnn_width(128)
-    lr = torch.from_numpy(batch["lr"]).to(dev)
-    hr = torch.from_numpy(batch["hr"]).to(dev)
+    lr = torch.from_numpy(batch["lr"]).to(dev, dtype)
+    hr = torch.from_numpy(batch["hr"]).to(dev, dtype)
     sr_model, stu, teacher = state.sr[0], state.stu[0], state.teacher
     lr_nchw = lr.permute(0, 3, 1, 2)
 
+    def run(model, *inputs):
+        with compute_context(dev.type, dtype):
+            return model(*inputs)
+
     def teacher_prior():
         with torch.no_grad():
-            return torch.softmax(teacher(parse_crnn_data(hr, cw).permute(0, 3, 1, 2)), -1)
+            return torch.softmax(run(teacher, parse_crnn_data(hr, cw).permute(0, 3, 1, 2)).float(), -1)
 
     target = teacher_prior()
 
     def student():
-        logits = stu(parse_crnn_data(lr, cw).permute(0, 3, 1, 2))
+        logits = run(stu, parse_crnn_data(lr, cw).permute(0, 3, 1, 2)).float()
         (semantic_loss(torch.softmax(logits, -1), target) * 100.0).backward()
 
     with torch.no_grad():
-        logits = stu(parse_crnn_data(lr, cw).permute(0, 3, 1, 2))
-        prior = prior_dropout_first_quarter(logits_to_prior(logits)).permute(0, 3, 1, 2)
+        logits = run(stu, parse_crnn_data(lr, cw).permute(0, 3, 1, 2)).float()
+        prior = prior_dropout_first_quarter(logits_to_prior(logits)).to(dtype).permute(0, 3, 1, 2)
 
     def tsrn_tl():
-        sr = sr_model(lr_nchw, prior).permute(0, 2, 3, 1)
-        (image_loss(sr, hr, gradient=True) * 100.0).backward()
+        sr = run(sr_model, lr_nchw, prior).permute(0, 2, 3, 1)
+        (image_loss(sr.float(), hr.float(), gradient=True) * 100.0).backward()
 
     def optimizer():
         clip_sr_grads(state.sr)
@@ -79,7 +86,11 @@ def parts(state, step, batch, dev):
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--compute_dtype", choices=sorted(COMPUTE_DTYPES), default="fp32",
+                        help="the train step's precision, as TRAIN.compute_dtype")
+    compute_dtype = parser.parse_args(argv).compute_dtype
     if not torch.cuda.is_available():
         print("profile_train: CUDA is not available; this run needs an NVIDIA card", file=sys.stderr)
         return 1
@@ -87,12 +98,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(json.dumps({"card": smi.splitlines()[0], "torch": torch.__version__, "batch": BATCH, "tf32": False}),
-          flush=True)
+    print(json.dumps({"card": smi.splitlines()[0], "torch": torch.__version__, "batch": BATCH, "tf32": False,
+                      "compute_dtype": compute_dtype}), flush=True)
     dev = torch.device("cuda")
-    state, step = flagship_train(device=dev, seed=0)
+    state, step = flagship_train(device=dev, seed=0, compute_dtype=compute_dtype)
     batch = random_batch(np.random.default_rng(0), BATCH)
-    row = parts(state, step, batch, dev)
+    row = parts(state, step, batch, dev, COMPUTE_DTYPES[compute_dtype])
     row["images_per_s"] = BATCH / row["step_ms"] * 1e3
     summary, top = trace(state, step, batch, extra=K1_KERNELS)
     print(json.dumps({**row, **summary}), flush=True)

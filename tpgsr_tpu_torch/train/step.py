@@ -18,10 +18,17 @@ RGB only, and the steps append the contour mask on the device
 ``train_wire_keys`` cross to the device.  Outputs keep the JAX layouts:
 ``sr`` NHWC, per-sample ``mse`` and ``ssim`` [B], logits [T, B, C].  Only
 the ``tsrn_tl_cascade`` arch is ported; the factories raise for any other.
+
+The train step runs in TRAIN.compute_dtype, 'fp32' or 'bf16'
+(tpgsr_tpu/train/step.py:142-146): in bf16 the models run under
+``torch.autocast`` in bfloat16 with fp32 parameters, and the softmaxes, the
+losses, the SR clip and Adam stay fp32.  The eval step is fp32 always, as in
+the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, Mapping, Sequence, Tuple
 
@@ -75,15 +82,33 @@ def _ensure_mask(t: torch.Tensor, want: bool) -> torch.Tensor:
     return t
 
 
-def _as_image(arr, dev: torch.device, want_mask: bool = False) -> torch.Tensor:
-    """Batch image -> fp32 in [0, 1] on ``dev`` (tpgsr_tpu/train/step.py,
+# TRAIN.compute_dtype -> the dtype the train step runs its models in
+COMPUTE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a TRAIN.compute_dtype value, 'fp32' or 'bf16';
+    raises ``ValueError`` for any other."""
+    if str(name) not in COMPUTE_DTYPES:
+        raise ValueError(f"TRAIN.compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {name!r}")
+    return COMPUTE_DTYPES[str(name)]
+
+
+def compute_context(device_type: str, dtype: torch.dtype):
+    """What the train step runs its models under: autocast in bf16, nothing
+    in fp32."""
+    return torch.autocast(device_type, dtype=dtype) if dtype != torch.float32 else contextlib.nullcontext()
+
+
+def _as_image(arr, dev: torch.device, want_mask: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Batch image -> ``dtype`` in [0, 1] on ``dev`` (tpgsr_tpu/train/step.py,
     ``_ensure_mask`` then ``_as_image``): a uint8 array crosses as uint8,
-    takes its mask channel there if it lacks one and ``want_mask``, and is
-    divided by 255 in fp32; any other is cast to fp32."""
+    takes its mask channel there if it lacks one and ``want_mask``, is
+    divided by 255 in fp32, then cast; any other is cast to ``dtype``."""
     t = torch.as_tensor(arr)
     if t.dtype == torch.uint8:
-        return _ensure_mask(t.to(dev, non_blocking=True), want_mask).to(torch.float32) / 255.0
-    return t.to(dev, torch.float32, non_blocking=True)
+        return (_ensure_mask(t.to(dev, non_blocking=True), want_mask).to(torch.float32) / 255.0).to(dtype)
+    return t.to(dev, dtype, non_blocking=True)
 
 
 def train_wire_keys(arch: str = "tsrn_tl_cascade") -> frozenset:
@@ -148,8 +173,10 @@ TrainStep = Callable[[TrainState, Mapping[str, np.ndarray]], Dict[str, torch.Ten
 _NOT_PORTED = ("ssim_loss",)
 
 
-def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None) -> TrainStep:
-    """``train_step(state, batch) -> metrics``, one optimizer step in fp32.
+def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
+                    compute_dtype: str = "fp32") -> TrainStep:
+    """``train_step(state, batch) -> metrics``, one optimizer step with the
+    models in ``compute_dtype`` ('fp32' or 'bf16', TRAIN.compute_dtype).
 
     Follows tpgsr_tpu/train/step.py:148-279 for ``tsrn_tl_cascade``: the
     teacher reads HR without grad; each stage runs its student in train mode
@@ -165,7 +192,15 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None) 
     ``use_distill``, ``gradient`` and ``mask`` as the CLI names them;
     ``ssim_loss`` is not ported and raises.  Metrics are detached tensors on
     the device: ``loss_img_{i}``, ``loss_img``, ``loss_distill``,
-    ``loss_total``."""
+    ``loss_total``.
+
+    In bf16 (tpgsr_tpu/train/step.py:148-201): the batch is divided by 255 in
+    fp32 and cast to bf16; every model runs under ``torch.autocast`` in
+    bf16, the teacher on the bf16 HR; logits are cast to fp32 before the
+    softmaxes, CTC and the distillation; the prior is cast to bf16 for the
+    SR model; the image loss compares fp32 casts of the bf16 SR output and
+    of the bf16 HR.  Parameters, gradients, BatchNorm statistics, the clip
+    and Adam are fp32.  In fp32 every cast is the identity."""
     wire_keys = train_wire_keys(args.get("arch", "tsrn_tl_cascade"))
     for name in _NOT_PORTED:
         if args.get(name, False):
@@ -179,32 +214,37 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None) 
     gradient = bool(args.get("gradient", False))
     want_mask = bool(args.get("mask", False))
     cw = crnn_width(int(width))
+    dtype = torch_dtype(compute_dtype)
+
+    def run(model: nn.Module, *inputs: torch.Tensor) -> torch.Tensor:
+        with compute_context(dev.type, dtype):
+            return model(*inputs)
 
     def train_step(state: TrainState, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         wire = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True) for k in wire_keys if k in batch}
-        hr, lr = _as_image(wire["hr"], dev, want_mask), _as_image(wire["lr"], dev, want_mask)
+        hr, lr = _as_image(wire["hr"], dev, want_mask, dtype), _as_image(wire["lr"], dev, want_mask, dtype)
         for m in (*state.sr, *state.stu):
             m.train()
         state.optimizer.zero_grad(set_to_none=True)
         with torch.no_grad():
-            target = torch.softmax(state.teacher(_nchw(parse_crnn_data(hr, cw))), -1)
+            target = torch.softmax(run(state.teacher, _nchw(parse_crnn_data(hr, cw))).float(), -1)
 
         metrics: Dict[str, torch.Tensor] = {}
-        loss_img = lr.new_zeros(())
-        loss_distill = lr.new_zeros(())
+        loss_img = lr.new_zeros((), dtype=torch.float32)
+        loss_distill = lr.new_zeros((), dtype=torch.float32)
         cascade = lr
         for i in range(stu_iter):
-            logits = state.stu[0 if tpg_share else i](_nchw(parse_crnn_data(cascade, cw)))
+            logits = run(state.stu[0 if tpg_share else i], _nchw(parse_crnn_data(cascade, cw))).float()
             if use_label:
                 per = ctc_loss(logits, wire["ctc_labels"], wire["ctc_lengths"])
                 loss_distill = loss_distill + torch.mean(per * wire["weighted_tics"])
             if use_distill:
                 loss_distill = loss_distill + semantic_loss(torch.softmax(logits, -1), target) * 100.0
-            prior = prior_dropout_first_quarter(logits_to_prior(logits))
+            prior = prior_dropout_first_quarter(logits_to_prior(logits)).to(dtype)
             sr_model = state.sr[0 if sr_share else i]
             planes = sr_model.in_planes
-            sr_out = _nhwc(sr_model(_nchw(lr[..., :planes]), _nchw(prior)))
-            loss_each = image_loss(sr_out, hr[..., :planes], gradient=gradient) * 100.0
+            sr_out = _nhwc(run(sr_model, _nchw(lr[..., :planes]), _nchw(prior)))
+            loss_each = image_loss(sr_out.float(), hr[..., :planes].float(), gradient=gradient) * 100.0
             loss_img = loss_img + loss_each
             metrics[f"loss_img_{i}"] = loss_each.detach()
             cascade = sr_out

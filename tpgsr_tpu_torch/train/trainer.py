@@ -49,7 +49,7 @@ from tpgsr_tpu_torch.train import checkpoint as ckpt
 from tpgsr_tpu_torch.train.evaluate import evaluate
 from tpgsr_tpu_torch.train.logging import ScalarLogger
 from tpgsr_tpu_torch.train.state import TrainState, create_train_state
-from tpgsr_tpu_torch.train.step import EvalModels, make_eval_step, make_train_step
+from tpgsr_tpu_torch.train.step import EvalModels, make_eval_step, make_train_step, torch_dtype
 
 
 def collate_kind(arch: str, train: bool) -> str:
@@ -164,8 +164,7 @@ def check_ported(config: AttrDict, args: Mapping, device: torch.device) -> None:
         raise NotImplementedError(f"{what}: not ported yet (ROADMAP.md {item})")
 
     check_arch(args["arch"])
-    if str(t.get("compute_dtype", "fp32")) != "fp32":
-        missing(f"TRAIN.compute_dtype {t.compute_dtype!r} (set 'fp32')", "queue 1 item 4")
+    torch_dtype(t.get("compute_dtype", "fp32"))  # raises ValueError for a value that is neither fp32 nor bf16
     if int(t.get("n_devices", 0) or 0) > 1:
         missing(f"TRAIN.n_devices {t.n_devices}: data parallelism over several cards", "queue 1 item 10")
     if int(args.get("srb", 5)) > 5:
@@ -186,9 +185,13 @@ def check_ported(config: AttrDict, args: Mapping, device: torch.device) -> None:
 
 class TextSR:
     """config + flags -> ``train()`` / ``test()`` / ``demo()`` (main.py:10-18),
-    on ``device`` (the card unless told otherwise).  On the card it turns
-    TF32 off for the process, cuBLAS's and cuDNN's: fp32 is the one
-    ``compute_dtype`` ported."""
+    on ``device`` (the card unless told otherwise).  The train step runs in
+    TRAIN.compute_dtype ('bf16', the packaged default, or 'fp32'); val,
+    ``--go_test``, ``--test`` and ``--demo`` run the fp32 eval step whatever
+    it says, as the JAX package does.  On the card it turns TF32 off for the
+    process, cuBLAS's and cuDNN's, in both precisions: the fp32 parts (fp32
+    steps, and in bf16 the losses, BatchNorm, K1's state, the clip, Adam and
+    eval) stay IEEE fp32."""
 
     def __init__(self, config: AttrDict, args: AttrDict, device: DeviceLike = None):
         self.device = resolve_device(device)
@@ -196,8 +199,8 @@ class TextSR:
         self.args = args
         check_ported(self.config, args, self.device)
         if self.device.type == "cuda":
-            # fp32 is IEEE fp32 on the card too: PyTorch lets cuDNN's
-            # convolutions run in TF32 unless told otherwise.
+            # fp32 is IEEE fp32 on the card too, in either compute dtype:
+            # PyTorch lets cuDNN's convolutions run in TF32 unless told otherwise.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.scale_factor = int(self.config.TRAIN.down_sample_scale)
@@ -263,7 +266,8 @@ class TextSR:
     def _build_steps(self, with_train: bool = True) -> None:
         width = int(self.config.TRAIN.width)
         if with_train and self._train_step is None:
-            self._train_step = make_train_step(self.args, width, device=self.device)
+            self._train_step = make_train_step(self.args, width, device=self.device,
+                                               compute_dtype=str(self.config.TRAIN.get("compute_dtype", "fp32")))
         if self._eval_step is None:
             self._eval_step = make_eval_step(self.args, width, device=self.device)
 
