@@ -64,9 +64,22 @@ package beside this script):
    end, the first iteration's losses against a CPU ``TextSR``, the val's
    metric dicts against the fp32 eval step on the saved weights, and the
    loop's images/s between the first iteration and the val.
+13. the SR zoo of the repo's other train scripts (``train_TSRN.sh``,
+   ``train_SRCNN.sh``, ``train_TPGSR-SRCNN.sh``, ``train_SRResNet.sh``,
+   ``train_TPGSR-SRResNet.sh``, ``train_RDN.sh``, ``train_TPGSR-RDN.sh``),
+   each with its flags at batch 48 and full width, TF32 off: (a) the eval
+   step and one fp32 train step on the card against the CPU from the same
+   weights and batch; (b) 20 train steps after 2 warm-up steps in fp32 and
+   in bf16 (images/s, peak memory, K1's launches: 10 + 10 a step for
+   ``tsrn``, none for the others), then ``evaluate`` over 4 batches; a
+   ``{"zoo": ...}`` line each; (c) ``cli.main`` with ``train_TSRN.sh``'s and
+   ``train_TPGSR-SRResNet.sh``'s flags and the packaged YAML over phase 9's
+   TextZoom (22 iterations, a val and a save), then ``--go_test`` from the
+   checkpoint against the val; a ``{"zoo_cli": ...}`` line each.
 
 The line before the last is ``{"kernels": [...]}``: K1's forward and
-backward in fp32 and in bf16; the last is ``{"ok": true, "device": {...}}``.
+backward in fp32 and in bf16 (``zoo_launches``: ``tsrn``'s in phase
+13(b)); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -77,6 +90,7 @@ import io
 import json
 import os
 import re
+import shlex
 import statistics
 import subprocess
 import sys
@@ -1290,6 +1304,222 @@ def phase_packaged_yaml(root: str, train_dirs, val_dirs):
     return out
 
 
+# phase 13: the SR zoo of the repo's other train scripts, with each script's
+# flags (its --vis_dir aside)
+ZOO_SCRIPTS = ("train_TSRN.sh", "train_SRCNN.sh", "train_TPGSR-SRCNN.sh", "train_SRResNet.sh",
+               "train_TPGSR-SRResNet.sh", "train_RDN.sh", "train_TPGSR-RDN.sh")
+ZOO_CLI_SCRIPTS = ("train_TSRN.sh", "train_TPGSR-SRResNet.sh")
+ZOO_EVAL_BATCHES = 4
+
+
+def script_argv(name: str):
+    """The flags of a one-line ``python3 main.py ...`` script of the checkout,
+    as the shell splits them, without its ``--vis_dir``."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), name)) as f:
+        argv = shlex.split(f.read().strip())[2:]
+    return [a for a in argv if not a.startswith("--vis_dir")]
+
+
+def zoo_mission(argv, device: str, compute_dtype: str = "fp32"):
+    """(``TextSR``, its state, its eval models) for a script's flags at batch
+    48: SR weights drawn from the YAML's seed on the CPU, then the teacher
+    or the eval CRNN (no ``crnn_pretrained``), so both devices get the same
+    weights."""
+    cfg = load_config()
+    cfg.TRAIN.compute_dtype = compute_dtype
+    cfg.TRAIN.VAL.crnn_pretrained = ""
+    mission = trainer.TextSR(cfg, AttrDict(vars(build_arg_parser().parse_args(argv))), device=device)
+    state = mission.init_state()
+    mission._build_steps()
+    return mission, state, mission._eval_models(state, mission._eval_recognizer())
+
+
+def zoo_card_vs_cpu(argv, batch):
+    """(a) The eval step, then one fp32 train step, on the card and on the CPU
+    from the same weights and batch: ``sr`` at 5e-4, ``mse`` and ``ssim`` at
+    1e-4, logits at 2e-4 and their strings equal (phase 4's bounds); the
+    losses at rtol 1e-5, each gradient at 5e-3 of its own norm (3e-2 in a
+    student) and of its model's, the pre-BN biases at 1e-4 of their model's
+    norm, the BatchNorm statistics at rtol 1e-4 (phase 7's bounds)."""
+    card, card_state, card_models = zoo_mission(argv, "cuda")
+    cpu, cpu_state, cpu_models = zoo_mission(argv, "cpu")
+    out = {}
+    (sr_g, outs_g), (sr_c, outs_c) = card._eval_step(card_models, batch), cpu._eval_step(cpu_models, batch)
+    check(sr_g.shape == sr_c.shape and torch.isfinite(sr_g).all().item(), f"eval sr {tuple(sr_g.shape)} not finite")
+    out["eval_sr_max_abs_err"] = float((sr_g.cpu() - sr_c).abs().max())
+    check(out["eval_sr_max_abs_err"] <= 5e-4, f"eval sr card vs CPU: {out['eval_sr_max_abs_err']:.3g} > 5e-4")
+    check(sorted(outs_g) == sorted(outs_c), "eval outputs differ in keys")
+    for k in outs_c:
+        if k.startswith("logits_"):
+            err = float((outs_g[k].cpu() - outs_c[k]).abs().max())
+            check(err <= 2e-4 and decode_crnn(outs_g[k]) == decode_crnn(outs_c[k]), f"eval {k} card vs CPU: {err:.3g}")
+            out["eval_logits_max_abs_err"] = max(out.get("eval_logits_max_abs_err", 0.0), err)
+        else:
+            check(torch.allclose(outs_g[k].cpu(), outs_c[k], rtol=1e-4, atol=1e-4), f"eval {k} card vs CPU")
+    m_card = card._train_step(card_state, batch)
+    m_cpu = cpu._train_step(cpu_state, batch)
+    for k in m_cpu:
+        got, want = float(m_card[k]), float(m_cpu[k])
+        check(np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want), f"train {k}: card {got} vs CPU {want}")
+    out["losses"] = {k: float(v) for k, v in m_card.items()}
+    pairs = [(f"sr{i}", a, b, 5e-3) for i, (a, b) in enumerate(zip(card_state.sr, cpu_state.sr))]
+    pairs += [(f"stu{i}", a, b, 3e-2) for i, (a, b) in enumerate(zip(card_state.stu, cpu_state.stu))]
+    for name, a, b, tol in pairs:
+        ga, gb = grads_of(a), grads_of(b)
+        check(sorted(ga) == sorted(gb) and len(gb) == len(list(b.parameters())), f"{name}: gradients missing")
+        total = float(torch.sqrt(sum(g.pow(2).sum() for g in gb.values())))
+        diff = float(torch.sqrt(sum((ga[k] - gb[k]).pow(2).sum() for k in gb if not PRE_BN_BIAS.search(k))))
+        check(diff <= tol * total, f"train {name}: gradient rel err {diff / total:.3g} > {tol}")
+        out[f"{name}_grad_rel_err"] = diff / total
+        for k in gb:
+            if PRE_BN_BIAS.search(k):
+                check(float(ga[k].norm()) <= 1e-4 * total, f"train {name}.{k}: pre-BN bias gradient not ~0")
+                continue
+            rel = float((ga[k] - gb[k]).norm()) / max(float(gb[k].norm()), 1e-30)
+            check(rel <= tol, f"train {name}.{k}: gradient rel err {rel:.3g} > {tol}")
+        sa, sb = a.state_dict(), b.state_dict()
+        for k in sb:
+            if "running" in k:
+                check(torch.allclose(sa[k].cpu(), sb[k], rtol=1e-4, atol=1e-5), f"train {name}.{k}: BN statistic")
+    return out
+
+
+def zoo_train(argv, compute_dtype: str, batches):
+    """(b) 2 warm-up and 20 timed train steps at batch 48 in ``compute_dtype``:
+    images/s by CUDA events, peak memory, K1's launches."""
+    mission, state, _ = zoo_mission(argv, "cuda", compute_dtype)
+    for b in batches[:TRAIN_WARMUP]:
+        mission._train_step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gru_seq.LAUNCHES = gru_seq.BACKWARD_LAUNCHES = 0
+    start.record()
+    metrics = [mission._train_step(state, b) for b in batches[TRAIN_WARMUP:]]
+    end.record()
+    torch.cuda.synchronize()
+    event_s = start.elapsed_time(end) / 1e3
+    check(all(np.isfinite(float(v)) for m in metrics for v in m.values()), f"{compute_dtype}: non-finite loss")
+    return {"images_per_s": BATCH * TRAIN_STEPS / event_s, "ms_per_step": event_s * 1e3 / TRAIN_STEPS,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "k1_launches": gru_seq.LAUNCHES,
+            "k1_backward_launches": gru_seq.BACKWARD_LAUNCHES, "loss_first": float(metrics[0]["loss_total"]),
+            "loss_last": float(metrics[-1]["loss_total"])}
+
+
+def zoo_eval(argv, batches):
+    """(b) ``evaluate`` over 4 batches of 48 after a warm one: images/s by
+    CUDA events, K1's launches."""
+    mission, _, models = zoo_mission(argv, "cuda")
+    evaluate(mission._eval_step, models, batches[:1])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gru_seq.LAUNCHES = 0
+    start.record()
+    metrics = evaluate(mission._eval_step, models, batches[1:])
+    end.record()
+    torch.cuda.synchronize()
+    check(metrics["images"] == BATCH * ZOO_EVAL_BATCHES and all(np.isfinite(v) for v in metrics.values()),
+          f"zoo eval metrics {metrics}")
+    return {"images_per_s": metrics["images"] / (start.elapsed_time(end) / 1e3), "k1_launches": gru_seq.LAUNCHES,
+            "metrics": metrics}
+
+
+def zoo_cli(root: str, script: str, train_dirs, val_dirs):
+    """(c) ``cli.main`` with ``script``'s flags and the packaged YAML (bf16)
+    over phase 9's TextZoom, TF32 on first: one epoch of 22 iterations with
+    a val and a save at its end, then ``--go_test`` from that checkpoint,
+    whose metric dicts equal the val's (the same weights, PSNR and SSIM at
+    1e-4); K1's launches over both runs."""
+    name = script[len("train_"):-len(".sh")]
+    iterations = TRAIN_PAIRS // BATCH
+    cfg = load_config()
+    check(cfg.TRAIN.compute_dtype == "bf16", f"the packaged YAML says compute_dtype {cfg.TRAIN.compute_dtype}")
+    cfg.TRAIN.update(train_data_dir=list(train_dirs), batch_size=BATCH, epochs=1, saveInterval=iterations,
+                     displayInterval=iterations, workers=0, ckpt_dir=f"{root}/ckpt_zoo")
+    cfg.TRAIN.VAL.update(val_data_dir=list(val_dirs), valInterval=iterations)
+    config_path = f"{root}/zoo_{name}.yaml"
+    with open(config_path, "w") as f:
+        json.dump(cfg, f)  # JSON is YAML
+    argv = script_argv(script) + ["--vis_dir", f"zoo_{name}", "--config", config_path]
+    ckpt_dir = f"{root}/ckpt_zoo/zoo_{name}"
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        probe = TrainerProbe()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        gru_seq.LAUNCHES = gru_seq.BACKWARD_LAUNCHES = 0
+        start = time.perf_counter()
+        with probe.installed():
+            state = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - start
+        check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+              f"{name}: the trainer left TF32 on")
+        check(probe.compute_dtypes == ["bf16"], f"{name}: the train step ran in {probe.compute_dtypes}")
+        check(state.step == iterations, f"{name}: trainer at step {state.step}, expected {iterations}")
+        (val,) = [e for e in probe.events if e["name"] == "val"]
+        files = set(os.listdir(ckpt_dir))
+        want_files = {"checkpoint_0.pth", "opt_state.pth", "info.json"} | {f"recognizer_{i}.pth"
+                                                                          for i in range(len(state.stu))}
+        check(want_files <= files and not any(f.startswith("recognizer_") for f in files - want_files
+                                               if "best" not in f), f"{name}: checkpoint files {sorted(files)}")
+        del state
+        go_test = cli.main(argv + ["--go_test", "--resume", ckpt_dir])
+        torch.cuda.synchronize()
+        for split, md in val["out"].items():
+            check_metric_dicts(go_test[split], md, f"{name} --go_test {split} against the val on the same weights")
+    finally:
+        os.chdir(cwd)
+    return {"script": script, "iterations": iterations, "run_s": run_s, "val_s": val["t1"] - val["t0"],
+            "first_iteration_s": probe.first_step_end - start, "losses_first": {k: float(v) for k, v in
+                                                                                probe.metrics[0].items()},
+            "val": val["out"], "k1_launches": gru_seq.LAUNCHES, "k1_backward_launches": gru_seq.BACKWARD_LAUNCHES}
+
+
+def phase_zoo(root: str, train_dirs, val_dirs):
+    """Phase 13: for each of the seven scripts, (a) card against CPU, (b) fp32
+    and bf16 training and eval on the card; (c) the CLI for two of them.
+    Returns ``tsrn``'s K1 launches in (b): fp32 and bf16, each (forward,
+    backward)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    check_batch = synthetic_batch(rng, BATCH, labels=False)
+    train_batches = [synthetic_batch(rng, BATCH, labels=False) for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    eval_batches = [synthetic_batch(rng, BATCH) for _ in range(1 + ZOO_EVAL_BATCHES)]
+    launches = {}
+    for script in ZOO_SCRIPTS:
+        argv = script_argv(script)
+        arch = build_arg_parser().parse_args(argv).arch
+        s0 = time.perf_counter()
+        out = {"script": script, "arch": arch, "batch": BATCH, "card_vs_cpu": zoo_card_vs_cpu(argv, check_batch)}
+        for dtype in ("fp32", "bf16"):
+            out[dtype] = zoo_train(argv, dtype, train_batches)
+        out["eval"] = zoo_eval(argv, eval_batches)
+        runs_k1 = arch == "tsrn"  # the only one of the seven with recurrent blocks
+        for dtype in ("fp32", "bf16"):
+            want = 2 * N_SRB * TRAIN_STEPS if runs_k1 else 0
+            got = (out[dtype]["k1_launches"], out[dtype]["k1_backward_launches"])
+            check(got == (want, want), f"{arch} {dtype}: K1 launched {got} times in 20 steps, expected {want} each way")
+            if runs_k1:
+                launches[dtype] = got
+        want = 2 * N_SRB * ZOO_EVAL_BATCHES if runs_k1 else 0
+        check(out["eval"]["k1_launches"] == want, f"{arch} eval: K1 launched {out['eval']['k1_launches']} times")
+        out["s"] = time.perf_counter() - s0
+        print(json.dumps({"zoo": out}), flush=True)
+    for script in ZOO_CLI_SCRIPTS:
+        cli_out = zoo_cli(root, script, train_dirs, val_dirs)
+        n_val = sum(-(-n // BATCH) for n in VAL_PAIRS)
+        iters = cli_out["iterations"]
+        k1 = script == "train_TSRN.sh"
+        want = (2 * N_SRB * (iters + 2 * n_val) if k1 else 0, 2 * N_SRB * iters if k1 else 0)
+        got = (cli_out["k1_launches"], cli_out["k1_backward_launches"])
+        check(got == want, f"{script} through the CLI: K1 launched {got} times, expected {want}")
+        print(json.dumps({"zoo_cli": cli_out}), flush=True)
+    print(f"zoo: phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def per_sr(rows, keys):
     """Each key summed over the two sweep rows, times N_SRB: one SR forward
     (or backward) at batch 48; None where a row has none (a library call
@@ -1407,26 +1637,28 @@ def main() -> int:
     train_ips = train["images_per_s"]
 
     # 9. the TextZoom data path, 10. the trainer and the CLI, 11. the bf16
-    # train step, 12. the packaged YAML (bf16) through the CLI, in one
-    # temporary directory
+    # train step, 12. the packaged YAML (bf16) through the CLI, 13. the SR
+    # zoo, in one temporary directory
     with tempfile.TemporaryDirectory(prefix="textzoom-") as root:
         lmdb_train, lmdb_eval, train_dirs, val_dirs = phase_data(root, serve_ips, train_ips)
         trainer_run = phase_trainer(root, train_dirs, val_dirs, lmdb_train["images_per_s"])
         bf16_launches, bf16_backward_launches, bf16_train = phase_train_bf16(train)
         packaged = phase_packaged_yaml(root, train_dirs, val_dirs)
+        # 13. the SR zoo of the repo's other train scripts
+        zoo = phase_zoo(root, train_dirs, val_dirs)
 
     kernels = [
         forward_entry(torch.float32, shapes, ptxas, launches, max_err, train_launches=train_launches,
                       lmdb_train_launches=lmdb_train["k1_launches"], lmdb_eval_launches=lmdb_eval["k1_launches"],
-                      trainer_launches=trainer_run["k1_launches"]),
+                      trainer_launches=trainer_run["k1_launches"], zoo_launches=zoo["fp32"][0]),
         backward_entry(torch.float32, bwd_shapes, bwd_ptxas, backward_launches, bwd_err,
                        lmdb_train_launches=lmdb_train["k1_backward_launches"],
-                       trainer_launches=trainer_run["k1_backward_launches"]),
+                       trainer_launches=trainer_run["k1_backward_launches"], zoo_launches=zoo["fp32"][1]),
         forward_entry(torch.bfloat16, bf16_shapes, ptxas, bf16_launches, bf16_err,
                       train_images_per_s=bf16_train["bf16_images_per_s"],
-                      packaged_yaml_launches=packaged["k1_launches"]),
+                      packaged_yaml_launches=packaged["k1_launches"], zoo_launches=zoo["bf16"][0]),
         backward_entry(torch.bfloat16, bf16_bwd_shapes, bwd_ptxas, bf16_backward_launches, bf16_bwd_err,
-                       packaged_yaml_launches=packaged["k1_backward_launches"]),
+                       packaged_yaml_launches=packaged["k1_backward_launches"], zoo_launches=zoo["bf16"][1]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")

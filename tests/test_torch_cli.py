@@ -76,9 +76,8 @@ def _fp32_config():
 
 
 @pytest.mark.parametrize("args_over,train_over,item", [
-    ({"arch": "tsrn"}, {}, "queue 1 item 7"),
+    ({"arch": "vdsr"}, {}, "queue 1 item 7"),
     ({"arch": "tsrn_tl_wmask"}, {}, "queue 1 item 7"),
-    ({"srb": 6}, {}, "queue 1 item 7"),
     ({"tpg": "OPT"}, {}, "queue 1 item 8"),
     ({"test_model": "ASTER"}, {}, "queue 1 item 8"),
     ({"test": True}, {}, "queue 1 item 8"),  # --rec defaults to aster
@@ -88,7 +87,7 @@ def _fp32_config():
     ({"ic15sr": True}, {}, "queue 1 item 9"),
     ({"random_reso": True}, {}, "queue 1 item 9"),
     ({}, {"n_devices": 2}, "queue 1 item 10"),
-], ids=["tsrn", "tsrn_tl_wmask", "srb", "tpg", "test_model", "rec_default", "rec_moran", "syn", "mixed",
+], ids=["vdsr", "tsrn_tl_wmask", "tpg", "test_model", "rec_default", "rec_moran", "syn", "mixed",
         "ic15sr", "random_reso", "n_devices"])
 def test_what_is_not_ported_raises_naming_its_item(args_over, train_over, item):
     """Each raises ``NotImplementedError`` naming its ``ROADMAP.md`` item when

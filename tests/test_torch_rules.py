@@ -11,6 +11,7 @@ from tpgsr_tpu_torch import device as port_device
 from tpgsr_tpu_torch import cli, entry
 from tpgsr_tpu_torch.config import default_args, load_config
 from tpgsr_tpu_torch.data.loader import make_loader
+from tpgsr_tpu_torch.models.registry import NOT_PORTED, PORTED_ARCHS
 from tpgsr_tpu_torch.train import trainer
 from tpgsr_tpu_torch.train.step import make_eval_step, make_train_step
 
@@ -41,8 +42,12 @@ def test_port_imports_no_jax():
     lambda: make_loader(list(range(4)), 2, None),
     lambda: trainer.train_loader(["no-such-lmdb"]),
     lambda: trainer.val_loaders(["no-such-lmdb"]),
+    lambda: make_eval_step({"arch": "srcnn", "stu_iter": 1}),
+    lambda: make_train_step({"arch": "rdn", "stu_iter": 1}),
     lambda: trainer.TextSR(load_config(), default_args(arch="tsrn_tl_cascade")),
+    lambda: trainer.TextSR(load_config(), default_args(arch="srresnet_tl", stu_iter=3)),
     lambda: cli.main(["--arch", "tsrn_tl_cascade"]),
+    lambda: cli.main(["--arch", "tsrn", "--STN", "--mask"]),
     lambda: port_device.resolve_device(),
     lambda: port_device.resolve_device("cuda:0"),
 ])
@@ -54,3 +59,26 @@ def test_entry_points_default_to_the_card(monkeypatch, call):
 
 def test_cpu_is_taken_only_when_asked():
     assert port_device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_the_zoo_is_the_jax_package_s():
+    """The port's archs and the ones it raises for are the JAX package's, and
+    the eight ported are the repo's train scripts' (train_*.sh)."""
+    from tpgsr_tpu.models.registry import ARCHS
+
+    assert sorted(PORTED_ARCHS + NOT_PORTED) == sorted(ARCHS)
+    assert sorted(PORTED_ARCHS) == sorted(["tsrn_tl_cascade", "tsrn", "srcnn", "srcnn_tl", "srres", "srresnet_tl",
+                                           "rdn", "rdn_tl"])
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_check_ported_raises_for_each_arch_not_ported(arch):
+    """``check_ported`` (what ``TextSR`` runs first) raises
+    ``NotImplementedError`` naming the arch and its ``ROADMAP.md`` item."""
+    with pytest.raises(NotImplementedError, match=rf"'{arch}'.*ROADMAP.md queue 1 item 7"):
+        trainer.check_ported(load_config(), default_args(arch=arch), torch.device("cpu"))
+
+
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
+def test_check_ported_accepts_each_ported_arch(arch):
+    trainer.check_ported(load_config(), default_args(arch=arch, srb=6), torch.device("cpu"))

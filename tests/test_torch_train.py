@@ -457,10 +457,12 @@ def test_train_step_takes_a_uint8_batch_as_float_over_255():
 
 
 @pytest.mark.parametrize("factory", [make_eval_step, make_train_step])
-@pytest.mark.parametrize("arch", ["tsrn_tl", "tsrn_tl_wmask", "tsrn"])
+@pytest.mark.parametrize("arch", ["tsrn_tl", "tsrn_tl_wmask", "vdsr"])
 def test_step_factories_raise_for_an_arch_not_ported(factory, arch):
-    """Only the tsrn_tl_cascade branch is ported; TL_SIMPLE archs (one stage,
-    no prior dropout, distillation always) and the others raise."""
+    """The cascade branch and the plain one are ported for the archs of the
+    repo's train scripts (tests/test_torch_zoo_train.py); TL_SIMPLE archs
+    (one stage, no prior dropout, distillation always) and the rest of the
+    zoo raise."""
     with pytest.raises(NotImplementedError, match=arch):
         factory({"arch": arch, "stu_iter": 1}, device="cpu")
     factory({"arch": "tsrn_tl_cascade", "stu_iter": 1}, device="cpu")

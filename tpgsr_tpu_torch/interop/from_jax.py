@@ -65,12 +65,29 @@ def _rnn(sd: StateDict, p: Mapping, prefix: str) -> None:
         sd[f"{prefix}.{name}"] = _t(value)
 
 
-def tsrn_tl_state_dict(variables: Mapping[str, Any], srb_nums: int = 5) -> StateDict:
-    """Flax ``TSRN_TL`` variables -> ``models.tsrn.TSRN_TL`` state_dict."""
+def _infogen(sd: StateDict, p: Mapping, s: Mapping) -> None:
+    for k in (1, 2, 3, 4):
+        _conv_t(sd, p["infoGen"][f"tconv{k}"], f"infoGen.tconv{k}")
+        _bn(sd, p["infoGen"][f"bn{k}"], s["infoGen"][f"bn{k}"], f"infoGen.bn{k}")
+
+
+def _prelu(sd: StateDict, p: Mapping, prefix: str) -> None:
+    sd[f"{prefix}.weight"] = _t(p["alpha"])
+
+
+def _stn(sd: StateDict, p: Mapping, s: Mapping) -> None:
+    if "stn_head" in p:
+        _stn_head(sd, p["stn_head"], s["stn_head"], "stn_head")
+
+
+def tsrn_state_dict(variables: Mapping[str, Any], srb_nums: int = 5) -> StateDict:
+    """Flax ``TSRN`` or ``TSRN_TL`` variables -> ``models.tsrn.TSRN`` or
+    ``TSRN_TL`` state_dict (torch_import.py:118-160); the prior's pyramid
+    when the variables hold one."""
     p, s = variables["params"], variables.get("batch_stats", {})
     sd: StateDict = {}
     _conv(sd, p["block1_conv"], "block1.0")
-    sd["block1.1.weight"] = _t(p["block1_prelu"]["alpha"])
+    _prelu(sd, p["block1_prelu"], "block1.1")
     for i in range(2, srb_nums + 2):
         bp, bs = p[f"block{i}"], s[f"block{i}"]
         _conv(sd, bp["conv1"], f"block{i}.conv1")
@@ -80,9 +97,8 @@ def tsrn_tl_state_dict(variables: Mapping[str, Any], srb_nums: int = 5) -> State
         for g in ("gru1", "gru2"):
             _conv(sd, bp[g]["conv1"], f"block{i}.{g}.conv1")
             _rnn(sd, bp[g]["gru"], f"block{i}.{g}.gru")
-    for k in (1, 2, 3, 4):
-        _conv_t(sd, p["infoGen"][f"tconv{k}"], f"infoGen.tconv{k}")
-        _bn(sd, p["infoGen"][f"bn{k}"], s["infoGen"][f"bn{k}"], f"infoGen.bn{k}")
+    if "infoGen" in p:
+        _infogen(sd, p, s)
     last = srb_nums + 2
     _conv(sd, p[f"block{last}_conv"], f"block{last}.0")
     _bn(sd, p[f"block{last}_bn"], s[f"block{last}_bn"], f"block{last}.1")
@@ -93,9 +109,81 @@ def tsrn_tl_state_dict(variables: Mapping[str, Any], srb_nums: int = 5) -> State
         j += 1
     # the fused head's ConvParams hold the HR 9x9 conv (tsrn.py:222-224)
     _conv(sd, p[f"block{out}_conv"], f"block{out}.{j}")
-    if "stn_head" in p:
-        _stn_head(sd, p["stn_head"], s["stn_head"], "stn_head")
+    _stn(sd, p, s)
     return sd
+
+
+tsrn_tl_state_dict = tsrn_state_dict
+
+
+def srcnn_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """Flax ``SRCNN`` / ``SRCNN_TL`` -> ``models.srcnn`` (torch_import.py:407-418)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: StateDict = {}
+    for i in (1, 2, 3):
+        _conv(sd, p[f"conv{i}"], f"conv{i}")
+    if "infoGen" in p:
+        _infogen(sd, p, s)
+    _stn(sd, p, s)
+    return sd
+
+
+def srresnet_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """Flax ``SRResNet`` / ``SRResNet_TL`` -> ``models.srresnet``
+    (torch_import.py:421-446)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: StateDict = {}
+    _conv(sd, p["block1_conv"], "block1.0")
+    _prelu(sd, p["block1_prelu"], "block1.1")
+    for i in range(2, 7):
+        bp, bs = p[f"block{i}"], s[f"block{i}"]
+        _conv(sd, bp["conv1"], f"block{i}.conv1")
+        _bn(sd, bp["bn1"], bs["bn1"], f"block{i}.bn1")
+        _prelu(sd, bp["prelu"], f"block{i}.prelu")
+        _conv(sd, bp["conv2"], f"block{i}.conv2")
+        _bn(sd, bp["bn2"], bs["bn2"], f"block{i}.bn2")
+    _conv(sd, p["block7_conv"], "block7.0")
+    _bn(sd, p["block7_bn"], s["block7_bn"], "block7.1")
+    j = 0
+    while f"block8_up{j}" in p:
+        _conv(sd, p[f"block8_up{j}"]["conv"], f"block8.{j}.conv")
+        _prelu(sd, p[f"block8_up{j}"]["prelu"], f"block8.{j}.prelu")
+        j += 1
+    _conv(sd, p["block8_conv"], f"block8.{j}")
+    if "infoGen" in p:
+        _infogen(sd, p, s)
+    _stn(sd, p, s)
+    return sd
+
+
+def rdn_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """Flax ``RDN`` / ``RDN_TL`` -> ``models.rdn`` (torch_import.py:449-467)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: StateDict = {}
+    for name in ("conv1", "conv2"):
+        _conv(sd, p[name], name)
+    for k in (1, 2, 3):
+        i = 0
+        while f"dense{i}" in p[f"RDB{k}"]:
+            _conv(sd, p[f"RDB{k}"][f"dense{i}"]["conv"], f"RDB{k}.dense_layers.{i}.conv")
+            i += 1
+        _conv(sd, p[f"RDB{k}"]["conv_1x1"], f"RDB{k}.conv_1x1")
+    for name in ("GFF_1x1", "GFF_3x3", "conv_up", "conv3"):
+        _conv(sd, p[name], name)
+    if "infoGen" in p:
+        _infogen(sd, p, s)
+    return sd
+
+
+def sr_state_dict(arch: str, variables: Mapping[str, Any], srb_nums: int = 5) -> StateDict:
+    """The SR model of a ported ``arch``: the dispatch of
+    ``import_sr_checkpoint`` (torch_import.py:620-647), inverted."""
+    if arch.startswith("tsrn"):
+        return tsrn_state_dict(variables, srb_nums)
+    for prefix, convert in (("srcnn", srcnn_state_dict), ("srres", srresnet_state_dict), ("rdn", rdn_state_dict)):
+        if arch.startswith(prefix):
+            return convert(variables)
+    raise ValueError(f"no converter for arch {arch!r}")
 
 
 def _stn_head(sd: StateDict, p: Mapping, s: Mapping, prefix: str) -> None:

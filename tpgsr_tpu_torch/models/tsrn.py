@@ -1,33 +1,35 @@
-"""TSRN_TL, the text-prior-guided SR backbone (counterpart of
-tpgsr_tpu/models/tsrn.py:42-226; reference model/tsrn.py:81-215).
+"""TSRN and TSRN_TL, the recurrent SR backbones (counterpart of
+tpgsr_tpu/models/tsrn.py:42-226; reference model/tsrn.py:18-215).
 
 NCHW, with the reference's keys: ``block1.{0,1}``, ``block{2..srb+1}.*``,
-``infoGen.*``, ``block{srb+2}.{0,1}``, ``block{srb+3}.{j}.conv`` and the final
-``block{srb+3}.{ups}`` conv.  The head is the original form (upsample conv,
-PixelShuffle, mish, 9x9 conv at HR), which equals the JAX package's fused
-5x5 LR head exactly.
+``infoGen.*`` (TSRN_TL), ``block{srb+2}.{0,1}``, ``block{srb+3}.{j}.conv``
+and the final ``block{srb+3}.{ups}`` conv.  The head is the original form
+(upsample conv, PixelShuffle, mish, 9x9 conv at HR), which equals the JAX
+package's fused 5x5 LR head exactly.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from tpgsr_tpu_torch.models.layers import GruBlock, UpsampleBlock, mish
+from tpgsr_tpu_torch.models.prior import TSRN_PADDINGS, InfoGenP
 from tpgsr_tpu_torch.models.stn import STNHead, TPSSpatialTransformer
 from tpgsr_tpu_torch.ops.resize import interpolate_bilinear
 
 
-class RecurrentResidualBlockTL(nn.Module):
-    """conv-BN-mish-conv-BN, concatenate the prior map, BiGRU over H (the
-    H/W transpose around ``gru1``), then BiGRU over W on x + residual
-    (reference model/tsrn.py:397-426)."""
+class RecurrentResidualBlock(nn.Module):
+    """conv-BN-mish-conv-BN, BiGRU over H on the residual (the H/W transpose
+    around ``gru1``), then BiGRU over W on x + residual (reference
+    model/tsrn.py:373-394).  With ``text_channels`` the prior map is
+    concatenated to the residual before ``gru1`` (model/tsrn.py:397-426)."""
 
-    def __init__(self, channels: int, text_channels: int):
+    def __init__(self, channels: int, text_channels: int = 0):
         super().__init__()
         self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
         self.bn1 = nn.BatchNorm2d(channels)
@@ -36,60 +38,57 @@ class RecurrentResidualBlockTL(nn.Module):
         self.bn2 = nn.BatchNorm2d(channels)
         self.gru2 = GruBlock(channels, channels)
 
-    def forward(self, x: torch.Tensor, text_emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, text_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
         residual = mish(self.bn1(self.conv1(x)))
         residual = self.bn2(self.conv2(residual))
-        cat = torch.cat([residual, text_emb], 1)
-        residual = self.gru1(cat.transpose(-1, -2)).transpose(-1, -2)
+        if text_emb is not None:
+            residual = torch.cat([residual, text_emb], 1)
+        residual = self.gru1(residual.transpose(-1, -2)).transpose(-1, -2)
         return self.gru2(x + residual)
 
 
-class InfoGen(nn.Module):
-    """Lift the [B, t_emb, 1, T] prior to a [B, output_size, 1, 8T-5] map with
-    4 ConvTranspose-BN-ReLU stages (paddings as tpgsr_tpu/models/tsrn.py:93-103)."""
+class RecurrentResidualBlockTL(RecurrentResidualBlock):
+    """The recurrent block that takes the prior map."""
 
-    def __init__(self, t_emb: int, output_size: int):
-        super().__init__()
-        self.tconv1 = nn.ConvTranspose2d(t_emb, 512, 3, 2, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(512)
-        self.tconv2 = nn.ConvTranspose2d(512, 128, 3, 2, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(128)
-        self.tconv3 = nn.ConvTranspose2d(128, 64, 3, 2, padding=1, bias=False)
-        self.bn3 = nn.BatchNorm2d(64)
-        self.tconv4 = nn.ConvTranspose2d(64, output_size, 3, (2, 1), padding=(1, 0), bias=False)
-        self.bn4 = nn.BatchNorm2d(output_size)
-
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.tconv1(t)))
-        x = F.relu(self.bn2(self.tconv2(x)))
-        x = F.relu(self.bn3(self.tconv3(x)))
-        return F.relu(self.bn4(self.tconv4(x)))
+    def __init__(self, channels: int, text_channels: int):
+        super().__init__(channels, text_channels)
 
 
-class TSRN_TL(nn.Module):
-    """TSRN with text-prior fusion (archs tsrn_tl / tsrn_tl_cascade).
+# the reference's InfoGen of TSRN (model/tsrn.py:81-108)
+InfoGen = functools.partial(InfoGenP, paddings=TSRN_PADDINGS)
+# TSRN_TL fuses the prior in SRBs 2..6 only; plain SRBs follow
+# (tpgsr_tpu/models/tsrn.py:199-207)
+TL_BLOCKS = 5
+
+
+class TSRN(nn.Module):
+    """Baseline TSRN (arch tsrn): ``srb_nums`` plain recurrent blocks.
 
     With ``stn=True`` the STN head and the TPS transformer rectify the input
     in train mode, at (height, width) / scale, before ``block1``; eval skips
-    them (tpgsr_tpu/models/tsrn.py:179-184)."""
+    them (tpgsr_tpu/models/tsrn.py:126-131)."""
 
     def __init__(self, scale_factor: int = 2, width: int = 128, height: int = 32, stn: bool = False,
-                 srb_nums: int = 5, mask: bool = True, hidden_units: int = 32, text_emb: int = 37,
-                 out_text_channels: int = 32):
+                 srb_nums: int = 5, mask: bool = True, hidden_units: int = 32):
         super().__init__()
-        if srb_nums > 5:
-            # the reference fuses the prior in blocks 2..6 only; plain SRBs
-            # beyond them come with the TSRN port
-            raise NotImplementedError("TSRN_TL with more than 5 SRBs")
+        self._build(scale_factor, width, height, stn, srb_nums, mask, hidden_units)
+
+    def _build(self, scale_factor, width, height, stn, srb_nums, mask, hidden_units, text_emb=0,
+               out_text_channels=0):
+        """Register the trunk in the reference's order; with ``text_emb`` the
+        first ``TL_BLOCKS`` SRBs take the prior and ``infoGen`` follows the
+        SRBs."""
         self.in_planes = 4 if mask else 3
         self.stn = stn
         self.srb_nums = srb_nums
-        self.text_emb = text_emb
         ch = 2 * hidden_units
         self.block1 = nn.Sequential(nn.Conv2d(self.in_planes, ch, 9, padding=4), nn.PReLU())
         for i in range(srb_nums):
-            setattr(self, f"block{i + 2}", RecurrentResidualBlockTL(ch, out_text_channels))
-        self.infoGen = InfoGen(text_emb, out_text_channels)
+            block = (RecurrentResidualBlockTL(ch, out_text_channels) if text_emb and i < TL_BLOCKS
+                     else RecurrentResidualBlock(ch))
+            setattr(self, f"block{i + 2}", block)
+        if text_emb:
+            self.infoGen = InfoGenP(text_emb, out_text_channels, TSRN_PADDINGS)
         setattr(self, f"block{srb_nums + 2}", nn.Sequential(nn.Conv2d(ch, ch, 3, padding=1), nn.BatchNorm2d(ch)))
         head = [UpsampleBlock(ch, 2) for _ in range(int(math.log2(scale_factor)))]
         head.append(nn.Conv2d(ch, self.in_planes, 9, padding=4))
@@ -99,17 +98,40 @@ class TSRN_TL(nn.Module):
             self.tps = TPSSpatialTransformer(lr_size)
             self.stn_head = STNHead(self.in_planes, input_size=lr_size)
 
+    def _rectify(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stn and self.training:
+            x, _ = self.tps(x, self.stn_head(x)[1])
+        return x
+
+    def _trunk(self, x: torch.Tensor, spatial: Optional[torch.Tensor] = None) -> torch.Tensor:
+        block1 = self.block1(x)
+        b = block1
+        for i in range(self.srb_nums):
+            block = getattr(self, f"block{i + 2}")
+            b = block(b, spatial) if isinstance(block, RecurrentResidualBlockTL) else block(b)
+        b = getattr(self, f"block{self.srb_nums + 2}")(b)
+        return torch.tanh(getattr(self, f"block{self.srb_nums + 3}")(block1 + b))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, in_planes, h, w] -> [B, in_planes, 2h, 2w]."""
+        return self._trunk(self._rectify(x))
+
+
+class TSRN_TL(TSRN):
+    """TSRN with text-prior fusion (archs tsrn_tl / tsrn_tl_cascade): SRBs
+    2..6 concatenate the prior map, any beyond them are plain."""
+
+    def __init__(self, scale_factor: int = 2, width: int = 128, height: int = 32, stn: bool = False,
+                 srb_nums: int = 5, mask: bool = True, hidden_units: int = 32, text_emb: int = 37,
+                 out_text_channels: int = 32):
+        nn.Module.__init__(self)
+        self.text_emb = text_emb
+        self._build(scale_factor, width, height, stn, srb_nums, mask, hidden_units, text_emb, out_text_channels)
+
     def forward(self, x: torch.Tensor, text_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, in_planes, h, w], text_emb [B, 37, 1, T] -> [B, in_planes, 2h, 2w]."""
-        if self.stn and self.training:
-            _, ctrl = self.stn_head(x)
-            x, _ = self.tps(x, ctrl)
-        block1 = self.block1(x)
+        x = self._rectify(x)
         if text_emb is None:
             text_emb = x.new_zeros(x.shape[0], self.text_emb, 1, 26)
         spatial = interpolate_bilinear(self.infoGen(text_emb), (x.shape[2], x.shape[3]), align_corners=True)
-        b = block1
-        for i in range(self.srb_nums):
-            b = getattr(self, f"block{i + 2}")(b, spatial)
-        b = getattr(self, f"block{self.srb_nums + 2}")(b)
-        return torch.tanh(getattr(self, f"block{self.srb_nums + 3}")(block1 + b))
+        return self._trunk(x, spatial)

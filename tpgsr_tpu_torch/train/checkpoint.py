@@ -8,7 +8,8 @@ Files, with the JAX package's names and rules for when each is written:
   best: ``{"state_dict_G", "info", "best_history_res", "best_model_info",
   "param_num", "converge"}`` for SR stage i, as the original saves them;
 * ``recognizer_<i>.pth`` at every save, ``recognizer_best_<i>.pth`` on a new
-  best: student i's plain ``state_dict``;
+  best: student i's plain ``state_dict`` (none for an arch without a prior,
+  which has no students);
 * ``opt_state.pth``: Adam's ``state_dict`` (the original drops it; the JAX
   package keeps it, so a resume continues exactly);
 * ``info.json``: the info dict with ``step``, ``param_num`` and

@@ -1,4 +1,4 @@
-"""The train state of the text-prior cascade (counterpart of tpgsr_tpu/train/state.py).
+"""The train state of the SR zoo (counterpart of tpgsr_tpu/train/state.py).
 
 Plain PyTorch objects in place of the JAX package's functional state:
 
@@ -10,6 +10,10 @@ Plain PyTorch objects in place of the JAX package's functional state:
 * one ``torch.optim.Adam(lr=1e-3, betas=(0.5, 0.999))`` over the SR and
   student parameters (reference interfaces/base.py:447-449, the YAML's
   TRAIN.lr and beta1);
+
+an arch without a prior has no students and no teacher (``stu`` empty,
+``teacher`` None; tpgsr_tpu/train/state.py:67-117 with ``n_stu=0``), and
+Adam covers its SR model alone;
 * ``step``, the count of optimizer steps.
 
 ``clip_sr_grads`` clips each SR model's gradients at global norm 0.25 and
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -34,18 +38,24 @@ SR_CLIP_NORM = 0.25
 class TrainState:
     sr: List[nn.Module]
     stu: List[nn.Module]
-    teacher: nn.Module
+    teacher: Optional[nn.Module]
     optimizer: torch.optim.Optimizer
     step: int = 0
 
 
-def create_train_state(sr: Sequence[nn.Module], teacher: nn.Module, n_stu: int = 1, lr: float = LR,
+def create_train_state(sr: Sequence[nn.Module], teacher: Optional[nn.Module], n_stu: int = 1, lr: float = LR,
                        beta1: float = BETA1) -> TrainState:
     """The state for ``sr`` and ``n_stu`` students copied from ``teacher``,
-    all on the teacher's device; Adam at ``lr`` and ``beta1`` (the YAML's
-    TRAIN.lr and beta1)."""
-    teacher.eval().requires_grad_(False)
-    stu = [copy.deepcopy(teacher).train().requires_grad_(True) for _ in range(n_stu)]
+    all on the teacher's device (no teacher and ``n_stu=0`` for an arch
+    without a prior); Adam at ``lr`` and ``beta1`` (the YAML's TRAIN.lr and
+    beta1)."""
+    if teacher is None:
+        if n_stu:
+            raise ValueError(f"{n_stu} students need a teacher to copy")
+        stu = []
+    else:
+        teacher.eval().requires_grad_(False)
+        stu = [copy.deepcopy(teacher).train().requires_grad_(True) for _ in range(n_stu)]
     for m in stu:  # a copy's LSTM weights are no longer one cuDNN block
         for rnn in m.modules():
             if isinstance(rnn, nn.RNNBase):

@@ -1,23 +1,27 @@
-"""The train and eval steps of the text-prior cascade (counterpart of
-tpgsr_tpu/train/step.py:113-398, ``tsrn_tl_cascade`` branch, CRNN recognizer).
+"""The train and eval steps of the SR zoo (counterpart of
+tpgsr_tpu/train/step.py:47-398: the cascade branch for the ``ABLATION_SET``
+archs and the plain branch for the archs without a prior; CRNN recognizer).
 
-Each stage runs the student CRNN on the previous stage's image (the LR at
-stage 0), turns its logits into the prior, and runs TSRN_TL on the LR with
-that prior.  In eval the frozen teacher CRNN then reads SR, LR, HR and each
-earlier stage's SR for the word accuracies: what ``TextSR.test()`` and
-``demo()`` serve (tpgsr_tpu/train/trainer.py:736-800).  In training the
-teacher's softmax on HR is the distillation target, and the step ends with
-backward, the SR clip and Adam.
+Cascade archs: each stage runs the student CRNN on the previous stage's
+image (the LR at stage 0), turns its logits into the prior, and runs the SR
+model on the LR with that prior.  Plain archs run the SR model on the LR
+alone.  In eval a frozen CRNN then reads SR, LR, HR and each earlier stage's
+SR for the word accuracies: the teacher of a cascade arch, the explicit eval
+recognizer (``EvalModels.rec``) of a plain one.  That is what
+``TextSR.test()`` and ``demo()`` serve (tpgsr_tpu/train/trainer.py:736-800).
+In training the cascade's teacher reads HR, and its softmax is the
+distillation target; the step ends with backward, the SR clip and Adam.
 
 Batches are NHWC numpy arrays or tensors (a loader's, pinned), float in
 [0, 1] or uint8 (the compact wire, divided by 255 on the device): ``hr``
-[B, 2h, 2w, 4], ``lr`` [B, h, w, 4].  With ``mask`` a uint8 batch may carry
+[B, 2h, 2w, C], ``lr`` [B, h, w, C].  With ``mask`` a uint8 batch may carry
 RGB only, and the steps append the contour mask on the device
-(``_ensure_mask``).  The train step also reads ``ctc_labels``,
-``ctc_lengths`` and ``weighted_tics`` under ``use_label``; only the keys of
-``train_wire_keys`` cross to the device.  Outputs keep the JAX layouts:
-``sr`` NHWC, per-sample ``mse`` and ``ssim`` [B], logits [T, B, C].  Only
-the ``tsrn_tl_cascade`` arch is ported; the factories raise for any other.
+(``_ensure_mask``).  The SR model reads the first ``ArchSpec.in_channels``
+of the LR, and its loss the same channels of the HR.  The cascade's train
+step also reads ``ctc_labels``, ``ctc_lengths`` and ``weighted_tics`` under
+``use_label``; only the keys of ``train_wire_keys`` cross to the device.
+Outputs keep the JAX layouts: ``sr`` NHWC, per-sample ``mse`` and ``ssim``
+[B], logits [T, B, C].
 
 The train step runs in TRAIN.compute_dtype, 'fp32' or 'bf16'
 (tpgsr_tpu/train/step.py:142-146): in bf16 the models run under
@@ -30,15 +34,15 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from tpgsr_tpu_torch.device import DeviceLike, resolve_device
-from tpgsr_tpu_torch.losses import image_loss, semantic_loss
-from tpgsr_tpu_torch.models.registry import check_arch
+from tpgsr_tpu_torch.losses import image_loss, l1_loss, mse_loss, semantic_loss
+from tpgsr_tpu_torch.models.registry import ABLATION_SET, check_arch
 from tpgsr_tpu_torch.ops.ctc import ctc_loss
 from tpgsr_tpu_torch.ops.image import append_contour_mask_u8, ssim
 from tpgsr_tpu_torch.train.priors import logits_to_prior, parse_crnn_data, prior_dropout_first_quarter
@@ -48,16 +52,25 @@ from tpgsr_tpu_torch.train.state import TrainState, clip_sr_grads
 @dataclass
 class EvalModels:
     """SR models (one per stage, or one with ``sr_share``), student CRNNs
-    (one per stage, or one with ``tpg_share``) and the frozen teacher CRNN."""
+    (one per stage, or one with ``tpg_share``; none for a plain arch), the
+    frozen teacher CRNN (None for a plain arch) and the eval recognizer
+    ``rec``, a CRNN that reads SR, LR and HR in place of the teacher: a plain
+    arch has no teacher and needs one (tpgsr_tpu/train/step.py:318-346)."""
 
     sr: Sequence[nn.Module]
     stu: Sequence[nn.Module]
-    teacher: nn.Module
+    teacher: Optional[nn.Module]
+    rec: Optional[nn.Module] = None
 
     def eval(self) -> "EvalModels":
-        for m in (*self.sr, *self.stu, self.teacher):
-            m.eval()
+        for m in (*self.sr, *self.stu, self.teacher, self.rec):
+            if m is not None:
+                m.eval()
         return self
+
+    @property
+    def recognizer(self) -> nn.Module:
+        return self.rec if self.rec is not None else self.teacher
 
 
 def crnn_width(cfg_width: int) -> int:
@@ -114,9 +127,20 @@ def _as_image(arr, dev: torch.device, want_mask: bool = False, dtype: torch.dtyp
 def train_wire_keys(arch: str = "tsrn_tl_cascade") -> frozenset:
     """The batch keys the train step reads, the only ones it copies to the
     device (tpgsr_tpu/train/step.py:85-98): the collate's ``label_vecs`` and
-    ``labels`` stay on the host."""
+    ``labels`` stay on the host, and a plain arch reads the images alone."""
     check_arch(arch)
-    return frozenset({"hr", "lr", "ctc_labels", "ctc_lengths", "weighted_tics"})
+    if arch in ABLATION_SET:
+        return frozenset({"hr", "lr", "ctc_labels", "ctc_lengths", "weighted_tics"})
+    return frozenset({"hr", "lr"})
+
+
+def image_crit(kind: str, gradient: bool) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """An arch's image loss (tpgsr_tpu/train/step.py:47-56): ``image`` (with
+    the gradient prior under ``gradient``), ``mse`` or ``l1``; ``gradient``
+    does nothing for the last two."""
+    if kind == "image":
+        return lambda sr, hr: image_loss(sr, hr, gradient=gradient)
+    return {"mse": mse_loss, "l1": l1_loss}[kind]
 
 
 EvalStep = Callable[[EvalModels, Mapping[str, np.ndarray]], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -127,9 +151,12 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
 
     ``args`` reads ``arch``, ``stu_iter``, ``sr_share``, ``tpg_share`` and
     ``mask`` as the CLI names them; ``width`` is TRAIN.width (it sets the
-    CRNN input width).  The batch's ``hr`` and ``lr`` go to ``device`` (the
-    card unless told otherwise)."""
-    check_arch(args.get("arch", "tsrn_tl_cascade"))
+    CRNN input width).  A cascade arch runs ``stu_iter`` stages, a plain one
+    its SR model on the LR (tpgsr_tpu/train/step.py:354-379).  The batch's
+    ``hr`` and ``lr`` go to ``device`` (the card unless told otherwise)."""
+    arch = args.get("arch", "tsrn_tl_cascade")
+    in_ch = check_arch(arch).in_channels
+    cascade_arch = arch in ABLATION_SET
     dev = resolve_device(device)
     want_mask = bool(args.get("mask", False))
     stu_iter = int(args.get("stu_iter", 1))
@@ -138,20 +165,22 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
     cw = crnn_width(int(width))
 
     def recognize(models: EvalModels, img: torch.Tensor) -> torch.Tensor:
-        return models.teacher(_nchw(parse_crnn_data(img, cw)))
+        return models.recognizer(_nchw(parse_crnn_data(img, cw)))
 
     @torch.no_grad()
     def eval_step(models: EvalModels, batch: Mapping[str, np.ndarray]):
         hr, lr = _as_image(batch["hr"], dev, want_mask), _as_image(batch["lr"], dev, want_mask)
-        cascade = lr
+        lr_in = _nchw(lr[..., :in_ch])
         sr_list = []
-        for i in range(stu_iter):
-            stu = models.stu[0 if tpg_share else i]
-            prior = logits_to_prior(stu(_nchw(parse_crnn_data(cascade, cw))))
-            sr_model = models.sr[0 if sr_share else i]
-            sr_out = _nhwc(sr_model(_nchw(lr[..., : sr_model.in_planes]), _nchw(prior)))
-            cascade = sr_out
-            sr_list.append(sr_out)
+        if cascade_arch:
+            cascade = lr
+            for i in range(stu_iter):
+                stu = models.stu[0 if tpg_share else i]
+                prior = logits_to_prior(stu(_nchw(parse_crnn_data(cascade, cw))))
+                cascade = _nhwc(models.sr[0 if sr_share else i](lr_in, _nchw(prior)))
+                sr_list.append(cascade)
+        else:
+            sr_list.append(_nhwc(models.sr[0](lr_in)))
         sr = sr_list[-1]
         diff = (sr[..., :3] - hr[..., :3]) * 255.0
         outs = {
@@ -178,21 +207,23 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
     """``train_step(state, batch) -> metrics``, one optimizer step with the
     models in ``compute_dtype`` ('fp32' or 'bf16', TRAIN.compute_dtype).
 
-    Follows tpgsr_tpu/train/step.py:148-279 for ``tsrn_tl_cascade``: the
-    teacher reads HR without grad; each stage runs its student in train mode
-    on the previous stage's image, adds the mean of its CTC loss against the
-    batch's labels times ``weighted_tics`` (``use_label``) and
-    ``semantic_loss x 100`` against the teacher (``use_distill``), both to
-    ``loss_distill``, zeroes the prior of the first B // 4 samples,
-    runs its SR model in train mode on the LR and adds ``image_loss x 100``
-    (with the gradient prior when ``gradient``).  Gradients flow through the
-    whole cascade; then each SR model is clipped and Adam steps.  BatchNorm
-    running statistics update by torch's own rule.  ``args`` reads ``arch``,
-    ``stu_iter``, ``sr_share``, ``tpg_share``, ``use_label``,
+    Follows tpgsr_tpu/train/step.py:148-279.  A cascade arch
+    (``ABLATION_SET``): the teacher reads HR without grad; each stage runs
+    its student in train mode on the previous stage's image, adds the mean of
+    its CTC loss against the batch's labels times ``weighted_tics``
+    (``use_label``) and ``semantic_loss x 100`` against the teacher
+    (``use_distill``), both to ``loss_distill``, zeroes the prior of the
+    first B // 4 samples, runs its SR model in train mode on the LR and adds
+    the arch's image loss x 100 (``image_crit``).  Gradients flow through the
+    whole cascade.  A plain arch runs its one SR model on the LR: the loss is
+    its image loss x 100, and ``loss_distill`` is 0 whatever ``use_label``
+    and ``use_distill`` say.  Then each SR model is clipped and Adam steps.
+    BatchNorm running statistics update by torch's own rule.  ``args`` reads
+    ``arch``, ``stu_iter``, ``sr_share``, ``tpg_share``, ``use_label``,
     ``use_distill``, ``gradient`` and ``mask`` as the CLI names them;
     ``ssim_loss`` is not ported and raises.  Metrics are detached tensors on
-    the device: ``loss_img_{i}``, ``loss_img``, ``loss_distill``,
-    ``loss_total``.
+    the device: ``loss_img_{i}`` (a cascade's stages), ``loss_img``,
+    ``loss_distill``, ``loss_total``.
 
     In bf16 (tpgsr_tpu/train/step.py:148-201): the batch is divided by 255 in
     fp32 and cast to bf16; every model runs under ``torch.autocast`` in
@@ -200,18 +231,26 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
     softmaxes, CTC and the distillation; the prior is cast to bf16 for the
     SR model; the image loss compares fp32 casts of the bf16 SR output and
     of the bf16 HR.  Parameters, gradients, BatchNorm statistics, the clip
-    and Adam are fp32.  In fp32 every cast is the identity."""
-    wire_keys = train_wire_keys(args.get("arch", "tsrn_tl_cascade"))
+    and Adam are fp32.  In fp32 every cast is the identity.
+
+    The JAX package recomputes each stage in its backward when there are
+    several (``jax.checkpoint``, step.py:191-193); that changes memory, not
+    results, and the port keeps every stage's activations."""
+    arch = args.get("arch", "tsrn_tl_cascade")
+    spec = check_arch(arch)
+    wire_keys = train_wire_keys(arch)
     for name in _NOT_PORTED:
         if args.get(name, False):
             raise NotImplementedError(f"--{name} is not ported to the train step yet (ROADMAP.md queue 1 item 5)")
     dev = resolve_device(device)
+    cascade_arch = arch in ABLATION_SET
+    crit = image_crit(spec.crit, bool(args.get("gradient", False)))
+    in_ch = spec.in_channels
     stu_iter = int(args.get("stu_iter", 1))
     sr_share = bool(args.get("sr_share", False))
     tpg_share = bool(args.get("tpg_share", False))
     use_label = bool(args.get("use_label", False))
     use_distill = bool(args.get("use_distill", False))
-    gradient = bool(args.get("gradient", False))
     want_mask = bool(args.get("mask", False))
     cw = crnn_width(int(width))
     dtype = torch_dtype(compute_dtype)
@@ -220,16 +259,12 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
         with compute_context(dev.type, dtype):
             return model(*inputs)
 
-    def train_step(state: TrainState, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        wire = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True) for k in wire_keys if k in batch}
-        hr, lr = _as_image(wire["hr"], dev, want_mask, dtype), _as_image(wire["lr"], dev, want_mask, dtype)
-        for m in (*state.sr, *state.stu):
-            m.train()
-        state.optimizer.zero_grad(set_to_none=True)
+    def image_term(sr_out: torch.Tensor, hr: torch.Tensor) -> torch.Tensor:
+        return crit(sr_out.float(), hr[..., :in_ch].float()) * 100.0
+
+    def cascade_losses(state: TrainState, wire, hr, lr, metrics):
         with torch.no_grad():
             target = torch.softmax(run(state.teacher, _nchw(parse_crnn_data(hr, cw))).float(), -1)
-
-        metrics: Dict[str, torch.Tensor] = {}
         loss_img = lr.new_zeros((), dtype=torch.float32)
         loss_distill = lr.new_zeros((), dtype=torch.float32)
         cascade = lr
@@ -241,13 +276,25 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
             if use_distill:
                 loss_distill = loss_distill + semantic_loss(torch.softmax(logits, -1), target) * 100.0
             prior = prior_dropout_first_quarter(logits_to_prior(logits)).to(dtype)
-            sr_model = state.sr[0 if sr_share else i]
-            planes = sr_model.in_planes
-            sr_out = _nhwc(run(sr_model, _nchw(lr[..., :planes]), _nchw(prior)))
-            loss_each = image_loss(sr_out.float(), hr[..., :planes].float(), gradient=gradient) * 100.0
+            sr_out = _nhwc(run(state.sr[0 if sr_share else i], _nchw(lr[..., :in_ch]), _nchw(prior)))
+            loss_each = image_term(sr_out, hr)
             loss_img = loss_img + loss_each
             metrics[f"loss_img_{i}"] = loss_each.detach()
             cascade = sr_out
+        return loss_img, loss_distill
+
+    def train_step(state: TrainState, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        wire = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True) for k in wire_keys if k in batch}
+        hr, lr = _as_image(wire["hr"], dev, want_mask, dtype), _as_image(wire["lr"], dev, want_mask, dtype)
+        for m in (*state.sr, *state.stu):
+            m.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        metrics: Dict[str, torch.Tensor] = {}
+        if cascade_arch:
+            loss_img, loss_distill = cascade_losses(state, wire, hr, lr, metrics)
+        else:
+            loss_img = image_term(_nhwc(run(state.sr[0], _nchw(lr[..., :in_ch]))), hr)
+            loss_distill = torch.zeros_like(loss_img)
         loss = loss_img + loss_distill
         loss.backward()
         clip_sr_grads(state.sr)

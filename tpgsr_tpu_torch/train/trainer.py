@@ -167,8 +167,6 @@ def check_ported(config: AttrDict, args: Mapping, device: torch.device) -> None:
     torch_dtype(t.get("compute_dtype", "fp32"))  # raises ValueError for a value that is neither fp32 nor bf16
     if int(t.get("n_devices", 0) or 0) > 1:
         missing(f"TRAIN.n_devices {t.n_devices}: data parallelism over several cards", "queue 1 item 10")
-    if int(args.get("srb", 5)) > 5:
-        missing(f"--srb {args['srb']}: TSRN_TL with plain SRBs beyond the fifth", "queue 1 item 7")
     if args.get("tpg", "CRNN") != "CRNN":
         missing(f"--tpg {args['tpg']}", "queue 1 item 8")
     if str(args.get("test_model") or "CRNN") != "CRNN":
@@ -179,7 +177,8 @@ def check_ported(config: AttrDict, args: Mapping, device: torch.device) -> None:
         if args.get(flag):
             missing(f"--{flag}", "queue 1 item 9")
     hidden = int(args.get("hd_u", 32))
-    if device.type == "cuda" and hidden not in SUPPORTED_HIDDEN:
+    # only the TSRN family runs K1; the other backbones read no --hd_u
+    if device.type == "cuda" and args["arch"].startswith("tsrn") and hidden not in SUPPORTED_HIDDEN:
         missing(f"--hd_u {hidden} on the card (K1 takes hidden sizes {SUPPORTED_HIDDEN})", "queue 2 item 3")
 
 
@@ -208,9 +207,12 @@ class TextSR:
         self.vis_dir = args.get("vis_dir") or self.arch
         self.ckpt_dir = os.path.join(self.config.TRAIN.ckpt_dir, self.vis_dir)
         self.stu_iter = int(args.get("stu_iter", 1))
-        self.n_sr = 1 if args.get("sr_share") else self.stu_iter
-        self.n_stu = 1 if args.get("tpg_share") else self.stu_iter
+        # a plain arch trains one SR model and no students (trainer.py:195-198)
+        self.is_tl = self.arch in ABLATION_SET or self.arch in TL_SIMPLE
+        self.n_sr = (1 if args.get("sr_share") else self.stu_iter) if self.is_tl else 1
+        self.n_stu = (1 if args.get("tpg_share") else self.stu_iter) if self.is_tl else 0
         self._state: Optional[TrainState] = None
+        self._rec: Optional[CRNN] = None
         self._train_step: Optional[Callable] = None
         self._eval_step: Optional[Callable] = None
 
@@ -246,16 +248,28 @@ class TextSR:
             init_torch_defaults_(teacher, gen)
         return teacher
 
+    def _eval_recognizer(self) -> Optional[CRNN]:
+        """A plain arch's eval CRNN, which its state lacks: loaded as the
+        teacher is, or drawn from its own seed, 7, as the JAX package draws
+        it from its own key (tpgsr_tpu/train/trainer.py:440-457); built once,
+        frozen, on the device.  None for a cascade arch: its teacher reads
+        the images."""
+        if self.is_tl:
+            return None
+        if self._rec is None:
+            self._rec = self._teacher(torch.Generator().manual_seed(7)).to(self.device).eval().requires_grad_(False)
+        return self._rec
+
     def init_state(self) -> TrainState:
-        """SR models drawn from TRAIN.manualSeed (then the teacher, when it is
-        not loaded), students copied from the teacher, Adam; then
+        """SR models drawn from TRAIN.manualSeed (then a cascade arch's
+        teacher, when it is not loaded), students copied from the teacher, Adam; then
         ``--resume`` (or TRAIN.resume): the periodic files, Adam and the
         step, or for an eval-only run the best files alone."""
         t = self.config.TRAIN
         gen = torch.Generator().manual_seed(int(t.get("manualSeed", 1234)))
         a, cfg = registry_dicts(self.config, self.args)
-        sr = [init_torch_defaults_(build_model(self.arch, a, cfg), gen).to(self.device) for _ in range(self.n_sr)]
-        teacher = self._teacher(gen).to(self.device)
+        sr = [init_torch_defaults_(build_model(self.arch, a, cfg)[0], gen).to(self.device) for _ in range(self.n_sr)]
+        teacher = self._teacher(gen).to(self.device) if self.is_tl else None
         state = create_train_state(sr, teacher, n_stu=self.n_stu, lr=float(t.lr), beta1=float(t.beta1))
         resume = self.args.get("resume") or t.get("resume")
         if resume:
@@ -272,8 +286,8 @@ class TextSR:
             self._eval_step = make_eval_step(self.args, width, device=self.device)
 
     @staticmethod
-    def _eval_models(state: TrainState) -> EvalModels:
-        return EvalModels(sr=state.sr, stu=state.stu, teacher=state.teacher).eval()
+    def _eval_models(state: TrainState, rec: Optional[CRNN] = None) -> EvalModels:
+        return EvalModels(sr=state.sr, stu=state.stu, teacher=state.teacher, rec=rec).eval()
 
     # ----------------------------------------------------------------- train
     def train(self):
@@ -352,7 +366,7 @@ class TextSR:
                  iters: int) -> Dict[str, Dict[str, float]]:
         """Evaluate every val split; {split: metric_dict} in order."""
         t = self.config.TRAIN
-        models = self._eval_models(state)
+        models = self._eval_models(state, self._eval_recognizer())
         kw = {"vis_dir": self.vis_dir, "n_vis": int(t.VAL.get("n_vis", 10))} if self.args.get("go_test") else {}
         mds = {}
         for d, loader in zip(t.VAL.val_data_dir, val_data):
@@ -373,7 +387,7 @@ class TextSR:
         (loader,) = self.get_val_data([self.config.TEST.test_data_dir])
         state = self._state if self._state is not None else self.init_state()
         self._build_steps(with_train=False)
-        models = self._eval_models(state)
+        models = self._eval_models(state, self._eval_recognizer())
         evaluate(self._eval_step, models, loader, max_batches=1)
         t0 = time.time()
         md = evaluate(self._eval_step, models, loader)
@@ -388,7 +402,7 @@ class TextSR:
         t = self.config.TRAIN
         state = self._state if self._state is not None else self.init_state()
         self._build_steps(with_train=False)
-        models = self._eval_models(state)
+        models = self._eval_models(state, self._eval_recognizer())
         size = (int(t.width) // self.scale_factor, int(t.height) // self.scale_factor)
         preds = []
         t0 = time.time()
