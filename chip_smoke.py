@@ -90,7 +90,6 @@ import io
 import json
 import os
 import re
-import shlex
 import statistics
 import subprocess
 import sys
@@ -104,7 +103,7 @@ from PIL import Image, ImageDraw
 from tpgsr_tpu_torch import cli, entry
 from tpgsr_tpu_torch.charset import CTC_CHAR_TO_ID
 from tpgsr_tpu_torch.bench_k1 import device_ms, ptxas_report
-from tpgsr_tpu_torch.config import AttrDict, build_arg_parser, load_config
+from tpgsr_tpu_torch.config import AttrDict, build_arg_parser, load_config, script_argv
 from tpgsr_tpu_torch.data.datasets import ConcatDataset, TextZoomDataset
 from tpgsr_tpu_torch.data.lmdb import write_lmdb
 from tpgsr_tpu_torch.data.loader import EpochBatchSampler
@@ -1312,11 +1311,9 @@ ZOO_CLI_SCRIPTS = ("train_TSRN.sh", "train_TPGSR-SRResNet.sh")
 ZOO_EVAL_BATCHES = 4
 
 
-def script_argv(name: str):
-    """The flags of a one-line ``python3 main.py ...`` script of the checkout,
-    as the shell splits them, without its ``--vis_dir``."""
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), name)) as f:
-        argv = shlex.split(f.read().strip())[2:]
+def zoo_argv(name: str):
+    """The flags of the checkout's script ``name``, without its ``--vis_dir``."""
+    argv = script_argv(os.path.join(os.path.dirname(os.path.abspath(__file__)), name))
     return [a for a in argv if not a.startswith("--vis_dir")]
 
 
@@ -1338,9 +1335,16 @@ def zoo_card_vs_cpu(argv, batch):
     """(a) The eval step, then one fp32 train step, on the card and on the CPU
     from the same weights and batch: ``sr`` at 5e-4, ``mse`` and ``ssim`` at
     1e-4, logits at 2e-4 and their strings equal (phase 4's bounds); the
-    losses at rtol 1e-5, each gradient at 5e-3 of its own norm (3e-2 in a
-    student) and of its model's, the pre-BN biases at 1e-4 of their model's
-    norm, the BatchNorm statistics at rtol 1e-4 (phase 7's bounds)."""
+    losses at rtol 1e-5, each model's gradient at 5e-3 of its norm (3e-2 in
+    a student), the pre-BN biases at 1e-4 of their model's norm, the
+    BatchNorm statistics at rtol 1e-4 (phase 7's bounds); each other
+    gradient at 5e-3 (3e-2) of its own norm plus 1e-6 of its model's.  The
+    floor is for the few tensors whose gradient is a sum that cancels to a
+    sliver of the model's: SRResNet's PReLU slopes after BatchNorm come to
+    1.5e-5 of the model's norm, and fp32 lies 9.7e-4 of their own norm
+    from fp64 on the CPU at batch 16 (a one-off measurement), so cuDNN's and
+    oneDNN's convolutions, whose noise feeds those sums, can part them by
+    1e-2 of their norm while the model's gradients agree to 1e-5."""
     card, card_state, card_models = zoo_mission(argv, "cuda")
     cpu, cpu_state, cpu_models = zoo_mission(argv, "cpu")
     out = {}
@@ -1371,12 +1375,16 @@ def zoo_card_vs_cpu(argv, batch):
         diff = float(torch.sqrt(sum((ga[k] - gb[k]).pow(2).sum() for k in gb if not PRE_BN_BIAS.search(k))))
         check(diff <= tol * total, f"train {name}: gradient rel err {diff / total:.3g} > {tol}")
         out[f"{name}_grad_rel_err"] = diff / total
+        worst = 0.0
         for k in gb:
             if PRE_BN_BIAS.search(k):
                 check(float(ga[k].norm()) <= 1e-4 * total, f"train {name}.{k}: pre-BN bias gradient not ~0")
                 continue
-            rel = float((ga[k] - gb[k]).norm()) / max(float(gb[k].norm()), 1e-30)
-            check(rel <= tol, f"train {name}.{k}: gradient rel err {rel:.3g} > {tol}")
+            err, own = float((ga[k] - gb[k]).norm()), float(gb[k].norm())
+            check(err <= tol * own + 1e-6 * total, f"train {name}.{k}: gradient err {err:.3g} > {tol} x its norm "
+                  f"{own:.3g} + 1e-6 x the model's {total:.3g}")
+            worst = max(worst, err / max(own, 1e-30))
+        out[f"{name}_worst_tensor_rel_err"] = worst
         sa, sb = a.state_dict(), b.state_dict()
         for k in sb:
             if "running" in k:
@@ -1440,7 +1448,7 @@ def zoo_cli(root: str, script: str, train_dirs, val_dirs):
     config_path = f"{root}/zoo_{name}.yaml"
     with open(config_path, "w") as f:
         json.dump(cfg, f)  # JSON is YAML
-    argv = script_argv(script) + ["--vis_dir", f"zoo_{name}", "--config", config_path]
+    argv = zoo_argv(script) + ["--vis_dir", f"zoo_{name}", "--config", config_path]
     ckpt_dir = f"{root}/ckpt_zoo/zoo_{name}"
     cwd = os.getcwd()
     os.chdir(root)
@@ -1477,19 +1485,34 @@ def zoo_cli(root: str, script: str, train_dirs, val_dirs):
             "val": val["out"], "k1_launches": gru_seq.LAUNCHES, "k1_backward_launches": gru_seq.BACKWARD_LAUNCHES}
 
 
+def host_load():
+    """The host's 1-minute load average and this process's live children
+    (loader workers of earlier phases): what competes with the steps' host
+    work."""
+    children = 0
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                children += int(f.read().rsplit(")", 1)[1].split()[1]) == os.getpid()
+        except (OSError, IndexError, ValueError):
+            continue
+    return {"loadavg_1min": os.getloadavg()[0], "children": children, "cpus": os.cpu_count()}
+
+
 def phase_zoo(root: str, train_dirs, val_dirs):
     """Phase 13: for each of the seven scripts, (a) card against CPU, (b) fp32
     and bf16 training and eval on the card; (c) the CLI for two of them.
     Returns ``tsrn``'s K1 launches in (b): fp32 and bf16, each (forward,
     backward)."""
     t0 = time.perf_counter()
+    print(json.dumps({"zoo_host": host_load()}), flush=True)
     rng = np.random.default_rng(13)
     check_batch = synthetic_batch(rng, BATCH, labels=False)
     train_batches = [synthetic_batch(rng, BATCH, labels=False) for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
     eval_batches = [synthetic_batch(rng, BATCH) for _ in range(1 + ZOO_EVAL_BATCHES)]
     launches = {}
     for script in ZOO_SCRIPTS:
-        argv = script_argv(script)
+        argv = zoo_argv(script)
         arch = build_arg_parser().parse_args(argv).arch
         s0 = time.perf_counter()
         out = {"script": script, "arch": arch, "batch": BATCH, "card_vs_cpu": zoo_card_vs_cpu(argv, check_batch)}

@@ -14,7 +14,6 @@ a ``crnn.pth`` both packages load."""
 import contextlib
 import json
 import os
-import shlex
 from pathlib import Path
 
 import jax
@@ -72,10 +71,6 @@ def _in_dir(path):
     with pytest.MonkeyPatch.context() as mp:
         mp.chdir(path)
         yield
-
-
-def _script_argv(name):
-    return shlex.split((ROOT / name).read_text().strip())[2:]
 
 
 @pytest.fixture(scope="module")
@@ -209,7 +204,7 @@ def test_cli_runs_each_script_s_flags_on_the_packaged_yaml(shared, tmp_path, scr
     cfg.TRAIN.workers = 0
     yaml_path = tmp_path / "packaged.yaml"
     yaml_path.write_text(json.dumps(cfg))  # JSON is YAML
-    argv = _script_argv(script) + SMALL + ["--config", str(yaml_path)]
+    argv = config.script_argv(str(ROOT / script)) + SMALL + ["--config", str(yaml_path)]
     args = config.AttrDict(vars(config.build_arg_parser().parse_args(argv)))
     vals, losses = [], []
     make, run_val = trainer.make_train_step, trainer.TextSR._run_val

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import shlex
 from typing import Any, Optional
 
 import yaml
@@ -91,6 +92,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--tpg", type=str, default="CRNN", choices=["CRNN", "OPT"])
     p.add_argument("--config", type=str, default="super_resolution.yaml")
     return p
+
+
+def script_argv(path: str) -> list:
+    """The flags of a one-line ``python3 main.py ...`` train script (the
+    repo's ``train_*.sh``), as the shell splits them."""
+    with open(path) as f:
+        return shlex.split(f.read().strip())[2:]
 
 
 def default_args(**overrides: Any) -> AttrDict:

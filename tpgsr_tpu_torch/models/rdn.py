@@ -55,7 +55,6 @@ class RDN(nn.Module):
     def __init__(self, n_channel: int = 3, n_dense: int = 6, n_feat: int = 64, scale_factor: int = 2,
                  growth: int = 32, text_channels: int = 0):
         super().__init__()
-        self.in_planes = n_channel
         self.scale_factor = scale_factor
         self.conv1 = nn.Conv2d(n_channel, n_feat, 3, padding=1)
         self.conv2 = nn.Conv2d(n_feat, n_feat, 3, padding=1)

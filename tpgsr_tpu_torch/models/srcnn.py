@@ -37,7 +37,6 @@ class SRCNN(nn.Module):
                  width: int = 128, text_channels: int = 0):
         super().__init__()
         self.scale_factor = scale_factor
-        self.in_planes = in_planes
         self.stn = stn
         self.conv1 = nn.Conv2d(in_planes + text_channels, 64, 9, padding=4)
         self.conv2 = nn.Conv2d(64 + text_channels, 32, 1)
