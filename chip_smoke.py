@@ -536,6 +536,34 @@ def grads_of(module: torch.nn.Module):
     return {k: p.grad.detach().cpu() for k, p in module.named_parameters() if p.grad is not None}
 
 
+def check_card_grads(name: str, card: torch.nn.Module, cpu: torch.nn.Module, tol: float, floor: float = 0.0):
+    """One model's gradients and BatchNorm statistics after a step, card
+    against CPU: the model's gradient (the pre-BN biases apart) at ``tol`` of
+    its norm; each pre-BN bias's at 1e-4 of the model's norm (zero in exact
+    arithmetic); each other gradient at ``tol`` of its own norm plus
+    ``floor`` of the model's; each running statistic at rtol 1e-4, atol 1e-5.
+    Returns {name: the model's relative error, name.key: each tensor's}."""
+    ga, gb = grads_of(card), grads_of(cpu)
+    check(sorted(ga) == sorted(gb) and len(gb) == len(list(cpu.parameters())), f"{name}: gradients missing")
+    total = float(torch.sqrt(sum(g.pow(2).sum() for g in gb.values())))
+    diff = float(torch.sqrt(sum((ga[k] - gb[k]).pow(2).sum() for k in gb if not PRE_BN_BIAS.search(k))))
+    check(diff <= tol * total, f"train {name}: gradient rel err {diff / total:.3g} > {tol}")
+    errs = {name: diff / total}
+    for k in gb:
+        if PRE_BN_BIAS.search(k):
+            check(float(ga[k].norm()) <= 1e-4 * total, f"train {name}.{k}: pre-BN bias gradient not ~0")
+            continue
+        err, own = float((ga[k] - gb[k]).norm()), float(gb[k].norm())
+        check(err <= tol * own + floor * total, f"train {name}.{k}: gradient err {err:.3g} > {tol} x its norm "
+              f"{own:.3g} + {floor} x the model's {total:.3g}")
+        errs[f"{name}.{k}"] = err / max(own, 1e-30)
+    sa, sb = card.state_dict(), cpu.state_dict()
+    for k in sb:
+        if "running" in k:
+            check(torch.allclose(sa[k].cpu(), sb[k], rtol=1e-4, atol=1e-5), f"train {name}.{k}: BN statistic")
+    return errs
+
+
 def phase_train_card_vs_cpu():
     """One flagship train step from the same seeded weights and numpy batch
     on the card and on the CPU (plain versions).  Gradients are compared, not
@@ -558,26 +586,8 @@ def phase_train_card_vs_cpu():
     for k in m_cpu:
         got, want = float(m_card[k]), float(m_cpu[k])
         check(np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want), f"train {k}: card {got} vs CPU {want}")
-    worst = {}
-    for name, a, b, (tol_each, tol_all) in (("sr", card.sr[0], cpu.sr[0], (5e-3, 5e-3)),
-                                            ("stu", card.stu[0], cpu.stu[0], (3e-2, 3e-2))):
-        ga, gb = grads_of(a), grads_of(b)
-        check(sorted(ga) == sorted(gb) and len(gb) == len(list(b.parameters())), f"{name}: gradients missing")
-        total = float(torch.sqrt(sum(g.pow(2).sum() for g in gb.values())))
-        diff = float(torch.sqrt(sum((ga[k] - gb[k]).pow(2).sum() for k in gb if not PRE_BN_BIAS.search(k))))
-        check(diff <= tol_all * total, f"train {name}: gradient rel err {diff / total:.3g} > {tol_all}")
-        worst[name] = diff / total
-        for k in gb:
-            if PRE_BN_BIAS.search(k):
-                check(float(ga[k].norm()) <= 1e-4 * total, f"train {name}.{k}: pre-BN bias gradient not ~0")
-                continue
-            rel = float((ga[k] - gb[k]).norm()) / max(float(gb[k].norm()), 1e-30)
-            check(rel <= tol_each, f"train {name}.{k}: gradient rel err {rel:.3g} > {tol_each}")
-            worst[f"{name}.{k}"] = rel
-        sa, sb = a.state_dict(), b.state_dict()
-        for k in sb:
-            if "running" in k:
-                check(torch.allclose(sa[k].cpu(), sb[k], rtol=1e-4, atol=1e-5), f"train {name}.{k}: BN statistic")
+    worst = {**check_card_grads("sr", card.sr[0], cpu.sr[0], 5e-3),
+             **check_card_grads("stu", card.stu[0], cpu.stu[0], 3e-2)}
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
     print(f"train card vs CPU (batch {CARD_VS_CPU_TRAIN_BATCH}): losses "
           f"{ {k: float(v) for k, v in m_card.items()} }; worst gradient rel errs {top}", flush=True)
@@ -1369,26 +1379,9 @@ def zoo_card_vs_cpu(argv, batch):
     pairs = [(f"sr{i}", a, b, 5e-3) for i, (a, b) in enumerate(zip(card_state.sr, cpu_state.sr))]
     pairs += [(f"stu{i}", a, b, 3e-2) for i, (a, b) in enumerate(zip(card_state.stu, cpu_state.stu))]
     for name, a, b, tol in pairs:
-        ga, gb = grads_of(a), grads_of(b)
-        check(sorted(ga) == sorted(gb) and len(gb) == len(list(b.parameters())), f"{name}: gradients missing")
-        total = float(torch.sqrt(sum(g.pow(2).sum() for g in gb.values())))
-        diff = float(torch.sqrt(sum((ga[k] - gb[k]).pow(2).sum() for k in gb if not PRE_BN_BIAS.search(k))))
-        check(diff <= tol * total, f"train {name}: gradient rel err {diff / total:.3g} > {tol}")
-        out[f"{name}_grad_rel_err"] = diff / total
-        worst = 0.0
-        for k in gb:
-            if PRE_BN_BIAS.search(k):
-                check(float(ga[k].norm()) <= 1e-4 * total, f"train {name}.{k}: pre-BN bias gradient not ~0")
-                continue
-            err, own = float((ga[k] - gb[k]).norm()), float(gb[k].norm())
-            check(err <= tol * own + 1e-6 * total, f"train {name}.{k}: gradient err {err:.3g} > {tol} x its norm "
-                  f"{own:.3g} + 1e-6 x the model's {total:.3g}")
-            worst = max(worst, err / max(own, 1e-30))
-        out[f"{name}_worst_tensor_rel_err"] = worst
-        sa, sb = a.state_dict(), b.state_dict()
-        for k in sb:
-            if "running" in k:
-                check(torch.allclose(sa[k].cpu(), sb[k], rtol=1e-4, atol=1e-5), f"train {name}.{k}: BN statistic")
+        errs = check_card_grads(name, a, b, tol, floor=1e-6)
+        out[f"{name}_grad_rel_err"] = errs.pop(name)
+        out[f"{name}_worst_tensor_rel_err"] = max(errs.values())
     return out
 
 

@@ -12,8 +12,11 @@ copy:
     GRU / LSTM    torch layout, copied verbatim
     BatchNorm     BatchNorm_0 {scale, bias} + {mean, var} -> weight, bias,
                   running_mean, running_var; num_batches_tracked = 0
+    PReLU         alpha                      -> weight
 
-The STN head (``stn_head``) inverts torch_import.py:163-181, running
+``sr_state_dict(arch, variables)`` converts the SR model of each ported
+arch (TSRN / TSRN_TL, SRCNN(_TL), SRResNet(_TL), RDN(_TL)), inverting
+``import_sr_checkpoint`` (torch_import.py:620-647).  The STN head (``stn_head``) inverts torch_import.py:163-181, running
 statistics included, when the flax variables hold one (``init`` in train
 mode).
 """
