@@ -185,53 +185,58 @@ def _inputs(arch, seed):
 
 @functools.lru_cache(maxsize=None)
 def _flax(arch, stn):
-    """(flax model, its variables with random BN statistics, the inputs),
-    built once for this file's three tests of the case."""
+    """(flax variables with random BN statistics, the inputs, and flax's
+    outputs on them: eval with the prior, eval without it (a prior arch),
+    train with the updated batch statistics), built once for this file's
+    three tests of the case and compiled as one function."""
     args, cfg = _dicts(arch, stn)
-    jax_model = JAX_ARCHS[arch].build(args, cfg)
+    model = JAX_ARCHS[arch].build(args, cfg)
     inputs = _inputs(arch, 10)
     # init in train mode, so that the variables hold the STN head
-    v = _random_stats(jax.jit(lambda k: jax_model.init(k, *inputs, train=True))(jax.random.PRNGKey(10)), 10)
-    return jax_model, v, inputs
+    v = _random_stats(jax.jit(lambda k: model.init(k, *inputs, train=True))(jax.random.PRNGKey(10)), 10)
+
+    def outputs(v, *a):
+        no_prior = model.apply(v, a[0], None, train=False) if len(a) == 2 else None
+        return model.apply(v, *a, train=False), no_prior, model.apply(v, *a, train=True, mutable=["batch_stats"])
+
+    ref, ref_no_prior, (ref_train, mut) = jax.jit(outputs)(v, *inputs)
+    return v, inputs, {"eval": np.asarray(ref), "eval_no_prior": ref_no_prior, "train": np.asarray(ref_train),
+                       "stats": _numpy_tree(mut).get("batch_stats", {})}
 
 
-def _models(arch, stn):
-    """``_flax``'s case and the port model on the same weights."""
-    jax_model, v, inputs = _flax(arch, stn)
+def _port(arch, stn, v):
+    """The port model of the case on the flax variables ``v``."""
     args, cfg = _dicts(arch, stn)
     port, spec = build_model(arch, args, cfg)
     assert spec.in_channels == JAX_ARCHS[arch].in_channels and spec.crit == JAX_ARCHS[arch].crit
     port.load_state_dict(from_jax.sr_state_dict(arch, v, srb_nums=args["srb"]), strict=True)
-    return jax_model, v, port, inputs
+    return port
 
 
 @pytest.mark.parametrize("arch,stn", CASES, ids=IDS)
 def test_model_matches_flax_in_eval(arch, stn):
     """Eval mode on shared weights; a prior arch also without its prior."""
-    jax_model, v, port, inputs = _models(arch, stn)
-    port.eval()
+    v, inputs, ref = _flax(arch, stn)
+    port = _port(arch, stn, v).eval()
     with torch.no_grad():
         got = _nhwc(port(*(_nchw(a) for a in inputs)))
-    ref = np.asarray(jax.jit(lambda *a: jax_model.apply(v, *a, train=False))(*inputs))
-    assert got.shape == ref.shape == (B, 2 * H, 2 * W, inputs[0].shape[-1])
-    np.testing.assert_allclose(got, ref, atol=5e-4)
+    assert got.shape == ref["eval"].shape == (B, 2 * H, 2 * W, inputs[0].shape[-1])
+    np.testing.assert_allclose(got, ref["eval"], atol=5e-4)
     if len(inputs) == 2:
         with torch.no_grad():
             got = _nhwc(port(_nchw(inputs[0])))
-        ref = np.asarray(jax.jit(lambda x: jax_model.apply(v, x, None, train=False))(inputs[0]))
-        np.testing.assert_allclose(got, ref, atol=5e-4)
+        np.testing.assert_allclose(got, np.asarray(ref["eval_no_prior"]), atol=5e-4)
 
 
 @pytest.mark.parametrize("arch,stn", CASES, ids=IDS)
 def test_model_matches_flax_in_train(arch, stn):
     """Train mode on shared weights: the output, and every BatchNorm running
     statistic after the forward (the STN's included)."""
-    jax_model, v, port, inputs = _models(arch, stn)
-    port.train()
+    v, inputs, ref = _flax(arch, stn)
+    port = _port(arch, stn, v).train()
     got = _nhwc(port(*(_nchw(a) for a in inputs)))
-    ref, mut = jax.jit(lambda *a: jax_model.apply(v, *a, train=True, mutable=["batch_stats"]))(*inputs)
-    np.testing.assert_allclose(got, np.asarray(ref), atol=5e-4)
-    new = from_jax.sr_state_dict(arch, {"params": v["params"], "batch_stats": _numpy_tree(mut).get("batch_stats", {})},
+    np.testing.assert_allclose(got, ref["train"], atol=5e-4)
+    new = from_jax.sr_state_dict(arch, {"params": v["params"], "batch_stats": ref["stats"]},
                                  srb_nums=_dicts(arch, stn)[0]["srb"])
     sd = port.state_dict()
     stats = [k for k in new if "running" in k]
@@ -261,7 +266,7 @@ def _assert_trees_equal(a, b):
 def test_state_dict_round_trips_through_import_sr_checkpoint(arch, stn):
     """``sr_state_dict``, then the JAX package's ``import_sr_checkpoint``,
     gives back the flax variables exactly."""
-    _, v, _ = _flax(arch, stn)
+    v, _, _ = _flax(arch, stn)
     srb = _dicts(arch, stn)[0]["srb"]
     sd = {k: t.numpy() for k, t in from_jax.sr_state_dict(arch, v, srb_nums=srb).items()}
     _assert_trees_equal(ti.import_sr_checkpoint(arch, sd, srb_nums=srb), v)

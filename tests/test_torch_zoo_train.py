@@ -81,6 +81,13 @@ def _dicts(args):
 
 
 @functools.lru_cache(maxsize=None)
+def _teacher_variables():
+    """The frozen CRNN's flax variables, drawn once for every cascade arch here."""
+    crnn_in = np.zeros((B, 32, 2 * W, 1), np.float32)
+    return jax.jit(lambda k: JaxCRNN(nclass=CTC_NUM_CLASSES).init(k, crnn_in, train=False))(jax.random.PRNGKey(1))
+
+
+@functools.lru_cache(maxsize=None)
 def _jax(arch):
     """(SR model, student model, the JAX train state) for ``arch`` with its
     script's flags: one SR model (``--sr_share``, or a plain arch), a student
@@ -88,19 +95,15 @@ def _jax(arch):
     args = _args(arch)
     spec = JAX_ARCHS[arch]
     sr_model = spec.build(*_dicts(args))
-    stu_model = JaxCRNN(nclass=CTC_NUM_CLASSES)
-    crnn_in = np.zeros((B, 32, 2 * W, 1), np.float32)
     lr_img = np.zeros((B, H, W, spec.in_channels), np.float32)
     sr_inputs = (lr_img, np.zeros((B, 1, 26, CTC_NUM_CLASSES), np.float32)) if spec.uses_prior else (lr_img,)
     tl = arch in ABLATION_SET
-
-    def build(key):  # jitted: op by op the CRNN's init alone takes many seconds
-        return jax_create_train_state(
-            key, sr_model, sr_inputs, n_sr=1, stu_model=stu_model, stu_example_inputs=(crnn_in,),
-            n_stu=int(args["stu_iter"]) if tl else 0,
-            teacher_variables=stu_model.init(jax.random.PRNGKey(1), crnn_in, train=False) if tl else None)
-
-    return sr_model, stu_model, jax.jit(build)(jax.random.PRNGKey(0))
+    # jitted: op by op the TSRN's init alone takes many seconds
+    sr_init = jax.jit(lambda k: sr_model.init(k, *sr_inputs, train=True))(jax.random.PRNGKey(0))
+    state = jax_create_train_state(jax.random.PRNGKey(0), sr_model, sr_inputs, n_sr=1,
+                                   n_stu=int(args["stu_iter"]) if tl else 0,
+                                   teacher_variables=_teacher_variables() if tl else None, sr_init_variables=sr_init)
+    return sr_model, JaxCRNN(nclass=CTC_NUM_CLASSES), state
 
 
 def _vars(params, stats):
