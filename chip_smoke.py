@@ -72,10 +72,10 @@ package beside this script):
    weights and batch; (b) 20 train steps after 2 warm-up steps in fp32 and
    in bf16 (images/s, peak memory, K1's launches: 10 + 10 a step for
    ``tsrn``, none for the others), then ``evaluate`` over 4 batches; a
-   ``{"zoo": ...}`` line each; (c) ``cli.main`` with ``train_TSRN.sh``'s and
-   ``train_TPGSR-SRResNet.sh``'s flags and the packaged YAML over phase 9's
-   TextZoom (22 iterations, a val and a save), then ``--go_test`` from the
-   checkpoint against the val; a ``{"zoo_cli": ...}`` line each.
+   ``{"zoo": ...}`` line each; (c) ``cli.main`` with each script's flags,
+   on the packaged YAML (bf16) and with ``compute_dtype: fp32``, over phase
+   9's TextZoom (22 iterations, a val and a save), then ``--go_test`` from
+   the checkpoint against the val; a ``{"zoo_cli": ...}`` line each.
 
 The line before the last is ``{"kernels": [...]}``: K1's forward and
 backward in fp32 and in bf16 (``zoo_launches``: ``tsrn``'s in phase
@@ -110,6 +110,7 @@ from tpgsr_tpu_torch.data.loader import EpochBatchSampler
 from tpgsr_tpu_torch.ops import _build, gru_seq, rnn
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
 from tpgsr_tpu_torch.ops.image import append_contour_mask_u8
+from tpgsr_tpu_torch.profile_zoo import mission as zoo_mission
 from tpgsr_tpu_torch.train import trainer
 from tpgsr_tpu_torch.train.evaluate import evaluate
 from tpgsr_tpu_torch.train.step import make_train_step
@@ -1317,7 +1318,6 @@ def phase_packaged_yaml(root: str, train_dirs, val_dirs):
 # flags (its --vis_dir aside)
 ZOO_SCRIPTS = ("train_TSRN.sh", "train_SRCNN.sh", "train_TPGSR-SRCNN.sh", "train_SRResNet.sh",
                "train_TPGSR-SRResNet.sh", "train_RDN.sh", "train_TPGSR-RDN.sh")
-ZOO_CLI_SCRIPTS = ("train_TSRN.sh", "train_TPGSR-SRResNet.sh")
 ZOO_EVAL_BATCHES = 4
 
 
@@ -1325,20 +1325,6 @@ def zoo_argv(name: str):
     """The flags of the checkout's script ``name``, without its ``--vis_dir``."""
     argv = script_argv(os.path.join(os.path.dirname(os.path.abspath(__file__)), name))
     return [a for a in argv if not a.startswith("--vis_dir")]
-
-
-def zoo_mission(argv, device: str, compute_dtype: str = "fp32"):
-    """(``TextSR``, its state, its eval models) for a script's flags at batch
-    48: SR weights drawn from the YAML's seed on the CPU, then the teacher
-    or the eval CRNN (no ``crnn_pretrained``), so both devices get the same
-    weights."""
-    cfg = load_config()
-    cfg.TRAIN.compute_dtype = compute_dtype
-    cfg.TRAIN.VAL.crnn_pretrained = ""
-    mission = trainer.TextSR(cfg, AttrDict(vars(build_arg_parser().parse_args(argv))), device=device)
-    state = mission.init_state()
-    mission._build_steps()
-    return mission, state, mission._eval_models(state, mission._eval_recognizer())
 
 
 def zoo_card_vs_cpu(argv, batch):
@@ -1355,8 +1341,8 @@ def zoo_card_vs_cpu(argv, batch):
     from fp64 on the CPU at batch 16 (a one-off measurement), so cuDNN's and
     oneDNN's convolutions, whose noise feeds those sums, can part them by
     1e-2 of their norm while the model's gradients agree to 1e-5."""
-    card, card_state, card_models = zoo_mission(argv, "cuda")
-    cpu, cpu_state, cpu_models = zoo_mission(argv, "cpu")
+    card, card_state, card_models = zoo_mission(argv, device="cuda")
+    cpu, cpu_state, cpu_models = zoo_mission(argv, device="cpu")
     out = {}
     (sr_g, outs_g), (sr_c, outs_c) = card._eval_step(card_models, batch), cpu._eval_step(cpu_models, batch)
     check(sr_g.shape == sr_c.shape and torch.isfinite(sr_g).all().item(), f"eval sr {tuple(sr_g.shape)} not finite")
@@ -1388,7 +1374,7 @@ def zoo_card_vs_cpu(argv, batch):
 def zoo_train(argv, compute_dtype: str, batches):
     """(b) 2 warm-up and 20 timed train steps at batch 48 in ``compute_dtype``:
     images/s by CUDA events, peak memory, K1's launches."""
-    mission, state, _ = zoo_mission(argv, "cuda", compute_dtype)
+    mission, state, _ = zoo_mission(argv, compute_dtype, device="cuda")
     for b in batches[:TRAIN_WARMUP]:
         mission._train_step(state, b)
     torch.cuda.synchronize()
@@ -1410,7 +1396,7 @@ def zoo_train(argv, compute_dtype: str, batches):
 def zoo_eval(argv, batches):
     """(b) ``evaluate`` over 4 batches of 48 after a warm one: images/s by
     CUDA events, K1's launches."""
-    mission, _, models = zoo_mission(argv, "cuda")
+    mission, _, models = zoo_mission(argv, device="cuda")
     evaluate(mission._eval_step, models, batches[:1])
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1425,18 +1411,19 @@ def zoo_eval(argv, batches):
             "metrics": metrics}
 
 
-def zoo_cli(root: str, script: str, train_dirs, val_dirs):
-    """(c) ``cli.main`` with ``script``'s flags and the packaged YAML (bf16)
-    over phase 9's TextZoom, TF32 on first: one epoch of 22 iterations with
-    a val and a save at its end, then ``--go_test`` from that checkpoint,
-    whose metric dicts equal the val's (the same weights, PSNR and SSIM at
-    1e-4); K1's launches over both runs."""
-    name = script[len("train_"):-len(".sh")]
+def zoo_cli(root: str, script: str, train_dirs, val_dirs, compute_dtype: str):
+    """(c) ``cli.main`` with ``script``'s flags and the packaged YAML (bf16),
+    or the same with ``compute_dtype: fp32``, over phase 9's TextZoom, TF32
+    on first: one epoch of 22 iterations with a val and a save at its end,
+    then ``--go_test`` from that checkpoint, whose metric dicts equal the
+    val's (the same weights, PSNR and SSIM at 1e-4); K1's launches over both
+    runs."""
+    name = f"{script[len('train_'):-len('.sh')]}_{compute_dtype}"
     iterations = TRAIN_PAIRS // BATCH
     cfg = load_config()
     check(cfg.TRAIN.compute_dtype == "bf16", f"the packaged YAML says compute_dtype {cfg.TRAIN.compute_dtype}")
     cfg.TRAIN.update(train_data_dir=list(train_dirs), batch_size=BATCH, epochs=1, saveInterval=iterations,
-                     displayInterval=iterations, workers=0, ckpt_dir=f"{root}/ckpt_zoo")
+                     displayInterval=iterations, workers=0, ckpt_dir=f"{root}/ckpt_zoo", compute_dtype=compute_dtype)
     cfg.TRAIN.VAL.update(val_data_dir=list(val_dirs), valInterval=iterations)
     config_path = f"{root}/zoo_{name}.yaml"
     with open(config_path, "w") as f:
@@ -1457,7 +1444,7 @@ def zoo_cli(root: str, script: str, train_dirs, val_dirs):
         run_s = time.perf_counter() - start
         check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
               f"{name}: the trainer left TF32 on")
-        check(probe.compute_dtypes == ["bf16"], f"{name}: the train step ran in {probe.compute_dtypes}")
+        check(probe.compute_dtypes == [compute_dtype], f"{name}: the train step ran in {probe.compute_dtypes}")
         check(state.step == iterations, f"{name}: trainer at step {state.step}, expected {iterations}")
         (val,) = [e for e in probe.events if e["name"] == "val"]
         files = set(os.listdir(ckpt_dir))
@@ -1472,7 +1459,7 @@ def zoo_cli(root: str, script: str, train_dirs, val_dirs):
             check_metric_dicts(go_test[split], md, f"{name} --go_test {split} against the val on the same weights")
     finally:
         os.chdir(cwd)
-    return {"script": script, "iterations": iterations, "run_s": run_s, "val_s": val["t1"] - val["t0"],
+    return {"script": script, "compute_dtype": compute_dtype, "iterations": iterations, "run_s": run_s, "val_s": val["t1"] - val["t0"],
             "first_iteration_s": probe.first_step_end - start, "losses_first": {k: float(v) for k, v in
                                                                                 probe.metrics[0].items()},
             "val": val["out"], "k1_launches": gru_seq.LAUNCHES, "k1_backward_launches": gru_seq.BACKWARD_LAUNCHES}
@@ -1494,7 +1481,8 @@ def host_load():
 
 def phase_zoo(root: str, train_dirs, val_dirs):
     """Phase 13: for each of the seven scripts, (a) card against CPU, (b) fp32
-    and bf16 training and eval on the card; (c) the CLI for two of them.
+    and bf16 training and eval on the card, (c) the script through the CLI
+    on the packaged YAML (bf16) and in fp32.
     Returns ``tsrn``'s K1 launches in (b): fp32 and bf16, each (forward,
     backward)."""
     t0 = time.perf_counter()
@@ -1523,15 +1511,16 @@ def phase_zoo(root: str, train_dirs, val_dirs):
         check(out["eval"]["k1_launches"] == want, f"{arch} eval: K1 launched {out['eval']['k1_launches']} times")
         out["s"] = time.perf_counter() - s0
         print(json.dumps({"zoo": out}), flush=True)
-    for script in ZOO_CLI_SCRIPTS:
-        cli_out = zoo_cli(root, script, train_dirs, val_dirs)
-        n_val = sum(-(-n // BATCH) for n in VAL_PAIRS)
-        iters = cli_out["iterations"]
-        k1 = script == "train_TSRN.sh"
-        want = (2 * N_SRB * (iters + 2 * n_val) if k1 else 0, 2 * N_SRB * iters if k1 else 0)
-        got = (cli_out["k1_launches"], cli_out["k1_backward_launches"])
-        check(got == want, f"{script} through the CLI: K1 launched {got} times, expected {want}")
-        print(json.dumps({"zoo_cli": cli_out}), flush=True)
+    n_val = sum(-(-n // BATCH) for n in VAL_PAIRS)
+    for script in ZOO_SCRIPTS:
+        for dtype in ("bf16", "fp32"):
+            cli_out = zoo_cli(root, script, train_dirs, val_dirs, dtype)
+            iters = cli_out["iterations"]
+            k1 = script == "train_TSRN.sh"
+            want = (2 * N_SRB * (iters + 2 * n_val) if k1 else 0, 2 * N_SRB * iters if k1 else 0)
+            got = (cli_out["k1_launches"], cli_out["k1_backward_launches"])
+            check(got == want, f"{script} ({dtype}) through the CLI: K1 launched {got} times, expected {want}")
+            print(json.dumps({"zoo_cli": cli_out}), flush=True)
     print(f"zoo: phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from tpgsr_tpu_torch import device as port_device
-from tpgsr_tpu_torch import cli, entry
+from tpgsr_tpu_torch import cli, entry, profile_zoo
 from tpgsr_tpu_torch.config import default_args, load_config
 from tpgsr_tpu_torch.data.loader import make_loader
 from tpgsr_tpu_torch.models.registry import NOT_PORTED, PORTED_ARCHS
@@ -48,6 +48,7 @@ def test_port_imports_no_jax():
     lambda: trainer.TextSR(load_config(), default_args(arch="srresnet_tl", stu_iter=3)),
     lambda: cli.main(["--arch", "tsrn_tl_cascade"]),
     lambda: cli.main(["--arch", "tsrn", "--STN", "--mask"]),
+    lambda: profile_zoo.mission(["--arch", "rdn_tl", "--mask"]),
     lambda: port_device.resolve_device(),
     lambda: port_device.resolve_device("cuda:0"),
 ])

@@ -3,7 +3,7 @@
     python -m tpgsr_tpu_torch.profile_zoo [train_SRResNet.sh ...]   # from the root of a checkout; one card
 
 For each train script named (the seven of the zoo by default), builds its
-``TextSR`` with the script's flags at batch 48 (random weights from the
+``TextSR`` with the script's flags, batch 48 (random weights from the
 YAML's seed, TF32 off) and traces 5 train steps in fp32, 5 in bf16 and 5
 eval steps with ``torch.profiler`` (``profile_eval.trace``): the device's
 busy share of the traced wall time, its ms a step, kernels a step, and the
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from tpgsr_tpu_torch.config import AttrDict, build_arg_parser, load_config, script_argv
+from tpgsr_tpu_torch.device import DeviceLike
 from tpgsr_tpu_torch.profile_eval import random_batch, trace
 from tpgsr_tpu_torch.train.trainer import TextSR
 
@@ -29,16 +30,18 @@ SCRIPTS = ("train_TSRN.sh", "train_SRCNN.sh", "train_TPGSR-SRCNN.sh", "train_SRR
            "train_RDN.sh", "train_TPGSR-RDN.sh")
 
 
-def mission(script: str, compute_dtype: str):
-    """(``TextSR`` on the card, its state) for ``script``'s flags at batch 48."""
+def mission(argv, compute_dtype: str = "fp32", device: DeviceLike = None):
+    """(``TextSR``, its state, its eval models) for a script's flags
+    ``argv`` on ``device`` (the card unless told otherwise): SR weights drawn
+    from the YAML's seed on the CPU, then the teacher or the eval CRNN (no
+    ``crnn_pretrained``), so every device gets the same weights."""
     cfg = load_config()
     cfg.TRAIN.compute_dtype = compute_dtype
     cfg.TRAIN.VAL.crnn_pretrained = ""
-    args = AttrDict(vars(build_arg_parser().parse_args(script_argv(script) + ["--batch_size", str(BATCH)])))
-    m = TextSR(cfg, args)
+    m = TextSR(cfg, AttrDict(vars(build_arg_parser().parse_args(argv))), device=device)
     state = m.init_state()
     m._build_steps()
-    return m, state
+    return m, state, m._eval_models(state, m._eval_recognizer())
 
 
 def main(argv=None) -> int:
@@ -52,16 +55,16 @@ def main(argv=None) -> int:
     batch = random_batch(np.random.default_rng(0), BATCH)
     for script in scripts:
         for what in ("fp32", "bf16", "eval"):
-            m, state = mission(script, "bf16" if what == "bf16" else "fp32")
+            m, state, models = mission(script_argv(script), "bf16" if what == "bf16" else "fp32")
             if what == "eval":
-                summary, top = trace(m._eval_models(state, m._eval_recognizer()), m._eval_step, batch)
+                summary, top = trace(models, m._eval_step, batch)
             else:
                 summary, top = trace(state, m._train_step, batch)
             row = {"script": script, "arch": m.arch, "step": what}
             print(json.dumps({**row, **summary}), flush=True)
             for k in top:
                 print(json.dumps({**row, **k}), flush=True)
-            del m, state
+            del m, state, models
     return 0
 
 
