@@ -3,7 +3,8 @@ over by ``tpgsr_tpu_torch.interop.from_jax``: the blocks, each of the seven
 archs the repo's other train scripts run (tsrn, srcnn, srcnn_tl, srres,
 srresnet_tl, rdn, rdn_tl) and TSRN_TL with a plain sixth SRB, in eval and
 in train mode; and each converter's round trip through
-``tpgsr_tpu.interop.torch_import.import_sr_checkpoint``.
+``tpgsr_tpu.interop.torch_import.import_sr_checkpoint``.  The models' flax
+variables are the port's seeded draws read by that importer.
 
 Batch statistics are drawn at random so BatchNorm in eval mode is not the
 identity.  Tolerances are tests/test_torch_models.py's: 1e-5 for single
@@ -29,6 +30,7 @@ from tpgsr_tpu.models import tsrn as jax_tsrn
 from tpgsr_tpu.models.registry import ARCHS as JAX_ARCHS
 from tpgsr_tpu_torch.interop import from_jax
 from tpgsr_tpu_torch.models import prior, rdn, srcnn, srresnet, tsrn
+from tpgsr_tpu_torch.models.layers import init_torch_defaults_
 from tpgsr_tpu_torch.models.registry import ARCHS, build_model
 
 B, H, W = 2, 16, 32
@@ -192,8 +194,12 @@ def _flax(arch, stn):
     args, cfg = _dicts(arch, stn)
     model = JAX_ARCHS[arch].build(args, cfg)
     inputs = _inputs(arch, 10)
-    # init in train mode, so that the variables hold the STN head
-    v = _random_stats(jax.jit(lambda k: model.init(k, *inputs, train=True))(jax.random.PRNGKey(10)), 10)
+    # the port's seeded draw (the STN head included), read by the JAX
+    # package's own importer: flax's jitted init would compile the model
+    # once more, and ``model.apply`` below fails on any parameter it misses
+    drawn = init_torch_defaults_(build_model(arch, args, cfg)[0], torch.Generator().manual_seed(10))
+    sd = {k: t.numpy() for k, t in drawn.state_dict().items()}
+    v = _random_stats(ti.import_sr_checkpoint(arch, sd, srb_nums=args["srb"]), 10)
 
     def outputs(v, *a):
         no_prior = model.apply(v, a[0], None, train=False) if len(a) == 2 else None

@@ -6,7 +6,8 @@ cascade arch.
 
 The rule is tests/test_torch_train.py's for a first step: every metric at
 rtol 5e-6; per model, Adam's first and second moments (the gradients
-themselves after one step) at a relative L2 error of 5e-3 and the
+themselves after one step) at a relative L2 error of 5e-3 (2e-2 for the
+students of ``srresnet_tl``'s three stages, ``CASCADE_STUDENT_RTOL``) and the
 BatchNorm statistics at 1e-5, the pre-BN biases apart (their gradient is
 zero in exact arithmetic); every parameter within 2.5 lr of the JAX one;
 and the update of every tracked parameter within 5 % of the JAX update.
@@ -26,6 +27,7 @@ from flax.core import unfreeze
 from tests.test_torch_bf16 import LOSS_FLOOR, REL_FLOOR
 from tpgsr_tpu.charset import CTC_NUM_CLASSES
 from tpgsr_tpu.config import default_args, load_config
+from tpgsr_tpu.interop.torch_import import import_crnn, import_sr_checkpoint
 from tpgsr_tpu.models.crnn import CRNN as JaxCRNN
 from tpgsr_tpu.models.registry import ARCHS as JAX_ARCHS
 from tpgsr_tpu.train.state import create_train_state as jax_create_train_state
@@ -34,6 +36,7 @@ from tpgsr_tpu.train.step import train_wire_keys as jax_train_wire_keys
 from tpgsr_tpu_torch.charset import CTC_NUM_CLASSES as PORT_CLASSES
 from tpgsr_tpu_torch.interop import from_jax
 from tpgsr_tpu_torch.models.crnn import CRNN
+from tpgsr_tpu_torch.models.layers import init_torch_defaults_
 from tpgsr_tpu_torch.models.registry import ABLATION_SET, build_model
 from tpgsr_tpu_torch.train.state import create_train_state
 from tpgsr_tpu_torch.train.step import make_train_step, train_wire_keys
@@ -44,6 +47,16 @@ SRB, HD_U = 2, 8
 # conv biases that a BatchNorm follows in train mode (block4.0: the TSRNs'
 # conv-BN at 2 SRBs; block7.0: SRResNet's)
 PRE_BN_BIAS = re.compile(r"(block\d+\.conv[12]|block[47]\.0|stn_convnet\.\d+\.0|stn_fc1\.0|cnn\.conv[246])\.bias$")
+# Adam's moments of the students of a cascade of several stages: without
+# the distillation their gradient reaches them only through the prior, the
+# train-mode BatchNorm of InfoGen and the later stages, and fp32 rounds it
+# coarsely in either package.  Against the port's fp64 step on these
+# weights (a one-off measurement), the port's fp32 step lies 6.7e-3 away
+# for student 0 and JAX's 4.5e-3 for student 2, while the two agree with
+# fp64 to 1e-4 on the others and to 7e-6 on the SR model; so these are held
+# at about three times that noise, as chip_smoke.py's phase 7 holds
+# gradients, and everything else at 5e-3.
+CASCADE_STUDENT_RTOL = 2e-2
 # each script's flags (train_*.sh)
 SCRIPTS = {
     "tsrn": dict(STN=True, use_distill=True, stu_iter=1),
@@ -80,29 +93,30 @@ def _dicts(args):
             {"scale_factor": 2, "width": 2 * W, "height": 2 * H})
 
 
-@functools.lru_cache(maxsize=None)
-def _teacher_variables():
-    """The frozen CRNN's flax variables, drawn once for every cascade arch here."""
-    crnn_in = np.zeros((B, 32, 2 * W, 1), np.float32)
-    return jax.jit(lambda k: JaxCRNN(nclass=CTC_NUM_CLASSES).init(k, crnn_in, train=False))(jax.random.PRNGKey(1))
+def _drawn(module, seed):
+    """A port module's seeded weights (``init_torch_defaults_``), as numpy."""
+    init_torch_defaults_(module, torch.Generator().manual_seed(seed))
+    return {k: t.numpy() for k, t in module.state_dict().items()}
 
 
 @functools.lru_cache(maxsize=None)
 def _jax(arch):
     """(SR model, student model, the JAX train state) for ``arch`` with its
     script's flags: one SR model (``--sr_share``, or a plain arch), a student
-    per stage and the teacher for a cascade arch."""
+    per stage and the teacher for a cascade arch.  The weights are the
+    port's seeded draws, read by the JAX package's own importers: flax's
+    jitted init would compile each model once more."""
     args = _args(arch)
     spec = JAX_ARCHS[arch]
     sr_model = spec.build(*_dicts(args))
     lr_img = np.zeros((B, H, W, spec.in_channels), np.float32)
     sr_inputs = (lr_img, np.zeros((B, 1, 26, CTC_NUM_CLASSES), np.float32)) if spec.uses_prior else (lr_img,)
     tl = arch in ABLATION_SET
-    # jitted: op by op the TSRN's init alone takes many seconds
-    sr_init = jax.jit(lambda k: sr_model.init(k, *sr_inputs, train=True))(jax.random.PRNGKey(0))
+    sr_init = import_sr_checkpoint(arch, _drawn(build_model(arch, *_dicts(args))[0], 0), srb_nums=SRB)
+    teacher = import_crnn(_drawn(CRNN(nclass=PORT_CLASSES), 1)) if tl else None
     state = jax_create_train_state(jax.random.PRNGKey(0), sr_model, sr_inputs, n_sr=1,
                                    n_stu=int(args["stu_iter"]) if tl else 0,
-                                   teacher_variables=_teacher_variables() if tl else None, sr_init_variables=sr_init)
+                                   teacher_variables=teacher, sr_init_variables=sr_init)
     return sr_model, JaxCRNN(nclass=CTC_NUM_CLASSES), state
 
 
@@ -179,7 +193,7 @@ def test_train_step_matches_jax(arch):
         for moment, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
             ref_m = to_sd(getattr(adam, moment)[kind][i], stats)
             err = _rel([(port.optimizer.state[named[n]][key], ref_m[n]) for n in tracked])
-            assert err <= 5e-3, (kind, i, moment, err)
+            assert err <= (CASCADE_STUDENT_RTOL if kind == "stu" and len(port.stu) > 1 else 5e-3), (kind, i, moment, err)
         running = [n for n in sd if "running" in n]
         if running:
             assert _rel([(sd[n], ref_sd[n]) for n in running]) <= 1e-5, (kind, i)
