@@ -1337,10 +1337,11 @@ def zoo_card_vs_cpu(argv, batch):
     gradient at 5e-3 (3e-2) of its own norm plus 1e-6 of its model's.  The
     floor is for the few tensors whose gradient is a sum that cancels to a
     sliver of the model's: SRResNet's PReLU slopes after BatchNorm come to
-    1.5e-5 of the model's norm, and fp32 lies 9.7e-4 of their own norm
-    from fp64 on the CPU at batch 16 (a one-off measurement), so cuDNN's and
-    oneDNN's convolutions, whose noise feeds those sums, can part them by
-    1e-2 of their norm while the model's gradients agree to 1e-5."""
+    under 2e-5 of the model's norm (``python -m tests.torch_fp64_noise``),
+    so a relative noise of 1e-6 in the convolutions that feed those sums
+    (cuDNN runs them through its FFT path here) can part card and CPU by
+    a few hundredths of the slopes' own norm while the models' gradients
+    agree to 1e-5."""
     card, card_state, card_models = zoo_mission(argv, device="cuda")
     cpu, cpu_state, cpu_models = zoo_mission(argv, device="cpu")
     out = {}

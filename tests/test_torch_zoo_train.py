@@ -51,7 +51,7 @@ PRE_BN_BIAS = re.compile(r"(block\d+\.conv[12]|block[47]\.0|stn_convnet\.\d+\.0|
 # the distillation their gradient reaches them only through the prior, the
 # train-mode BatchNorm of InfoGen and the later stages, and fp32 rounds it
 # coarsely in either package.  Against the port's fp64 step on these
-# weights (a one-off measurement), the port's fp32 step lies 6.7e-3 away
+# weights (``python -m tests.torch_fp64_noise``), the port's fp32 step lies 6.7e-3 away
 # for student 0 and JAX's 4.5e-3 for student 2, while the two agree with
 # fp64 to 1e-4 on the others and to 7e-6 on the SR model; so these are held
 # at about three times that noise, as chip_smoke.py's phase 7 holds
