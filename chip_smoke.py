@@ -77,9 +77,25 @@ package beside this script):
    9's TextZoom (22 iterations, a val and a save), then ``--go_test`` from
    the checkpoint against the val; a ``{"zoo_cli": ...}`` line each.
 
+14. ASTER and MORAN as the eval recognizer: (a) the flagship's eval step
+   at batch 8 with each (and ``srcnn``'s with ASTER), card against CPU
+   from the same weights and batch, the recognizers' draws sharpened so
+   that their decisions clear their noise: SR, then on the same inputs
+   ASTER's rectified image, encoder features, best beam score and ids, and
+   MORAN's L2R logits and ids; (b) ``evaluate`` over 4 batches of 48 with
+   each (the CLI's draw, ``max_len`` 100, beam 5): images/s beside phase
+   5's CRNN figure, K1's launches, kernels a batch and the card's busy
+   share; (c) ``cli.main`` with ``--test --rec aster`` and ``--rec moran``
+   from phase 10's checkpoint over the smallest val split, its fps, and its
+   metric dict against ``evaluate`` in-process; a ``{"rec_eval": ...}``
+   line each; then each of phase 13's seven scripts through ``cli.main``
+   with ``--test`` from its fp32 checkpoint, ASTER and MORAN in turn (a
+   ``{"rec_eval_zoo_cli": ...}`` line).
+
 The line before the last is ``{"kernels": [...]}``: K1's forward and
 backward in fp32 and in bf16 (``zoo_launches``: ``tsrn``'s in phase
-13(b)); the last is ``{"ok": true, "device": {...}}``.
+13(b); ``rec_eval_launches``: phase 14(b)'s); the last is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -110,10 +126,11 @@ from tpgsr_tpu_torch.data.loader import EpochBatchSampler
 from tpgsr_tpu_torch.ops import _build, gru_seq, rnn
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
 from tpgsr_tpu_torch.ops.image import append_contour_mask_u8
+from tpgsr_tpu_torch.profile_eval import trace
 from tpgsr_tpu_torch.profile_zoo import mission as zoo_mission
 from tpgsr_tpu_torch.train import trainer
 from tpgsr_tpu_torch.train.evaluate import evaluate
-from tpgsr_tpu_torch.train.step import make_train_step
+from tpgsr_tpu_torch.train.step import EvalModels, make_eval_step, make_train_step, rec_decoder, recognizer_input
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside the tensor
 # cores and dense bf16 on them; the comparisons run with TF32 off.
@@ -1526,6 +1543,269 @@ def phase_zoo(root: str, train_dirs, val_dirs):
     return launches
 
 
+# phase 14: ASTER and MORAN as the eval recognizer (--test_model, --rec)
+REC_KINDS = ("ASTER", "MORAN")
+REC_CHECK_BATCH = 8
+# card against CPU, each module fed the CPU's input: the rectified image
+# (ASTER's a TPS sample of a 128-wide image in [-1, 1]) at 1e-3, ASTER's
+# encoder features at 5e-4 (measured 1.35e-4: cuDNN's sums against the
+# CPU's through 45 convolutions and two LSTM layers), its best beam's score
+# at 1e-3, MORAN's logits at 1e-3.  The decoder's ids are compared exactly
+# in the rows where every decision (a beam's selection, a greedy argmax) is
+# REC_MARGIN_FACTOR times the decoder's measured error clear of the next
+# candidate; at least half the rows must be.
+REC_RECTIFY_ATOL = 1e-3
+REC_FEATURE_ATOL = 5e-4
+REC_SCORE_ATOL = 1e-3
+REC_LOGIT_ATOL = 1e-3
+REC_MARGIN_FACTOR = 10.0
+
+
+def sharpen_recognizer_(rec: torch.nn.Module, kind: str, seed: int = 3) -> torch.nn.Module:
+    """The recognizer's draw rescaled as tests/torch_recognizers.py rescales
+    the JAX package's, so that its decisions depend on the image, as a
+    trained model's do: BatchNorm statistics and affines drawn around their
+    defaults; ASTER's encoder convolutions scaled by sqrt(6) and MORAN's
+    ASRN's by sqrt(3); ASTER's STN fc1 and fc2 drawn at N(0, 0.01) and
+    N(0, 0.1); the decoders' GRU weights on the attention context and their
+    output layers scaled by 10; ASTER's EOS logit raised by 1.5.  In place,
+    on the CPU; returns ``rec``."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in rec.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+                m.weight.uniform_(0.8, 1.2, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+        if kind == "ASTER":
+            for m in rec.encoder.modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    m.weight.mul_(6.0 ** 0.5)
+            rec.stn_head.stn_fc1[0].weight.normal_(0.0, 0.01, generator=gen)
+            rec.stn_head.stn_fc2.weight.normal_(0.0, 0.1, generator=gen)
+            dec = rec.decoder.decoder
+            dec.gru.weight_ih_l0[:, dec.tgt_embedding.embedding_dim:].mul_(10.0)
+            dec.fc.weight.mul_(10.0)
+            dec.fc.bias[rec.eos_id] += 1.5
+        else:
+            for m in rec.ASRN.cnn.modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    m.weight.mul_(3.0 ** 0.5)
+            for att in (rec.ASRN.attentionL2R, rec.ASRN.attentionR2L):
+                att.attention_cell.rnn.weight_ih[:, :att.hidden].mul_(10.0)
+                att.generator.weight.mul_(10.0)
+    return rec
+
+
+def rec_reads(kind: str, card, cpu, x):
+    """What the card-against-CPU check compares on the recognizer input
+    ``x``, module by module, each module fed the CPU's output of the one
+    before: {name: (card, CPU)}, with the decoder's ``staged_ids`` (ASTER's
+    beam search, MORAN's L2R argmax) and the CPU's ``margins`` (per row, of
+    the decisions that produced them); and the whole chain's ``ids`` and
+    ``chain_score`` (ASTER's best beam's score, MORAN's L2R logits)."""
+    xg = x.cuda()
+    if kind == "ASTER":
+        rect = cpu.rectify(x)
+        feats = cpu.encoder(rect)
+        beam = cpu.decoder.beam_search(feats, cpu.beam_width, cpu.eos_id)
+        staged = card.decoder.beam_search(feats.cuda(), card.beam_width, card.eos_id)
+        chain = card.decoder.beam_search(card.encoder(card.rectify(xg)), card.beam_width, card.eos_id)
+        return {"rectified": (card.rectify(xg), rect), "features": (card.encoder(rect.cuda()), feats),
+                "beam_score": (staged.scores, beam.scores), "staged_ids": (staged.ids, beam.ids),
+                "margins": beam.margins, "chain_score": (chain.scores, beam.scores), "ids": (chain.ids, beam.ids)}
+    rect = cpu.MORN(x)
+    logits = cpu.ASRN(rect)[0]
+    staged = card.ASRN(rect.cuda())[0]
+    chain = card(xg)[0]
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return {"rectified": (card.MORN(xg), rect), "logits": (staged, logits),
+            "staged_ids": (staged.argmax(-1), logits.argmax(-1)), "margins": (top2[..., 0] - top2[..., 1]).amin(dim=-1),
+            "chain_score": (chain, logits), "ids": (chain.argmax(-1), logits.argmax(-1))}
+
+
+def rec_card_vs_cpu(argv, kind: str, batch):
+    """(a) The eval step with ``kind`` scoring, card against CPU from the same
+    weights (the CLI's draw, sharpened) and batch: SR at phase 4's 5e-4;
+    then on the CPU's SR, LR and HR, each module on the CPU's input
+    (``rec_reads``): the decoder's ids equal the CPU's in every row whose
+    decisions clear ``REC_MARGIN_FACTOR`` times the decoder's measured
+    error, at least half the rows.  The whole chain, where the upstream
+    errors add up over the decode, and the step's own reads of LR and HR:
+    the line reports the rows whose ids agree, and a row may differ only
+    where a decision is within ``REC_MARGIN_FACTOR`` times the chain's
+    noise (its error on the rows that agree)."""
+    flags = argv + ["--test_model", kind]
+    card_mission, _, card = zoo_mission(flags, device="cuda")
+    cpu_mission, _, cpu = zoo_mission(flags, device="cpu")
+    sharpen_recognizer_(cpu.rec, kind)
+    card.rec.load_state_dict(cpu.rec.state_dict())
+    (sr_g, outs_g), (sr_c, outs_c) = card_mission._eval_step(card, batch), cpu_mission._eval_step(cpu, batch)
+    out = {"sr_max_abs_err": float((sr_g.cpu() - sr_c).abs().max())}
+    check(torch.isfinite(sr_g).all().item() and out["sr_max_abs_err"] <= 5e-4,
+          f"{kind} eval sr card vs CPU: {out['sr_max_abs_err']:.3g} > 5e-4")
+    check(sorted(outs_g) == sorted(outs_c), f"{kind} eval outputs differ in keys")
+    images = {"sr": sr_c, "lr": torch.as_tensor(batch["lr"]), "hr": torch.as_tensor(batch["hr"])}
+    with torch.no_grad():
+        reads = {name: rec_reads(kind, card.rec, cpu.rec, recognizer_input(kind, img)) for name, img in images.items()}
+    bounds = {"rectified": REC_RECTIFY_ATOL, "features": REC_FEATURE_ATOL, "beam_score": REC_SCORE_ATOL,
+              "logits": REC_LOGIT_ATOL, "chain_score": None}
+    errs = {what: max(float((r[what][0].cpu() - r[what][1]).abs().max()) for r in reads.values())
+            for what in bounds if what in reads["sr"]}
+    print(f"rec_eval {kind} card vs CPU: {json.dumps(errs)}", flush=True)
+    for what, err in errs.items():
+        out[f"{what}_max_abs_err"] = err
+        check(bounds[what] is None or err <= bounds[what], f"{kind} {what} card vs CPU: {err:.3g} > {bounds[what]}")
+    threshold = REC_MARGIN_FACTOR * max(errs["beam_score" if kind == "ASTER" else "logits"], 1e-7)
+    compared, rows = 0, 0
+    for name, r in reads.items():
+        clear = r["margins"] > threshold
+        ids_g, ids_c = r["staged_ids"]
+        check(torch.equal(ids_g.cpu()[clear], ids_c[clear]), f"{kind} decoder ids on {name}: card vs CPU")
+        compared, rows = compared + int(clear.sum()), rows + len(clear)
+    out.update(min_margin=min(float(r["margins"].min()) for r in reads.values()), margin_threshold=threshold,
+               rows_compared=compared, rows=rows)
+    check(2 * compared >= rows, f"{kind}: decoder ids comparable in {compared} of {rows} rows only: {out}")
+
+    def agreeing(ids_g, ids_c):
+        return (ids_g.cpu() == ids_c).reshape(len(ids_c), -1).all(dim=1)
+
+    noise = 0.0
+    for r in reads.values():
+        agree = agreeing(*r["ids"])
+        if agree.any():
+            noise = max(noise, float((r["chain_score"][0].cpu() - r["chain_score"][1])[agree].abs().max()))
+    chain_threshold = REC_MARGIN_FACTOR * max(noise, 1e-7)
+    chain_rows, chain_agree = 0, 0
+    for name, r in reads.items():
+        pairs = [r["ids"]]
+        if name != "sr":  # the step read the same LR and HR
+            step_ids = outs_g[f"logits_{name}"] if kind == "ASTER" else outs_g[f"logits_{name}"].argmax(-1)
+            pairs.append((step_ids, r["ids"][1]))
+        for ids_g, ids_c in pairs:
+            agree = agreeing(ids_g, ids_c)
+            check(bool((agree | (r["margins"] <= chain_threshold)).all()),
+                  f"{kind} chain ids on {name}: a row differs beyond its margin")
+            chain_rows, chain_agree = chain_rows + len(agree), chain_agree + int(agree.sum())
+    out.update(chain_noise=noise, chain_rows_agreeing=chain_agree, chain_rows=chain_rows)
+    return out
+
+
+def rec_serve(kind: str, warm, batches, crnn_ips: float):
+    """(b) The flagship's ``evaluate`` over 4 batches of 48 with ``kind``
+    scoring (the CLI's draw from seed 7, ``max_len`` 100, beam 5, the YAML's
+    voc_type) after a warm batch: images/s by CUDA events beside phase 5's
+    CRNN figure, K1's launches on that run alone; then 3 eval steps traced
+    (``profile_eval.trace``): kernels a batch and the card's busy share."""
+    cfg = load_config()
+    models, step = entry.flagship(device="cuda", seed=0)
+    rec = trainer.eval_recognizer(kind, cfg, "cuda")
+    models = EvalModels(sr=models.sr, stu=models.stu, teacher=models.teacher, rec=rec).eval()
+    decoder = rec_decoder(kind, cfg.TRAIN.voc_type)
+    evaluate(step, models, [warm], decoder=decoder)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gru_seq.LAUNCHES = 0
+    start.record()
+    metrics = evaluate(step, models, batches, decoder=decoder)
+    end.record()
+    torch.cuda.synchronize()
+    launches = gru_seq.LAUNCHES
+    n_images = BATCH * SERVE_BATCHES
+    check(metrics["images"] == n_images and all(np.isfinite(v) for v in metrics.values()),
+          f"{kind} serve metrics {metrics}")
+    want = 2 * N_SRB * SERVE_BATCHES
+    check(launches == want, f"K1 launched {launches} times in the {kind} eval, expected {want}")
+    summary, top = trace(models, step, batches[0], steps=3)
+    return {"batch": BATCH, "batches": SERVE_BATCHES, "images_per_s": n_images / (start.elapsed_time(end) / 1e3),
+            "phase5_crnn_images_per_s": crnn_ips, "k1_launches": launches,
+            "kernels_per_batch": summary["kernels_per_step"], "device_busy_share": summary["device_busy_share"],
+            "device_ms_per_batch": summary["device_ms_per_step"], "wall_ms_per_batch": summary["wall_ms_per_step"],
+            "top_kernels": top[:5], "metrics": metrics}
+
+
+def rec_cli(root: str, val_dirs, kind: str):
+    """(c) ``cli.main`` with ``--test --rec <kind>`` from phase 10's checkpoint
+    over phase 9's smallest val split, then ``evaluate`` in-process on the
+    same weights and the loader's batches: the same metric dict."""
+    split = val_dirs[int(np.argmin(VAL_PAIRS))]
+    config_path = f"{root}/trainer.yaml"
+    argv = TRAINER_FLAGS + ["--config", config_path, "--resume", f"{root}/ckpt/smoke", "--test", "--rec",
+                            kind.lower(), "--test_data_dir", split]
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        md = cli.main(argv)
+        cfg = load_config(config_path)
+        args = AttrDict(vars(build_arg_parser().parse_args(argv)))
+        mission = trainer.TextSR(cfg, args, device="cuda")
+        state = mission.init_state()
+        rec = trainer.eval_recognizer(kind, mission.config, "cuda")
+        models = EvalModels(sr=state.sr, stu=state.stu, teacher=state.teacher, rec=rec).eval()
+        step = make_eval_step(args, int(mission.config.TRAIN.width), device="cuda")
+        (loader,) = mission.get_val_data([split])
+        want = evaluate(step, models, list(loader), decoder=rec_decoder(kind, mission.config.TRAIN.voc_type))
+    finally:
+        os.chdir(cwd)
+    check_metric_dicts({k: v for k, v in md.items() if k != "fps"}, want,
+                       f"--test --rec {kind.lower()} against evaluate in-process")
+    check(md["images"] == min(VAL_PAIRS) and md["fps"] > 0, f"--test --rec {kind.lower()}: {md}")
+    return {"split_images": md["images"], "fps": md["fps"], "metrics": md}
+
+
+def rec_zoo_cli(root: str, val_dirs):
+    """(c) for the zoo: ``cli.main`` with each of the seven scripts' flags and
+    ``--test --rec aster`` or ``--rec moran`` in turn (each recognizer on a
+    plain and on a cascade arch), from its fp32 checkpoint of phase 13(c),
+    over the smallest val split: the images all read, finite metrics, fps."""
+    split = val_dirs[int(np.argmin(VAL_PAIRS))]
+    rows = []
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        for i, script in enumerate(ZOO_SCRIPTS):
+            kind = REC_KINDS[i % len(REC_KINDS)]
+            name = f"{script[len('train_'):-len('.sh')]}_fp32"
+            argv = zoo_argv(script) + ["--vis_dir", f"zoo_{name}", "--config", f"{root}/zoo_{name}.yaml", "--resume",
+                                       f"{root}/ckpt_zoo/zoo_{name}", "--test", "--rec", kind.lower(),
+                                       "--test_data_dir", split]
+            md = cli.main(argv)
+            check(md["images"] == min(VAL_PAIRS) and md["fps"] > 0 and all(np.isfinite(v) for v in md.values()),
+                  f"{script} --test --rec {kind.lower()}: {md}")
+            rows.append({"script": script, "rec": kind, "fps": md["fps"], "accuracy": md["accuracy"],
+                         "psnr_avg": md["psnr_avg"]})
+    finally:
+        os.chdir(cwd)
+    return rows
+
+
+def phase_rec_eval(root: str, val_dirs, crnn_ips: float):
+    """Phase 14: ASTER and MORAN score the flagship (and ``srcnn``, with
+    ASTER) on the card; a ``{"rec_eval": ...}`` line each.  Returns K1's
+    launches in each recognizer's (b)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(14)
+    check_batch = synthetic_batch(rng, REC_CHECK_BATCH, labels=False)
+    warm = synthetic_batch(rng, BATCH)
+    batches = [synthetic_batch(rng, BATCH) for _ in range(SERVE_BATCHES)]
+    launches = {}
+    for kind in REC_KINDS:
+        s0 = time.perf_counter()
+        out = {"recognizer": kind,
+               "card_vs_cpu": {"tsrn_tl_cascade": rec_card_vs_cpu(TRAINER_FLAGS, kind, check_batch)}}
+        if kind == "ASTER":
+            out["card_vs_cpu"]["srcnn"] = rec_card_vs_cpu(zoo_argv("train_SRCNN.sh"), kind, check_batch)
+        out["serve"] = rec_serve(kind, warm, batches, crnn_ips)
+        out["cli_test"] = rec_cli(root, val_dirs, kind)
+        out["s"] = time.perf_counter() - s0
+        launches[kind] = out["serve"]["k1_launches"]
+        print(json.dumps({"rec_eval": out}), flush=True)
+    print(json.dumps({"rec_eval_zoo_cli": rec_zoo_cli(root, val_dirs)}), flush=True)
+    print(f"rec_eval: phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def per_sr(rows, keys):
     """Each key summed over the two sweep rows, times N_SRB: one SR forward
     (or backward) at batch 48; None where a row has none (a library call
@@ -1652,11 +1932,14 @@ def main() -> int:
         packaged = phase_packaged_yaml(root, train_dirs, val_dirs)
         # 13. the SR zoo of the repo's other train scripts
         zoo = phase_zoo(root, train_dirs, val_dirs)
+        # 14. ASTER and MORAN as the eval recognizer
+        rec_launches = phase_rec_eval(root, val_dirs, serve_ips)
 
     kernels = [
         forward_entry(torch.float32, shapes, ptxas, launches, max_err, train_launches=train_launches,
                       lmdb_train_launches=lmdb_train["k1_launches"], lmdb_eval_launches=lmdb_eval["k1_launches"],
-                      trainer_launches=trainer_run["k1_launches"], zoo_launches=zoo["fp32"][0]),
+                      trainer_launches=trainer_run["k1_launches"], zoo_launches=zoo["fp32"][0],
+                      rec_eval_launches=rec_launches),
         backward_entry(torch.float32, bwd_shapes, bwd_ptxas, backward_launches, bwd_err,
                        lmdb_train_launches=lmdb_train["k1_backward_launches"],
                        trainer_launches=trainer_run["k1_backward_launches"], zoo_launches=zoo["fp32"][1]),

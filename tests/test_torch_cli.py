@@ -79,15 +79,15 @@ def _fp32_config():
     ({"arch": "vdsr"}, {}, "queue 1 item 7"),
     ({"arch": "tsrn_tl_wmask"}, {}, "queue 1 item 7"),
     ({"tpg": "OPT"}, {}, "queue 1 item 8"),
-    ({"test_model": "ASTER"}, {}, "queue 1 item 8"),
-    ({"test": True}, {}, "queue 1 item 8"),  # --rec defaults to aster
-    ({"test": True, "rec": "moran"}, {}, "queue 1 item 8"),
+    ({"test_model": "SEED"}, {}, "queue 1 item 8"),
+    ({"demo": True, "test_model": "ASTER"}, {}, "queue 1 item 8"),  # the JAX demo() decodes by CTC
+    ({"go_test": True, "test_model": "SEED"}, {}, "queue 1 item 8"),
     ({"syn": True}, {}, "queue 1 item 9"),
     ({"mixed": True}, {}, "queue 1 item 9"),
     ({"ic15sr": True}, {}, "queue 1 item 9"),
     ({"random_reso": True}, {}, "queue 1 item 9"),
     ({}, {"n_devices": 2}, "queue 1 item 10"),
-], ids=["vdsr", "tsrn_tl_wmask", "tpg", "test_model", "rec_default", "rec_moran", "syn", "mixed",
+], ids=["vdsr", "tsrn_tl_wmask", "tpg", "test_model", "demo_aster", "go_test_seed", "syn", "mixed",
         "ic15sr", "random_reso", "n_devices"])
 def test_what_is_not_ported_raises_naming_its_item(args_over, train_over, item):
     """Each raises ``NotImplementedError`` naming its ``ROADMAP.md`` item when

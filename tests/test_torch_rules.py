@@ -49,6 +49,10 @@ def test_port_imports_no_jax():
     lambda: cli.main(["--arch", "tsrn_tl_cascade"]),
     lambda: cli.main(["--arch", "tsrn", "--STN", "--mask"]),
     lambda: profile_zoo.mission(["--arch", "rdn_tl", "--mask"]),
+    lambda: trainer.eval_recognizer("ASTER", load_config()),
+    lambda: trainer.eval_recognizer("MORAN", load_config()),
+    lambda: trainer.TextSR(load_config(), default_args(arch="tsrn_tl_cascade", test=True, rec="aster")),
+    lambda: cli.main(["--arch", "srcnn", "--go_test", "--test_model", "MORAN"]),
     lambda: port_device.resolve_device(),
     lambda: port_device.resolve_device("cuda:0"),
 ])
@@ -83,3 +87,15 @@ def test_check_ported_raises_for_each_arch_not_ported(arch):
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_check_ported_accepts_each_ported_arch(arch):
     trainer.check_ported(load_config(), default_args(arch=arch, srb=6), torch.device("cpu"))
+
+
+@pytest.mark.parametrize("arch", ["tsrn_tl_cascade", "srcnn"])
+@pytest.mark.parametrize("over", [{"test": True, "rec": "aster"}, {"test": True, "rec": "moran"},
+                                  {"test": True}, {"go_test": True, "test_model": "ASTER"},
+                                  {"test_model": "MORAN"}],
+                         ids=["test_aster", "test_moran", "test_rec_default", "go_test_aster", "val_moran"])
+def test_check_ported_accepts_the_aster_and_moran_evals(arch, over):
+    """``--test`` with ``--rec aster`` (the default) or ``moran``, and
+    ``--test_model ASTER|MORAN`` for val and ``--go_test``, for the flagship
+    and a plain arch."""
+    trainer.check_ported(load_config(), default_args(arch=arch, **over), torch.device("cpu"))

@@ -13,13 +13,21 @@ measurements behind two bounds, run as ``python -m tests.torch_fp64_noise``.
   the port's fp32, the port's fp64 and the JAX package's fp32: Adam's first
   moments of the three students, which is why that file holds them at
   ``CASCADE_STUDENT_RTOL``.
+* ``srcnn_tl_distill_noise``: the first three iterations of ``TextSR`` for
+  ``srcnn_tl`` (tests/test_torch_zoo_trainer.py's run: its LMDB, CRNN,
+  flags, sizes and SR weights) in the port's fp32, the port's fp64 and the
+  JAX package's fp32: each step's losses, which is why that file holds
+  ``loss_distill`` at the late bound from step 3 (``DISTILL_LATE_FROM``).
 
 Prints one JSON object a line."""
 
 import tests.conftest  # noqa: F401  (first: JAX on the CPU at the highest matmul precision)
 
 import contextlib
+import io
 import json
+import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -83,6 +91,85 @@ def cascade_student_noise():
     return out
 
 
+def _recording(step, log, metrics_of=lambda out: out):
+    def recorded(*a, **k):
+        out = step(*a, **k)
+        log.append({n: float(v) for n, v in metrics_of(out).items()})
+        return out
+
+    return recorded
+
+
+def srcnn_tl_distill_noise(steps: int = 3):
+    import tempfile
+
+    import jax
+    from flax.core import unfreeze
+
+    from tests import test_torch_zoo_trainer as zt_trainer
+    from tests.test_torch_cli import _relabelled_lmdb
+    from tpgsr_tpu import config as jax_config
+    from tpgsr_tpu.train.trainer import TextSR as JaxTextSR
+    from tpgsr_tpu_torch import config
+    from tpgsr_tpu_torch.charset import CTC_NUM_CLASSES
+    from tpgsr_tpu_torch.interop import from_jax
+    from tpgsr_tpu_torch.models.crnn import CRNN
+    from tpgsr_tpu_torch.train import trainer
+
+    arch = "srcnn_tl"
+    args = dict(zt_trainer.ARGS[arch], srb=2, hd_u=8, batch_size=zt_trainer.B, vis_dir="run")
+    losses = {}
+    with tempfile.TemporaryDirectory() as root, contextlib.redirect_stdout(io.StringIO()):
+        teacher_path = os.path.join(root, "crnn.pth")
+        torch.save(init_torch_defaults_(CRNN(nclass=CTC_NUM_CLASSES), torch.Generator().manual_seed(7)).state_dict(),
+                   teacher_path)
+        db = _relabelled_lmdb(Path(root), teacher_path)
+        # val and saves after the compared steps
+        over = dict(epochs=2, interval=100)
+        jax_cfg = zt_trainer._configure(jax_config.load_config(), db, teacher_path, os.path.join(root, "jax"), **over)
+        jax_cfg.TRAIN.dispatch_chain, jax_cfg.TRAIN.n_devices = 1, 1
+        jax_mission = JaxTextSR(jax_cfg, jax_config.default_args(**args))
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            state = jax_mission.init_state()
+            sr_vars = jax.tree_util.tree_map(np.asarray, unfreeze({"params": state.sr_params[0],
+                                                                    "batch_stats": state.sr_stats[0]}))
+            jax_mission._build_steps()
+            jax_mission._train_step = _recording(jax_mission._train_step, losses.setdefault("jax_fp32", []),
+                                                 lambda out: out[1])
+            jax_mission.train()
+            with pytest_free_patch() as patch:
+                patch(port_step.COMPUTE_DTYPES, "fp64", torch.float64)
+                for name in ("fp32", "fp64"):
+                    cfg = zt_trainer._configure(config.load_config(), db, teacher_path, os.path.join(root, name), **over)
+                    cfg.TRAIN.workers, cfg.TRAIN.compute_dtype = 0, name
+                    port = trainer.TextSR(cfg, config.default_args(**args), device="cpu")
+                    port_state = port.init_state()
+                    port_state.sr[0].load_state_dict(from_jax.sr_state_dict(arch, sr_vars, srb_nums=2))
+                    if name == "fp64":
+                        for m in (*port_state.sr, *port_state.stu, port_state.teacher):
+                            m.double()
+                    port._build_steps()
+                    port._train_step = _recording(port._train_step, losses.setdefault(f"port_{name}", []))
+                    port.train()
+        finally:
+            os.chdir(cwd)
+    out = []
+    ref = losses["port_fp64"]
+    for k in range(steps):
+        row = {"step": k + 1}
+        for loss in ("loss_distill", "loss_img", "loss_total"):
+            want = ref[k][loss]
+            row[loss] = {"port_fp64": want,
+                         "port_fp32_vs_port_fp64": abs(losses["port_fp32"][k][loss] - want) / abs(want),
+                         "jax_fp32_vs_port_fp64": abs(losses["jax_fp32"][k][loss] - want) / abs(want),
+                         "port_fp32_vs_jax_fp32": abs(losses["port_fp32"][k][loss] - losses["jax_fp32"][k][loss])
+                         / abs(losses["jax_fp32"][k][loss])}
+        out.append(row)
+    return out
+
+
 @contextlib.contextmanager
 def pytest_free_patch():
     """Set dict entries for the block, with the step's autocast context off
@@ -113,3 +200,5 @@ if __name__ == "__main__":
         print(json.dumps({"srres_fp32_vs_fp64": row}), flush=True)
     for row in cascade_student_noise():
         print(json.dumps({"srresnet_tl_students": row}), flush=True)
+    for row in srcnn_tl_distill_noise():
+        print(json.dumps({"srcnn_tl_trainer": row}), flush=True)

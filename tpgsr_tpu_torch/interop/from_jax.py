@@ -18,7 +18,8 @@ copy:
 arch (TSRN / TSRN_TL, SRCNN(_TL), SRResNet(_TL), RDN(_TL)), inverting
 ``import_sr_checkpoint`` (torch_import.py:620-647).  The STN head (``stn_head``) inverts torch_import.py:163-181, running
 statistics included, when the flax variables hold one (``init`` in train
-mode).
+mode).  ``aster_state_dict`` and ``moran_state_dict`` invert ``import_aster``
+(torch_import.py:195) and ``import_moran`` (:235): the eval recognizers.
 """
 
 from __future__ import annotations
@@ -211,4 +212,90 @@ def crnn_state_dict(variables: Mapping[str, Any]) -> StateDict:
     for j in (0, 1):
         _rnn(sd, p[f"rnn{j}"]["rnn"], f"rnn.{j}.rnn")
         _linear(sd, p[f"rnn{j}"]["embedding"], f"rnn.{j}.embedding")
+    return sd
+
+
+def _rnn_layer(sd: StateDict, p: Mapping, prefix: str, layer: int) -> None:
+    """A flax BiLSTM's ``w_ih_l0``-style parameters as layer ``layer`` of a
+    multi-layer torch LSTM (torch_import.py:184-192, inverted)."""
+    for ours, value in p.items():
+        name = ours.replace("w_", "weight_", 1) if ours.startswith("w_") else ours.replace("b_", "bias_", 1)
+        sd[f"{prefix}.{name.replace('_l0', f'_l{layer}')}"] = _t(value)
+
+
+def aster_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """Flax ``RecognizerBuilder`` -> ``models.aster.RecognizerBuilder``
+    (torch_import.py:195-232, inverted)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: StateDict = {}
+    ep, es = p["encoder"], s["encoder"]
+    _conv(sd, ep["layer0_conv"], "encoder.layer0.0")
+    _bn(sd, ep["layer0_bn"], es["layer0_bn"], "encoder.layer0.1")
+    li = 1
+    while f"layer{li}_block0" in ep:
+        bi = 0
+        while f"layer{li}_block{bi}" in ep:
+            bp, bs, prefix = ep[f"layer{li}_block{bi}"], es[f"layer{li}_block{bi}"], f"encoder.layer{li}.{bi}"
+            for n in (1, 2):
+                _conv(sd, bp[f"conv{n}"], f"{prefix}.conv{n}")
+                _bn(sd, bp[f"bn{n}"], bs[f"bn{n}"], f"{prefix}.bn{n}")
+            if "downsample_conv" in bp:
+                _conv(sd, bp["downsample_conv"], f"{prefix}.downsample.0")
+                _bn(sd, bp["downsample_bn"], bs["downsample_bn"], f"{prefix}.downsample.1")
+            bi += 1
+        li += 1
+    for layer in (0, 1):
+        _rnn_layer(sd, ep[f"rnn_l{layer}"], "encoder.rnn", layer)
+    dp = p["decoder"]["decoder"]
+    for lin in ("sEmbed", "xEmbed", "wEmbed"):
+        _linear(sd, dp["attention_unit"][lin], f"decoder.decoder.attention_unit.{lin}")
+    sd["decoder.decoder.tgt_embedding.weight"] = _t(dp["tgt_embedding"]["embedding"])
+    for part in ("w_ih", "w_hh", "b_ih", "b_hh"):
+        name = part.replace("w_", "weight_") if part.startswith("w_") else part.replace("b_", "bias_")
+        sd[f"decoder.decoder.gru.{name}_l0"] = _t(dp[f"gru_{part}"])
+    _linear(sd, dp["fc"], "decoder.decoder.fc")
+    _stn(sd, p, s)
+    return sd
+
+
+def moran_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """Flax ``MORAN`` -> ``models.moran.MORAN`` (torch_import.py:235-286,
+    inverted)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: StateDict = {}
+    mp, ms = p["MORN"]["cnn"], s["MORN"]["cnn"]
+    for i, (ci, bi) in enumerate(((1, 2), (5, 6), (9, 10), (12, 13), (15, 16))):
+        _conv(sd, mp[f"cnn{i}"], f"MORN.cnn.{ci}")
+        _bn(sd, mp[f"cnn{i}_bn"], ms[f"cnn{i}_bn"], f"MORN.cnn.{bi}")
+    ap, as_ = p["ASRN"], s["ASRN"]
+    cp, cs = ap["cnn"], as_["cnn"]
+    _conv(sd, cp["block0_conv"], "ASRN.cnn.block0.0")
+    _bn(sd, cp["block0_bn"], cs["block0_bn"], "ASRN.cnn.block0.1")
+    li = 1
+    while f"block{li}_0" in cp:
+        ri = 0
+        while f"block{li}_{ri}" in cp:
+            bp, bs, prefix = cp[f"block{li}_{ri}"], cs[f"block{li}_{ri}"], f"ASRN.cnn.block{li}.{ri}"
+            for n in (1, 2):
+                _conv(sd, bp[f"conv{n}"], f"{prefix}.conv{n}.0")
+                _bn(sd, bp[f"bn{n}"], bs[f"bn{n}"], f"{prefix}.conv{n}.1")
+            if "down_conv" in bp:
+                _conv(sd, bp["down_conv"], f"{prefix}.downsample.0")
+                _bn(sd, bp["down_bn"], bs["down_bn"], f"{prefix}.downsample.1")
+            ri += 1
+        li += 1
+    for j in (0, 1):
+        _rnn(sd, ap[f"rnn{j}"], f"ASRN.rnn.{j}.rnn")
+        _linear(sd, ap[f"rnn{j}_embedding"], f"ASRN.rnn.{j}.embedding")
+    for att in ("attentionL2R", "attentionR2L"):
+        if att not in ap:
+            continue
+        tp, prefix = ap[att], f"ASRN.{att}"
+        sd[f"{prefix}.char_embeddings"] = _t(tp["char_embeddings"])
+        _linear(sd, tp["generator"], f"{prefix}.generator")
+        for lin in ("i2h", "h2h", "score"):
+            _linear(sd, tp[lin], f"{prefix}.attention_cell.{lin}")
+        for part in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            name = part.replace("w_", "weight_") if part.startswith("w_") else part.replace("b_", "bias_")
+            sd[f"{prefix}.attention_cell.rnn.{name}"] = _t(tp[f"gru_{part}"])
     return sd

@@ -33,11 +33,12 @@ def mish(x: torch.Tensor) -> torch.Tensor:
 
 
 def init_torch_defaults_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-draw every conv, linear and RNN weight from ``generator`` with
-    torch's default ranges: U(+-1/sqrt(fan_in)) for weights and biases (fan_in
-    of a transposed conv is out_channels * kh * kw), U(+-1/sqrt(hidden)) for
-    recurrent ones.  BatchNorm and PReLU keep their constant defaults.  An
-    STN head draws its own init instead (``STNHead.init_from_``)."""
+    """Re-draw every conv, linear, embedding and RNN weight from ``generator``
+    with torch's default ranges: U(+-1/sqrt(fan_in)) for weights and biases
+    (fan_in of a transposed conv is out_channels * kh * kw),
+    U(+-1/sqrt(hidden)) for recurrent ones, N(0, 1) for embeddings.
+    BatchNorm and PReLU keep their constant defaults.  An STN head draws its
+    own init instead (``STNHead.init_from_``)."""
     own = set()
     with torch.no_grad():
         for m in module.modules():
@@ -55,10 +56,12 @@ def init_torch_defaults_(module: nn.Module, generator: torch.Generator) -> nn.Mo
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:
                     m.bias.uniform_(-bound, bound, generator=generator)
-            elif isinstance(m, (nn.LSTM, BiGRUParams)):
+            elif isinstance(m, (nn.RNNBase, nn.RNNCellBase, BiGRUParams)):
                 bound = 1.0 / math.sqrt(m.hidden_size)
                 for p in m.parameters(recurse=False):
                     p.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, 1.0, generator=generator)
     return module
 
 

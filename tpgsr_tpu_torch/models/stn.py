@@ -47,25 +47,25 @@ class STNHead(nn.Module):
     """Predict NUM_CTRLPOINTS TPS control points in [0, 1] from the image.
 
     Six conv3x3-BN-ReLU blocks with 2x2 max-pools between, the fifth pool
-    (1, 2) (the SR variant); fc1's input width is 256 times the trunk's
+    ``last_pool``: (1, 2) in the SR variant (model/stn_head.py:34-45), (2, 2)
+    in the recognizer's (model/recognizer/stn_head.py:33-44, ASTER's, on a
+    3-channel 32x64 input).  fc1's input width is 256 times the trunk's
     output size, which follows ``input_size`` (h, w) as the flax module's
-    does (512 at the flagship's 16x64)."""
+    does: 512 at the flagship's 16x64 and at ASTER's 32x64."""
 
-    def __init__(self, in_planes: int, input_size: Tuple[int, int]):
+    def __init__(self, in_planes: int, input_size: Tuple[int, int], last_pool: Tuple[int, int] = (1, 2)):
         super().__init__()
         layers, c_in = [], in_planes
         h, w = input_size
         for i, c_out in enumerate(_CHANNELS):
             layers.append(_conv3x3_block(c_in, c_out))
-            if i < 4:
-                layers.append(nn.MaxPool2d(2, 2))
-                h, w = h // 2, w // 2
-            elif i == 4:
-                layers.append(nn.MaxPool2d((1, 2), (1, 2)))
-                w = w // 2
+            if i < 5:
+                pool = (2, 2) if i < 4 else tuple(last_pool)
+                layers.append(nn.MaxPool2d(pool, pool))
+                h, w = h // pool[0], w // pool[1]
             c_in = c_out
         if h < 1 or w < 1:
-            raise ValueError(f"STNHead needs an input of at least 16x64 / (1, 2) pools, got {input_size}")
+            raise ValueError(f"STNHead's pools leave nothing of an input of {input_size}")
         self.stn_convnet = nn.Sequential(*layers)
         self.stn_fc1 = nn.Sequential(nn.Linear(c_in * h * w, 512), nn.BatchNorm1d(512), nn.ReLU(inplace=True))
         self.stn_fc2 = nn.Linear(512, NUM_CTRLPOINTS * 2)

@@ -17,6 +17,8 @@ Files, with the JAX package's names and rules for when each is written:
 
 The ``state_dict`` keys are the original's, so the JAX package's
 ``restore_reference_checkpoint`` reads these files unchanged.
+``load_recognizer_state_dict`` reads the original's pretrained recognizer
+files (``aster_demo.pth.tar``, ``moran_demo.pth``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import json
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from tpgsr_tpu_torch.train.state import TrainState
@@ -73,6 +76,37 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, info: Dict[str, Any], is_b
 
 def _load(path: str) -> Any:
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _numpy_globals() -> list:
+    """numpy's scalar and array reconstructors and dtypes, under the names
+    of numpy 2 and of numpy 1 (``numpy.core``), for ``torch.load``'s
+    weights-only unpickler: building a number or an array runs no other
+    code."""
+    try:
+        from numpy._core.multiarray import _reconstruct, scalar
+    except ImportError:  # numpy 1
+        from numpy.core.multiarray import _reconstruct, scalar
+    dtypes = [type(np.dtype(t)) for t in (np.float16, np.float32, np.float64, np.int32, np.int64, np.bool_)]
+    return [scalar, _reconstruct, (scalar, "numpy.core.multiarray.scalar"),
+            (_reconstruct, "numpy.core.multiarray._reconstruct"), np.ndarray, np.dtype, *dtypes]
+
+
+def load_recognizer_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of an original recognizer file, keyed as its model's
+    ``state_dict``: the ``state_dict`` entry when the file is a dict that
+    has one (``aster_demo.pth.tar`` keeps it beside its epoch and best
+    score), ``module.`` prefixes of ``DataParallel`` stripped, entries that
+    are not tensors dropped (as tpgsr_tpu/interop/torch_import.py:29-45
+    reads it).  The file is read with ``weights_only=True``: plain Python
+    values, tensors, and numpy scalars and arrays (allowed here: a score
+    computed with numpy pickles as one) load; a file that needs any other
+    class raises ``pickle.UnpicklingError`` and is not executed."""
+    with torch.serialization.safe_globals(_numpy_globals()):
+        obj = _load(path)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k.replace("module.", ""): v for k, v in obj.items() if isinstance(v, torch.Tensor)}
 
 
 def restore_checkpoint(ckpt_dir_or_file: str, state: TrainState, prefer_best: bool = False) -> TrainState:

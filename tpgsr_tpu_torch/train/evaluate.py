@@ -12,7 +12,7 @@ With ``vis_dir`` the first batch is also saved as LR|SR|HR grids
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping
+from typing import Callable, Dict, Iterable, List, Mapping
 
 import numpy as np
 import torch
@@ -28,14 +28,17 @@ def _numpy(x) -> np.ndarray:
 
 
 def evaluate(eval_step: EvalStep, models: EvalModels, batches: Iterable[Mapping], max_batches: int = 0,
-             vis_dir: str = "", n_vis: int = 10) -> Dict[str, float]:
+             vis_dir: str = "", n_vis: int = 10,
+             decoder: Callable[[torch.Tensor], List[str]] = decode_crnn) -> Dict[str, float]:
     """Run ``eval_step`` over ``{"hr", "lr", "labels"}`` batches (numpy or a
     loader's tensors; other keys are ignored, and a short last batch counts
     its own rows, unpadded), the first ``max_batches`` only when it is
     above 0; returns the metric dict {accuracy, accuracy_lr, accuracy_hr,
-    psnr_avg, ssim_avg, images, accuracy_stage<i>}.  With ``vis_dir`` the
-    first batch's first ``n_vis`` samples go to ``./demo/<vis_dir>/1/`` and
-    the ones SR fixed to ``./display/<vis_dir>/``."""
+    psnr_avg, ssim_avg, images, accuracy_stage<i>}.  ``decoder`` turns the
+    recognizer's outputs into strings (``step.rec_decoder``; greedy CTC of a
+    CRNN's logits by default).  With ``vis_dir`` the first batch's first
+    ``n_vis`` samples go to ``./demo/<vis_dir>/1/`` and the ones SR fixed to
+    ``./display/<vis_dir>/``."""
     models.eval()
     totals = {"c": 0, "c_lr": 0, "c_hr": 0, "n": 0}
     stage_correct: Dict[int, int] = {}
@@ -47,7 +50,7 @@ def evaluate(eval_step: EvalStep, models: EvalModels, batches: Iterable[Mapping]
         psnr_batches.append(20.0 * np.log10(255.0 / np.sqrt(max(mse, 1e-12))))
         ssim_batches.append(float(outs["ssim"].mean()))
         totals["n"] += len(labels)
-        preds = {k: decode_crnn(v) for k, v in outs.items() if k.startswith("logits_")}
+        preds = {k: decoder(v) for k, v in outs.items() if k.startswith("logits_")}
         if vis_dir and bi == 0:
             lr, sr, hr = _numpy(batch["lr"]), _numpy(sr), _numpy(batch["hr"])
             visualize.tripple_display(lr, sr, hr, preds["logits_lr"], preds["logits_sr"], labels, index=1,

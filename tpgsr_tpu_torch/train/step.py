@@ -1,14 +1,16 @@
 """The train and eval steps of the SR zoo (counterpart of
 tpgsr_tpu/train/step.py:47-398: the cascade branch for the ``ABLATION_SET``
-archs and the plain branch for the archs without a prior; CRNN recognizer).
+archs and the plain branch for the archs without a prior; the CRNN, ASTER
+and MORAN eval recognizers).
 
 Cascade archs: each stage runs the student CRNN on the previous stage's
 image (the LR at stage 0), turns its logits into the prior, and runs the SR
 model on the LR with that prior.  Plain archs run the SR model on the LR
 alone.  In eval a frozen CRNN then reads SR, LR, HR and each earlier stage's
 SR for the word accuracies: the teacher of a cascade arch, the explicit eval
-recognizer (``EvalModels.rec``) of a plain one.  That is what
-``TextSR.test()`` and ``demo()`` serve (tpgsr_tpu/train/trainer.py:736-800).
+recognizer (``EvalModels.rec``) of a plain one, or ASTER or MORAN for
+either (``EvalModels.rec_kind``, tpgsr_tpu/train/step.py:317-346).  That is
+what ``TextSR.test()`` and ``demo()`` serve (tpgsr_tpu/train/trainer.py:736-800).
 In training the cascade's teacher reads HR, and its softmax is the
 distillation target; the step ends with backward, the SR clip and Adam.
 
@@ -40,13 +42,21 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from tpgsr_tpu_torch.charset import AsterInfo
 from tpgsr_tpu_torch.device import DeviceLike, resolve_device
 from tpgsr_tpu_torch.losses import image_loss, l1_loss, mse_loss, semantic_loss
+from tpgsr_tpu_torch.models.aster import RecognizerBuilder, decode_aster_ids
+from tpgsr_tpu_torch.models.moran import MORAN, decode_moran_ids
 from tpgsr_tpu_torch.models.registry import ABLATION_SET, check_arch
-from tpgsr_tpu_torch.ops.ctc import ctc_loss
+from tpgsr_tpu_torch.ops.ctc import ctc_loss, decode_crnn
 from tpgsr_tpu_torch.ops.image import append_contour_mask_u8, ssim
+from tpgsr_tpu_torch.ops.resize import interpolate_bicubic
 from tpgsr_tpu_torch.train.priors import logits_to_prior, parse_crnn_data, prior_dropout_first_quarter
 from tpgsr_tpu_torch.train.state import TrainState, clip_sr_grads
+
+
+# the eval recognizers (--test_model) that the port runs
+REC_KINDS = ("CRNN", "ASTER", "MORAN")
 
 
 @dataclass
@@ -54,8 +64,9 @@ class EvalModels:
     """SR models (one per stage, or one with ``sr_share``), student CRNNs
     (one per stage, or one with ``tpg_share``; none for a plain arch), the
     frozen teacher CRNN (None for a plain arch) and the eval recognizer
-    ``rec``, a CRNN that reads SR, LR and HR in place of the teacher: a plain
-    arch has no teacher and needs one (tpgsr_tpu/train/step.py:318-346)."""
+    ``rec``, which reads SR, LR and HR in place of the teacher
+    (tpgsr_tpu/train/step.py:318-346): a CRNN for a plain arch, which has no
+    teacher, or an ASTER or MORAN for any arch (``rec_kind``)."""
 
     sr: Sequence[nn.Module]
     stu: Sequence[nn.Module]
@@ -71,6 +82,35 @@ class EvalModels:
     @property
     def recognizer(self) -> nn.Module:
         return self.rec if self.rec is not None else self.teacher
+
+    @property
+    def rec_kind(self) -> str:
+        """The kind of the recognizer that reads the images: 'ASTER' or
+        'MORAN' for those models as ``rec``, else 'CRNN'."""
+        if isinstance(self.rec, RecognizerBuilder):
+            return "ASTER"
+        return "MORAN" if isinstance(self.rec, MORAN) else "CRNN"
+
+
+def rec_decoder(rec_kind: str, voc_type: str = "all") -> Callable[[torch.Tensor], list]:
+    """The host decoder of a recognizer's output in the eval step: CRNN
+    logits by greedy CTC, ASTER's beam ids through ``AsterInfo(voc_type)``,
+    MORAN's L2R logits by argmax cut at '$' (tpgsr_tpu/train/trainer.py:381-436)."""
+    if rec_kind == "ASTER":
+        info = AsterInfo(voc_type)
+        return lambda ids: decode_aster_ids(ids, info)
+    return {"CRNN": decode_crnn, "MORAN": decode_moran_ids}[rec_kind]
+
+
+def recognizer_input(rec_kind: str, img: torch.Tensor, crnn_w: int = 100) -> torch.Tensor:
+    """NHWC images in [0, 1] -> what a recognizer of ``rec_kind`` reads, NCHW
+    (tpgsr_tpu/train/step.py:320-346): ASTER the RGB resized bicubic to
+    32x128 and scaled to [-1, 1] (parse_aster_data); MORAN the bicubic
+    32x100 grayscale (parse_moran_data); a CRNN the bicubic 32 x ``crnn_w``
+    grayscale (parse_crnn_data)."""
+    if rec_kind == "ASTER":
+        return interpolate_bicubic(_nchw(img[..., :3]), (32, 128)) * 2.0 - 1.0
+    return _nchw(parse_crnn_data(img, 100 if rec_kind == "MORAN" else crnn_w))
 
 
 def crnn_width(cfg_width: int) -> int:
@@ -153,7 +193,12 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
     ``mask`` as the CLI names them; ``width`` is TRAIN.width (it sets the
     CRNN input width).  A cascade arch runs ``stu_iter`` stages, a plain one
     its SR model on the LR (tpgsr_tpu/train/step.py:354-379).  The batch's
-    ``hr`` and ``lr`` go to ``device`` (the card unless told otherwise)."""
+    ``hr`` and ``lr`` go to ``device`` (the card unless told otherwise).
+
+    The ``logits_<name>`` outputs are what the recognizer of
+    ``models.rec_kind`` gives for its input (``recognizer_input``): a CRNN
+    its [T, B, 37] logits, ASTER its beam-search ids [B, max_len], MORAN
+    its L2R logits [B, 20, 37].  ``rec_decoder`` turns each into strings."""
     arch = args.get("arch", "tsrn_tl_cascade")
     in_ch = check_arch(arch).in_channels
     cascade_arch = arch in ABLATION_SET
@@ -165,7 +210,10 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
     cw = crnn_width(int(width))
 
     def recognize(models: EvalModels, img: torch.Tensor) -> torch.Tensor:
-        return models.recognizer(_nchw(parse_crnn_data(img, cw)))
+        x = recognizer_input(models.rec_kind, img, cw)
+        if models.rec_kind == "MORAN":
+            return models.rec(x)[0]
+        return models.recognizer(x)
 
     @torch.no_grad()
     def eval_step(models: EvalModels, batch: Mapping[str, np.ndarray]):

@@ -16,7 +16,10 @@ val over the splits of TRAIN.VAL.val_data_dir at ``valInterval`` with the
 best-checkpoint policy, a save at ``saveInterval``, global epochs and
 iterations from the restored step.  ``--go_test`` runs val with
 visualizations, ``--test`` times eval over TEST.test_data_dir, ``--demo``
-reads the images of ``--demo_dir``.  What is not ported raises
+reads the images of ``--demo_dir``.  Val, ``--go_test`` and ``--test`` score
+the images with the recognizer of ``--test_model`` (``--rec`` for
+``--test``): the teacher CRNN, or ASTER or MORAN (``eval_recognizer``).
+What is not ported raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item (``check_ported``);
 ``dispatch_chain``, ``eval_tile`` and ``wire_uint8`` are read by nothing:
 the port runs one step a dispatch on the uint8 wire.
@@ -33,13 +36,14 @@ import numpy as np
 import torch
 from PIL import Image
 
-from tpgsr_tpu_torch.charset import CTC_NUM_CLASSES
+from tpgsr_tpu_torch.charset import CTC_NUM_CLASSES, AsterInfo
 from tpgsr_tpu_torch.config import AttrDict, apply_arg_overrides, registry_dicts
 from tpgsr_tpu_torch.data.collate import COLLATES, CollateConfig
 from tpgsr_tpu_torch.data.datasets import ConcatDataset, TextZoomDataset
 from tpgsr_tpu_torch.data.loader import Loader, make_loader
 from tpgsr_tpu_torch.data.transforms import resize_normalize
 from tpgsr_tpu_torch.device import DeviceLike, resolve_device
+from tpgsr_tpu_torch.models import aster, moran
 from tpgsr_tpu_torch.models.crnn import CRNN
 from tpgsr_tpu_torch.models.layers import init_torch_defaults_
 from tpgsr_tpu_torch.models.registry import ABLATION_SET, TL_SIMPLE, build_model, check_arch
@@ -49,7 +53,10 @@ from tpgsr_tpu_torch.train import checkpoint as ckpt
 from tpgsr_tpu_torch.train.evaluate import evaluate
 from tpgsr_tpu_torch.train.logging import ScalarLogger
 from tpgsr_tpu_torch.train.state import TrainState, create_train_state
-from tpgsr_tpu_torch.train.step import EvalModels, make_eval_step, make_train_step, torch_dtype
+from tpgsr_tpu_torch.train.step import REC_KINDS, EvalModels, make_eval_step, make_train_step, rec_decoder, torch_dtype
+
+# --rec of --test -> the eval recognizer (tpgsr_tpu/train/trainer.py:749-751)
+REC_MAP = {"aster": "ASTER", "moran": "MORAN", "crnn": "CRNN"}
 
 
 def collate_kind(arch: str, train: bool) -> str:
@@ -155,6 +162,58 @@ class BestTracker:
                 "ssim": dict(self.best_model_ssim)}
 
 
+def eval_rec_kind(args: Mapping) -> str:
+    """The eval recognizer a run scores with: ``--rec`` under ``--test``,
+    ``--test_model`` otherwise."""
+    if args.get("test"):
+        return REC_MAP.get(args.get("rec", "crnn"), "CRNN")
+    return str(args.get("test_model") or "CRNN")
+
+
+def load_crnn(path: str, generator: torch.Generator) -> CRNN:
+    """A CRNN from ``path`` when that file exists (a plain ``state_dict``;
+    interfaces/base.py:634-660), drawn from ``generator`` otherwise."""
+    model = CRNN(nclass=CTC_NUM_CLASSES)
+    if path and os.path.exists(path):
+        model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    else:
+        init_torch_defaults_(model, generator)
+    return model
+
+
+def eval_recognizer(kind: str, config: AttrDict, device: DeviceLike = None) -> torch.nn.Module:
+    """The frozen eval recognizer of ``--test_model`` (test_bible,
+    super_resolution.py:107-135; tpgsr_tpu/train/trainer.py:381-458), in
+    eval mode on ``device`` (the card unless told otherwise): ASTER from
+    TRAIN.VAL.rec_pretrained with ``AsterInfo(TRAIN.voc_type)``, MORAN from
+    TRAIN.VAL.moran_pretrained (files in the original's layout,
+    ``checkpoint.load_recognizer_state_dict``; the constants the original
+    keeps as buffers are dropped), a CRNN from TRAIN.VAL.crnn_pretrained.
+    Where the file does not exist the weights are drawn from seed 7, as the
+    JAX package draws them from its key 7 (other numbers, the same
+    distributions)."""
+    dev = resolve_device(device)
+    val = config.TRAIN.VAL
+    gen = torch.Generator().manual_seed(7)
+    if kind == "CRNN":
+        model = load_crnn(val.get("crnn_pretrained", ""), gen)
+    elif kind in ("ASTER", "MORAN"):
+        if kind == "ASTER":
+            info = AsterInfo(config.TRAIN.voc_type)
+            model = aster.RecognizerBuilder(info.rec_num_classes, info.char2id[info.EOS], max_len_labels=info.max_len)
+            path, constants = val.get("rec_pretrained", ""), aster.ORIGINAL_CONSTANTS
+        else:
+            model, path, constants = moran.MORAN(), val.get("moran_pretrained", ""), moran.ORIGINAL_CONSTANTS
+        if path and os.path.exists(path):
+            sd = ckpt.load_recognizer_state_dict(path)
+            model.load_state_dict({k: v for k, v in sd.items() if not k.startswith(constants)})
+        else:
+            model.init_from_(gen)
+    else:
+        raise NotImplementedError(f"--test_model {kind}: not ported yet (ROADMAP.md queue 1 item 8)")
+    return model.to(dev).eval().requires_grad_(False)
+
+
 def check_ported(config: AttrDict, args: Mapping, device: torch.device) -> None:
     """Raise ``NotImplementedError``, naming its ``ROADMAP.md`` item, for
     what the run asks that the port does not do yet."""
@@ -169,10 +228,12 @@ def check_ported(config: AttrDict, args: Mapping, device: torch.device) -> None:
         missing(f"TRAIN.n_devices {t.n_devices}: data parallelism over several cards", "queue 1 item 10")
     if args.get("tpg", "CRNN") != "CRNN":
         missing(f"--tpg {args['tpg']}", "queue 1 item 8")
-    if str(args.get("test_model") or "CRNN") != "CRNN":
-        missing(f"--test_model {args['test_model']}", "queue 1 item 8")
-    if args.get("test") and args.get("rec", "aster") != "crnn":
-        missing(f"--test with --rec {args.get('rec', 'aster')} (pass --rec crnn)", "queue 1 item 8")
+    kind = eval_rec_kind(args)
+    if kind not in REC_KINDS:
+        missing(f"--test_model {kind}", "queue 1 item 8")
+    if args.get("demo") and kind != "CRNN":
+        # the JAX package's demo() decodes any recognizer's output by CTC
+        missing(f"--demo with --test_model {kind}", "queue 1 item 8")
     for flag in ("syn", "mixed", "ic15sr", "random_reso"):
         if args.get(flag):
             missing(f"--{flag}", "queue 1 item 9")
@@ -212,7 +273,8 @@ class TextSR:
         self.n_sr = (1 if args.get("sr_share") else self.stu_iter) if self.is_tl else 1
         self.n_stu = (1 if args.get("tpg_share") else self.stu_iter) if self.is_tl else 0
         self._state: Optional[TrainState] = None
-        self._rec: Optional[CRNN] = None
+        self._rec: Optional[torch.nn.Module] = None
+        self._rec_kind: Optional[str] = None
         self._train_step: Optional[Callable] = None
         self._eval_step: Optional[Callable] = None
 
@@ -237,28 +299,22 @@ class TextSR:
     def _eval_only(self) -> bool:
         return bool(self.args.get("go_test") or self.args.get("test") or self.args.get("demo"))
 
-    def _teacher(self, gen: torch.Generator) -> CRNN:
-        """The frozen CRNN: TRAIN.VAL.crnn_pretrained when that file exists (a
-        plain ``state_dict``; interfaces/base.py:634-660), drawn otherwise."""
-        teacher = CRNN(nclass=CTC_NUM_CLASSES)
-        path = self.config.TRAIN.VAL.get("crnn_pretrained", "")
-        if path and os.path.exists(path):
-            teacher.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
-        else:
-            init_torch_defaults_(teacher, gen)
-        return teacher
-
-    def _eval_recognizer(self) -> Optional[CRNN]:
-        """A plain arch's eval CRNN, which its state lacks: loaded as the
-        teacher is, or drawn from its own seed, 7, as the JAX package draws
-        it from its own key (tpgsr_tpu/train/trainer.py:440-457); built once,
-        frozen, on the device.  None for a cascade arch: its teacher reads
-        the images."""
-        if self.is_tl:
+    def _eval_recognizer(self) -> Optional[torch.nn.Module]:
+        """The eval recognizer of ``--test_model`` that the state lacks
+        (``eval_recognizer``): ASTER or MORAN for any arch, a CRNN for a
+        plain arch; None for a cascade arch scored by CRNN, whose teacher
+        reads the images.  Built when ``--test_model`` changes (``test()``
+        sets it from ``--rec``), as the JAX package rebuilds its eval step
+        (tpgsr_tpu/train/trainer.py:470-481), and frozen on the device."""
+        kind = str(self.args.get("test_model") or "CRNN")
+        if kind == "CRNN" and self.is_tl:
             return None
-        if self._rec is None:
-            self._rec = self._teacher(torch.Generator().manual_seed(7)).to(self.device).eval().requires_grad_(False)
+        if self._rec_kind != kind:
+            self._rec, self._rec_kind = eval_recognizer(kind, self.config, self.device), kind
         return self._rec
+
+    def _decoder(self):
+        return rec_decoder(str(self.args.get("test_model") or "CRNN"), self.config.TRAIN.voc_type)
 
     def init_state(self) -> TrainState:
         """SR models drawn from TRAIN.manualSeed (then a cascade arch's
@@ -269,7 +325,7 @@ class TextSR:
         gen = torch.Generator().manual_seed(int(t.get("manualSeed", 1234)))
         a, cfg = registry_dicts(self.config, self.args)
         sr = [init_torch_defaults_(build_model(self.arch, a, cfg)[0], gen).to(self.device) for _ in range(self.n_sr)]
-        teacher = self._teacher(gen).to(self.device) if self.is_tl else None
+        teacher = load_crnn(t.VAL.get("crnn_pretrained", ""), gen).to(self.device) if self.is_tl else None
         state = create_train_state(sr, teacher, n_stu=self.n_stu, lr=float(t.lr), beta1=float(t.beta1))
         resume = self.args.get("resume") or t.get("resume")
         if resume:
@@ -286,7 +342,7 @@ class TextSR:
             self._eval_step = make_eval_step(self.args, width, device=self.device)
 
     @staticmethod
-    def _eval_models(state: TrainState, rec: Optional[CRNN] = None) -> EvalModels:
+    def _eval_models(state: TrainState, rec: Optional[torch.nn.Module] = None) -> EvalModels:
         return EvalModels(sr=state.sr, stu=state.stu, teacher=state.teacher, rec=rec).eval()
 
     # ----------------------------------------------------------------- train
@@ -371,7 +427,7 @@ class TextSR:
         mds = {}
         for d, loader in zip(t.VAL.val_data_dir, val_data):
             name = split_name(d)
-            md = evaluate(self._eval_step, models, loader, **kw)
+            md = evaluate(self._eval_step, models, loader, decoder=self._decoder(), **kw)
             print(f"  [val {name}] acc={md['accuracy']:.4f} (lr={md['accuracy_lr']:.4f} "
                   f"hr={md['accuracy_hr']:.4f}) psnr={md['psnr_avg']:.2f} ssim={md['ssim_avg']:.4f}", flush=True)
             for k in ("psnr_avg", "ssim_avg", "accuracy"):
@@ -382,15 +438,18 @@ class TextSR:
     # ------------------------------------------------------------------ test
     def test(self) -> Dict[str, float]:
         """Eval over TEST.test_data_dir (``--test``), fed the LR as the JAX
-        package does (the reference feeds HR, super_resolution.py:1381): one
+        package does (the reference feeds HR, super_resolution.py:1381), read
+        by the recognizer of ``--rec`` (super_resolution.py:1360-1370): one
         warm batch, then a timed pass; its metric dict with ``fps``."""
         (loader,) = self.get_val_data([self.config.TEST.test_data_dir])
         state = self._state if self._state is not None else self.init_state()
+        self.args["test_model"] = eval_rec_kind(self.args)
         self._build_steps(with_train=False)
         models = self._eval_models(state, self._eval_recognizer())
-        evaluate(self._eval_step, models, loader, max_batches=1)
+        decoder = self._decoder()
+        evaluate(self._eval_step, models, loader, max_batches=1, decoder=decoder)
         t0 = time.time()
-        md = evaluate(self._eval_step, models, loader)
+        md = evaluate(self._eval_step, models, loader, decoder=decoder)
         md["fps"] = md["images"] / (time.time() - t0)
         print({k: round(v, 4) if isinstance(v, float) else v for k, v in md.items()}, flush=True)
         return md
