@@ -91,11 +91,28 @@ package beside this script):
    line each; then each of phase 13's seven scripts through ``cli.main``
    with ``--test`` from its fp32 checkpoint, ASTER and MORAN in turn (a
    ``{"rec_eval_zoo_cli": ...}`` line).
+15. the rest of the single-model zoo (``tsrn_tl_wmask``, ``tsrn_tl``,
+   ``textzoom_net``, ``vdsr``, ``vdsr_tl``, ``edsr``, ``lapsrn``,
+   ``esrgan``, ``esrgan_tl``, ``bicubic``), each with the flags it reads of
+   ``--STN`` and ``--mask``: (a) one ``tsrn_tl_cascade --stu_iter 2`` step
+   whose stages are recomputed in the backward, card against CPU at batch
+   8, K1 launched 20 + 20 times forward (the second 20 the recompute) and 20
+   backward; then each arch's eval step and one fp32 train step at batch 8,
+   card against CPU (phase 13's bounds); (b) each arch's 20 fp32 and 20
+   bf16 train steps at batch 48 and ``evaluate`` over 4 batches (a
+   ``{"zoo_rest": ...}`` line each, the host's load beside them), then
+   ``srresnet_tl --stu_iter=3 --sr_share`` (recomputed) at batch 48 and one
+   step at the YAML's batch 512, with peak memory; (c) ``cli.main`` with no
+   ``--arch`` (``tsrn_tl_wmask``) on the packaged YAML (bf16) over phase 9's
+   first train LMDB with a val, ``--test --rec crnn`` from its checkpoint,
+   then the flagship's flags with ``--ssim_loss``.
 
-The line before the last is ``{"kernels": [...]}``: K1's forward and
+The third line from the end is ``{"phase_seconds": {...}}``, each phase's
+seconds; the line before the last is ``{"kernels": [...]}``: K1's forward and
 backward in fp32 and in bf16 (``zoo_launches``: ``tsrn``'s in phase
-13(b); ``rec_eval_launches``: phase 14(b)'s); the last is ``{"ok": true,
-"device": {...}}``.
+13(b); ``rec_eval_launches``: phase 14(b)'s; ``tl_simple_launches``:
+``tsrn_tl_wmask``'s in phase 15(b); ``remat_launches``: phase 15(a)'s
+recomputed step); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -127,6 +144,7 @@ from tpgsr_tpu_torch.ops import _build, gru_seq, rnn
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
 from tpgsr_tpu_torch.ops.image import append_contour_mask_u8
 from tpgsr_tpu_torch.profile_eval import trace
+from tpgsr_tpu_torch.profile_zoo import ARCH_FLAGS, argv_of
 from tpgsr_tpu_torch.profile_zoo import mission as zoo_mission
 from tpgsr_tpu_torch.train import trainer
 from tpgsr_tpu_torch.train.evaluate import evaluate
@@ -151,8 +169,10 @@ TRAIN_PAIRS = (TRAIN_WARMUP + TRAIN_STEPS) * BATCH
 VAL_PAIRS = (162, 141, 134)
 
 
-# conv biases that a BatchNorm follows in train mode: zero gradient in exact arithmetic
-PRE_BN_BIAS = re.compile(r"(block\d+\.conv[12]|block7\.0|stn_convnet\.\d+\.0|stn_fc1\.0|cnn\.conv[246])\.bias$")
+# conv biases that a BatchNorm follows in train mode: zero gradient in exact
+# arithmetic (block7.0: the trunk's last conv at 5 SRBs and in SRResNet;
+# block8.0: at textzoom_net's 6)
+PRE_BN_BIAS = re.compile(r"(block\d+\.conv[12]|block[78]\.0|stn_convnet\.\d+\.0|stn_fc1\.0|cnn\.conv[246])\.bias$")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1374,13 +1394,16 @@ def zoo_card_vs_cpu(argv, batch):
             out["eval_logits_max_abs_err"] = max(out.get("eval_logits_max_abs_err", 0.0), err)
         else:
             check(torch.allclose(outs_g[k].cpu(), outs_c[k], rtol=1e-4, atol=1e-4), f"eval {k} card vs CPU")
+    gru_seq.LAUNCHES = gru_seq.BACKWARD_LAUNCHES = 0
     m_card = card._train_step(card_state, batch)
+    out["k1_train_step_launches"] = (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES)
     m_cpu = cpu._train_step(cpu_state, batch)
     for k in m_cpu:
         got, want = float(m_card[k]), float(m_cpu[k])
         check(np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want), f"train {k}: card {got} vs CPU {want}")
     out["losses"] = {k: float(v) for k, v in m_card.items()}
-    pairs = [(f"sr{i}", a, b, 5e-3) for i, (a, b) in enumerate(zip(card_state.sr, cpu_state.sr))]
+    pairs = [(f"sr{i}", a, b, 5e-3) for i, (a, b) in enumerate(zip(card_state.sr, cpu_state.sr))
+             if list(b.parameters())]  # bicubic has none
     pairs += [(f"stu{i}", a, b, 3e-2) for i, (a, b) in enumerate(zip(card_state.stu, cpu_state.stu))]
     for name, a, b, tol in pairs:
         errs = check_card_grads(name, a, b, tol, floor=1e-6)
@@ -1540,6 +1563,139 @@ def phase_zoo(root: str, train_dirs, val_dirs):
             check(got == want, f"{script} ({dtype}) through the CLI: K1 launched {got} times, expected {want}")
             print(json.dumps({"zoo_cli": cli_out}), flush=True)
     print(f"zoo: phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+# phase 15: the rest of the single-model zoo, each arch with its flags of
+# ``profile_zoo.ARCH_FLAGS``; the SRBs of those that run K1 (each runs it
+# once over W and once over H)
+ZOO_REST_SRB = {"tsrn_tl_wmask": N_SRB, "tsrn_tl": N_SRB, "textzoom_net": 6}
+REMAT_FLAGS = ["--arch", "tsrn_tl_cascade", "--STN", "--mask", "--use_distill", "--gradient", "--stu_iter=2"]
+SRRESNET3_SCRIPT = "train_TPGSR-SRResNet.sh"  # --stu_iter=3 --sr_share
+BIG_BATCH = 512  # the packaged YAML's TRAIN.batch_size
+
+
+def remat_big_batch(rng):
+    """(b) ``srresnet_tl --stu_iter=3 --sr_share`` with each stage recomputed
+    in its backward: one fp32 step at the YAML's batch 512 after a warm one,
+    its time and peak memory."""
+    mission, state, _ = zoo_mission(zoo_argv(SRRESNET3_SCRIPT), "fp32", device="cuda")
+    batch = synthetic_batch(rng, BIG_BATCH, labels=False)
+    mission._train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = mission._train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    check(all(np.isfinite(float(v)) for v in metrics.values()), "srresnet_tl at batch 512: non-finite loss")
+    ms = start.elapsed_time(end)
+    return {"batch": BIG_BATCH, "ms_per_step": ms, "images_per_s": BIG_BATCH / (ms / 1e3),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def zoo_rest_cli(root: str, train_dirs, val_dirs):
+    """(c) ``cli.main`` with no ``--arch`` (so ``tsrn_tl_wmask``) on the
+    packaged YAML (bf16) over phase 9's first train LMDB (an epoch of 11
+    iterations, a val and a save at its end), then ``--test --rec crnn`` from
+    its checkpoint over the smallest val split; then the flagship's flags
+    with ``--ssim_loss`` the same way.  Finite losses; K1's launches in each
+    run."""
+    iterations = TRAIN_PAIRS // BATCH // len(train_dirs)
+    cfg = load_config()
+    cfg.TRAIN.update(train_data_dir=list(train_dirs[:1]), batch_size=BATCH, epochs=1, saveInterval=iterations,
+                     displayInterval=iterations, workers=0, ckpt_dir=f"{root}/ckpt_rest")
+    cfg.TRAIN.VAL.update(val_data_dir=list(val_dirs), valInterval=iterations)
+    cfg.TEST.test_data_dir = val_dirs[int(np.argmin(VAL_PAIRS))]
+    config_path = f"{root}/zoo_rest.yaml"
+    with open(config_path, "w") as f:
+        json.dump(cfg, f)  # JSON is YAML
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        for name, argv in (("default_arch", []), ("flagship_ssim_loss", TRAINER_FLAGS + ["--ssim_loss"])):
+            argv = argv + ["--vis_dir", f"rest_{name}", "--config", config_path]
+            args = build_arg_parser().parse_args(argv)
+            probe = TrainerProbe()
+            gru_seq.LAUNCHES = gru_seq.BACKWARD_LAUNCHES = 0
+            start = time.perf_counter()
+            with probe.installed():
+                state = cli.main(argv)
+            torch.cuda.synchronize()
+            run = {"arch": args.arch, "ssim_loss": args.ssim_loss, "run_s": time.perf_counter() - start,
+                   "iterations": state.step, "compute_dtypes": probe.compute_dtypes,
+                   "losses_first": {k: float(v) for k, v in probe.metrics[0].items()},
+                   "losses_second": {k: float(v) for k, v in probe.metrics[1].items()},
+                   "val": [e["out"] for e in probe.events if e["name"] == "val"],
+                   "k1_launches": (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES)}
+            check(state.step == iterations and probe.compute_dtypes == ["bf16"], f"{name}: {run}")
+            check(all(np.isfinite(v) for m in (run["losses_first"], run["losses_second"]) for v in m.values()),
+                  f"{name}: non-finite losses {run['losses_first']} {run['losses_second']}")
+            check(len(state.sr) == 1 and len(state.stu) == 1 and len(run["val"]) == 1, f"{name}: state or val")
+            del state
+            if name == "default_arch":
+                check(args.arch == "tsrn_tl_wmask", f"the CLI's default arch is {args.arch}")
+                md = cli.main(argv + ["--test", "--rec", "crnn", "--resume", f"{root}/ckpt_rest/rest_{name}"])
+                check(md["images"] == min(VAL_PAIRS) and all(np.isfinite(v) for v in md.values()), f"--test: {md}")
+                run["test"] = md
+            out[name] = run
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def phase_zoo_rest(root: str, train_dirs, val_dirs):
+    """Phase 15: the other ten archs of the JAX package but two.  (a) Each at
+    batch 8 and full width with its flags, card against CPU (phase 13's
+    bounds), and one ``tsrn_tl_cascade --stu_iter 2`` step whose stages are
+    recomputed in the backward, its K1 launches counted; (b) each arch's fp32
+    and bf16 training (20 steps at batch 48) and eval (4 batches), then
+    ``srresnet_tl --stu_iter=3 --sr_share`` at batch 48 and one step at batch
+    512, with peak memory; (c) the CLI with no ``--arch``, ``--test``, and
+    ``--ssim_loss``.  Returns K1's launches: (a)'s recomputed step, and the
+    ``tsrn_tl_wmask`` fp32 and bf16 runs of (b), each (forward, backward)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(15)
+    small = synthetic_batch(rng, CARD_VS_CPU_TRAIN_BATCH, labels=False)
+    train_batches = [synthetic_batch(rng, BATCH, labels=False) for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    eval_batches = [synthetic_batch(rng, BATCH) for _ in range(1 + ZOO_EVAL_BATCHES)]
+    launches = {}
+    # (a) the recompute: 2 stages of 5 SRBs, K1 forward 20 + 20 (the
+    # recompute) and backward 20
+    remat = zoo_card_vs_cpu(REMAT_FLAGS, small)
+    want = (2 * 2 * 2 * N_SRB, 2 * 2 * N_SRB)
+    check(remat["k1_train_step_launches"] == want,
+          f"recomputed cascade: K1 launched {remat['k1_train_step_launches']}, expected {want}")
+    launches["remat"] = remat["k1_train_step_launches"]
+    print(json.dumps({"zoo_rest_remat": {"flags": REMAT_FLAGS, "batch": CARD_VS_CPU_TRAIN_BATCH,
+                                         "card_vs_cpu": remat}}), flush=True)
+    print(json.dumps({"zoo_host": host_load()}), flush=True)
+    for arch in ARCH_FLAGS:
+        argv = argv_of(arch)
+        s0 = time.perf_counter()
+        out = {"arch": arch, "flags": ARCH_FLAGS[arch], "card_vs_cpu": zoo_card_vs_cpu(argv, small)}
+        srb = ZOO_REST_SRB.get(arch, 0)
+        step_want = (2 * srb, 2 * srb)
+        check(out["card_vs_cpu"]["k1_train_step_launches"] == step_want,
+              f"{arch}: K1 launched {out['card_vs_cpu']['k1_train_step_launches']} in a step, expected {step_want}")
+        for dtype in ("fp32", "bf16"):
+            out[dtype] = zoo_train(argv, dtype, train_batches)
+            got = (out[dtype]["k1_launches"], out[dtype]["k1_backward_launches"])
+            check(got == (2 * srb * TRAIN_STEPS,) * 2, f"{arch} {dtype}: K1 launched {got} times in 20 steps")
+            if arch == "tsrn_tl_wmask":
+                launches[dtype] = got
+        out["eval"] = zoo_eval(argv, eval_batches)
+        check(out["eval"]["k1_launches"] == 2 * srb * ZOO_EVAL_BATCHES, f"{arch} eval: K1 launches")
+        out["s"] = time.perf_counter() - s0
+        print(json.dumps({"zoo_rest": out}), flush=True)
+    print(json.dumps({"zoo_host": host_load()}), flush=True)
+    srres3 = {"script": SRRESNET3_SCRIPT, "batch_48_fp32": zoo_train(zoo_argv(SRRESNET3_SCRIPT), "fp32", train_batches),
+              "batch_512_fp32": remat_big_batch(rng)}
+    print(json.dumps({"zoo_rest_srresnet_tl_remat": srres3}), flush=True)
+    print(json.dumps({"zoo_rest_cli": zoo_rest_cli(root, train_dirs, val_dirs)}), flush=True)
+    print(f"zoo_rest: phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -1892,6 +2048,12 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # seconds of each phase (or group), for the line before the kernels line
+    seconds, last = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name], last[0] = now - last[0], now
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1905,52 +2067,71 @@ def main() -> int:
     print(f"build: {len(logs)} kernel source(s) compiled in {time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = check_ptxas("bigru_seq", backward=False)
     bwd_ptxas = check_ptxas("bigru_seq_bwd", backward=True)
+    lap("1-2 device, build")
 
     # 3. K1 against its plain version, fp32 and bf16
     max_err, shapes = phase_k1()
     bf16_err, bf16_shapes = phase_k1(torch.bfloat16)
+    lap("3 K1")
 
     # 4. card vs CPU, 5. serve
     models, step = phase_card_vs_cpu()
     launches, serve_ips = phase_serve(models, step)
     del models, step
+    lap("4-5 eval")
 
     # 6. K1's backward against its plain version, 7. train step card vs CPU, 8. train
     bwd_err, bwd_shapes = phase_k1_backward()
     bf16_bwd_err, bf16_bwd_shapes = phase_k1_backward(torch.bfloat16)
+    lap("6 K1 backward")
     phase_train_card_vs_cpu()
     train_launches, backward_launches, train = phase_train()
     train_ips = train["images_per_s"]
+    lap("7-8 train")
 
     # 9. the TextZoom data path, 10. the trainer and the CLI, 11. the bf16
     # train step, 12. the packaged YAML (bf16) through the CLI, 13. the SR
     # zoo, in one temporary directory
     with tempfile.TemporaryDirectory(prefix="textzoom-") as root:
         lmdb_train, lmdb_eval, train_dirs, val_dirs = phase_data(root, serve_ips, train_ips)
+        lap("9 data")
         trainer_run = phase_trainer(root, train_dirs, val_dirs, lmdb_train["images_per_s"])
+        lap("10 trainer")
         bf16_launches, bf16_backward_launches, bf16_train = phase_train_bf16(train)
+        lap("11 bf16")
         packaged = phase_packaged_yaml(root, train_dirs, val_dirs)
+        lap("12 packaged YAML")
         # 13. the SR zoo of the repo's other train scripts
         zoo = phase_zoo(root, train_dirs, val_dirs)
+        lap("13 zoo")
         # 14. ASTER and MORAN as the eval recognizer
         rec_launches = phase_rec_eval(root, val_dirs, serve_ips)
+        lap("14 eval recognizers")
+        # 15. the rest of the single-model zoo
+        rest = phase_zoo_rest(root, train_dirs, val_dirs)
+        lap("15 rest of the zoo")
 
     kernels = [
         forward_entry(torch.float32, shapes, ptxas, launches, max_err, train_launches=train_launches,
                       lmdb_train_launches=lmdb_train["k1_launches"], lmdb_eval_launches=lmdb_eval["k1_launches"],
                       trainer_launches=trainer_run["k1_launches"], zoo_launches=zoo["fp32"][0],
-                      rec_eval_launches=rec_launches),
+                      rec_eval_launches=rec_launches, tl_simple_launches=rest["fp32"][0],
+                      remat_launches=rest["remat"][0]),
         backward_entry(torch.float32, bwd_shapes, bwd_ptxas, backward_launches, bwd_err,
                        lmdb_train_launches=lmdb_train["k1_backward_launches"],
-                       trainer_launches=trainer_run["k1_backward_launches"], zoo_launches=zoo["fp32"][1]),
+                       trainer_launches=trainer_run["k1_backward_launches"], zoo_launches=zoo["fp32"][1],
+                       tl_simple_launches=rest["fp32"][1], remat_launches=rest["remat"][1]),
         forward_entry(torch.bfloat16, bf16_shapes, ptxas, bf16_launches, bf16_err,
                       train_images_per_s=bf16_train["bf16_images_per_s"],
-                      packaged_yaml_launches=packaged["k1_launches"], zoo_launches=zoo["bf16"][0]),
+                      packaged_yaml_launches=packaged["k1_launches"], zoo_launches=zoo["bf16"][0],
+                      tl_simple_launches=rest["bf16"][0]),
         backward_entry(torch.bfloat16, bf16_bwd_shapes, bwd_ptxas, bf16_backward_launches, bf16_bwd_err,
-                       packaged_yaml_launches=packaged["k1_backward_launches"], zoo_launches=zoo["bf16"][1]),
+                       packaged_yaml_launches=packaged["k1_backward_launches"], zoo_launches=zoo["bf16"][1],
+                       tl_simple_launches=rest["bf16"][1]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
+    print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

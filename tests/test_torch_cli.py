@@ -76,8 +76,8 @@ def _fp32_config():
 
 
 @pytest.mark.parametrize("args_over,train_over,item", [
-    ({"arch": "vdsr"}, {}, "queue 1 item 7"),
-    ({"arch": "tsrn_tl_wmask"}, {}, "queue 1 item 7"),
+    ({"arch": "tsrn_c2f"}, {}, "queue 1 item 7"),
+    ({"arch": "sem_tsrn"}, {}, "queue 1 item 7"),
     ({"tpg": "OPT"}, {}, "queue 1 item 8"),
     ({"test_model": "SEED"}, {}, "queue 1 item 8"),
     ({"demo": True, "test_model": "ASTER"}, {}, "queue 1 item 8"),  # the JAX demo() decodes by CTC
@@ -87,7 +87,7 @@ def _fp32_config():
     ({"ic15sr": True}, {}, "queue 1 item 9"),
     ({"random_reso": True}, {}, "queue 1 item 9"),
     ({}, {"n_devices": 2}, "queue 1 item 10"),
-], ids=["vdsr", "tsrn_tl_wmask", "tpg", "test_model", "demo_aster", "go_test_seed", "syn", "mixed",
+], ids=["tsrn_c2f", "sem_tsrn", "tpg", "test_model", "demo_aster", "go_test_seed", "syn", "mixed",
         "ic15sr", "random_reso", "n_devices"])
 def test_what_is_not_ported_raises_naming_its_item(args_over, train_over, item):
     """Each raises ``NotImplementedError`` naming its ``ROADMAP.md`` item when
@@ -161,13 +161,40 @@ def test_textsr_turns_tf32_off_on_the_card_only(monkeypatch):
 
 
 def test_ssim_loss_raises_when_training_starts(tmp_path, monkeypatch):
-    """``--ssim_loss`` is read by the train step alone, which raises when
-    ``train()`` builds it."""
+    """``--ssim_loss`` is read by the train step alone, and trains through
+    ``TextSR``: two iterations of the flagship with it over the 16-pair LMDB,
+    each adding the (1 - SSIM) x 10 term to ``loss_img`` alone (the train
+    steps' parity with it is tests/test_torch_tl_simple.py's).  (The name is
+    from before ``--ssim_loss`` was ported, when it raised.)"""
     monkeypatch.chdir(tmp_path)
-    args = config.default_args(arch="tsrn_tl_cascade", ssim_loss=True, srb=2, hd_u=8)
-    mission = trainer.TextSR(_fp32_config(), args, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    db = str(tmp_path / "db")
+    make_textzoom_lmdb(db, 16)
+    cfg = _fp32_config()
+    t = cfg.TRAIN
+    t.train_data_dir, t.VAL.val_data_dir, t.workers, t.epochs = [db], [db], 0, 1
+    t.width, t.height, t.VAL.valInterval, t.saveInterval, t.displayInterval = 64, 32, 100, 100, 1
+    runs = {}
+    for ssim_loss in (False, True):
+        args = config.default_args(arch="tsrn_tl_cascade", ssim_loss=ssim_loss, srb=2, hd_u=8, batch_size=8,
+                                   mask=True, use_distill=True, stu_iter=1)
+        mission = trainer.TextSR(cfg, args, device="cpu")
+        state = mission.init_state()
+        mission._build_steps()
+        losses, step = [], mission._train_step
+
+        def recorded(s, b):
+            metrics = step(s, b)
+            losses.append({k: float(v) for k, v in metrics.items()})
+            return metrics
+
+        mission._train_step = recorded
         mission.train()
+        runs[ssim_loss] = losses
+        assert state.step == 2
+    first, ssim_first = runs[False][0], runs[True][0]
+    assert ssim_first["loss_img_0"] == first["loss_img_0"] and ssim_first["loss_distill"] == first["loss_distill"]
+    assert 0 < ssim_first["loss_img"] - first["loss_img"] <= 20
+    assert all(np.isfinite(v) for m in runs[True] for v in m.values())
 
 
 # ---------------------------------------------------------------- the modes on shared weights

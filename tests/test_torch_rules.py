@@ -73,15 +73,36 @@ def test_the_zoo_is_the_jax_package_s():
 
     assert sorted(PORTED_ARCHS + NOT_PORTED) == sorted(ARCHS)
     assert sorted(PORTED_ARCHS) == sorted(["tsrn_tl_cascade", "tsrn", "srcnn", "srcnn_tl", "srres", "srresnet_tl",
-                                           "rdn", "rdn_tl"])
+                                           "rdn", "rdn_tl", "tsrn_tl", "tsrn_tl_wmask", "textzoom_net", "vdsr",
+                                           "vdsr_tl", "edsr", "lapsrn", "esrgan", "esrgan_tl", "bicubic"])
+    assert sorted(NOT_PORTED) == ["sem_tsrn", "tsrn_c2f"]
 
 
+def _entry_points():
+    """What a run reaches an arch through: (name, call of the arch)."""
+    from tpgsr_tpu_torch.models.registry import build_model
+    from tpgsr_tpu_torch.train import step
+
+    dicts = ({"STN": False, "mask": True, "srb": 2, "hd_u": 8}, {"scale_factor": 2, "width": 128, "height": 32})
+    return {
+        "check_ported": lambda a: trainer.check_ported(load_config(), default_args(arch=a), torch.device("cpu")),
+        "TextSR": lambda a: trainer.TextSR(load_config(), default_args(arch=a), device="cpu"),
+        "build_model": lambda a: build_model(a, *dicts),
+        "train_wire_keys": lambda a: step.train_wire_keys(a),
+        "make_train_step": lambda a: step.make_train_step({"arch": a}, device="cpu"),
+        "make_eval_step": lambda a: step.make_eval_step({"arch": a}, device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("entry", ["check_ported", "TextSR", "build_model", "train_wire_keys", "make_train_step",
+                                   "make_eval_step"])
 @pytest.mark.parametrize("arch", NOT_PORTED)
-def test_check_ported_raises_for_each_arch_not_ported(arch):
+def test_check_ported_raises_for_each_arch_not_ported(arch, entry):
     """``check_ported`` (what ``TextSR`` runs first) raises
-    ``NotImplementedError`` naming the arch and its ``ROADMAP.md`` item."""
+    ``NotImplementedError`` naming the arch and its ``ROADMAP.md`` item, as
+    does every other way in to the arch."""
     with pytest.raises(NotImplementedError, match=rf"'{arch}'.*ROADMAP.md queue 1 item 7"):
-        trainer.check_ported(load_config(), default_args(arch=arch), torch.device("cpu"))
+        _entry_points()[entry](arch)
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)

@@ -396,9 +396,12 @@ def test_train_step_matches_jax(stu_iter, sr_share, tpg_share):
 
 
 def test_train_step_rejects_what_is_not_ported():
-    """``--ssim_loss`` raises; ``--use_label`` is ported (tests/test_torch_data.py)."""
-    with pytest.raises(NotImplementedError):
-        make_train_step({"stu_iter": 1, "ssim_loss": True}, device="cpu")
+    """The archs not ported raise; ``--ssim_loss`` (tests/test_torch_tl_simple.py)
+    and ``--use_label`` (tests/test_torch_data.py) are ported."""
+    for arch in ("tsrn_c2f", "sem_tsrn"):
+        with pytest.raises(NotImplementedError, match=arch):
+            make_train_step({"arch": arch, "stu_iter": 1}, device="cpu")
+    make_train_step({"stu_iter": 1, "ssim_loss": True}, device="cpu")
     make_train_step({"stu_iter": 1, "use_label": True}, device="cpu")
 
 
@@ -457,12 +460,14 @@ def test_train_step_takes_a_uint8_batch_as_float_over_255():
 
 
 @pytest.mark.parametrize("factory", [make_eval_step, make_train_step])
-@pytest.mark.parametrize("arch", ["tsrn_tl", "tsrn_tl_wmask", "vdsr"])
-def test_step_factories_raise_for_an_arch_not_ported(factory, arch):
-    """The cascade branch and the plain one are ported for the archs of the
-    repo's train scripts (tests/test_torch_zoo_train.py); TL_SIMPLE archs
-    (one stage, no prior dropout, distillation always) and the rest of the
-    zoo raise."""
-    with pytest.raises(NotImplementedError, match=arch):
+@pytest.mark.parametrize("arch,error", [("tsrn_c2f", NotImplementedError), ("sem_tsrn", NotImplementedError),
+                                        ("no_such_arch", ValueError)], ids=["tsrn_c2f", "sem_tsrn", "unknown"])
+def test_step_factories_raise_for_an_arch_not_ported(factory, arch, error):
+    """The cascade, one-student and plain branches are ported for every arch
+    of the JAX package but ``tsrn_c2f`` and ``sem_tsrn`` (their own branches
+    and collates), which raise naming themselves; a name the JAX package
+    lacks too raises ``ValueError``."""
+    with pytest.raises(error, match=arch):
         factory({"arch": arch, "stu_iter": 1}, device="cpu")
-    factory({"arch": "tsrn_tl_cascade", "stu_iter": 1}, device="cpu")
+    for ported in ("tsrn_tl_cascade", "tsrn_tl_wmask", "vdsr"):
+        factory({"arch": ported, "stu_iter": 1}, device="cpu")

@@ -18,6 +18,12 @@ measurements behind two bounds, run as ``python -m tests.torch_fp64_noise``.
   flags, sizes and SR weights) in the port's fp32, the port's fp64 and the
   JAX package's fp32: each step's losses, which is why that file holds
   ``loss_distill`` at the late bound from step 3 (``DISTILL_LATE_FROM``).
+* ``vdsr_tl_student_update_noise``: one ``vdsr_tl`` train step
+  (tests/test_torch_tl_simple.py's sizes, weights and flags) in the port's
+  fp32, the port's fp64 and the JAX package's fp32: the student's first
+  Adam update (lr times the sign of its gradient, near enough, where that
+  gradient is far above Adam's eps) against the fp64 one, which is why that
+  file holds it at ``STUDENT_UPDATE_RTOL``.
 
 Prints one JSON object a line."""
 
@@ -89,6 +95,36 @@ def cascade_student_noise():
                     "jax_fp32_vs_port_fp64": zt._rel([(jax_mu[n], want[n]) for n in want]),
                     "port_fp32_vs_jax_fp32": zt._rel([(moments["fp32"][n], jax_mu[n]) for n in want])})
     return out
+
+
+def vdsr_tl_student_update_noise():
+    from tests import test_torch_tl_simple as tl
+
+    case = "vdsr_tl"
+    _, state0 = tl._jax(case)
+    jax_state, _ = tl._jax_step(case, "fp32")
+    updates = {}
+    with pytest_free_patch() as patch:
+        patch(port_step.COMPUTE_DTYPES, "fp64", torch.float64)
+        for name in ("fp32", "fp64"):
+            port = tl._port_state(case, state0)
+            if name == "fp64":
+                for m in (*port.sr, *port.stu, port.teacher):
+                    m.double()
+                port.optimizer = torch.optim.Adam([p for m in (*port.sr, *port.stu) for p in m.parameters()],
+                                                  lr=tl.LR, betas=(0.5, 0.999))
+            init = {n: p.detach().double().clone() for n, p in port.stu[0].named_parameters()}
+            port_step.make_train_step(tl._args(case), width=2 * tl.W, device="cpu", compute_dtype=name)(
+                port, tl._batch(0))
+            updates[name] = {n: p.detach().double() - init[n] for n, p in port.stu[0].named_parameters()
+                             if not zt.PRE_BN_BIAS.search(n)}
+    jax_sd = tl._to_sd(case, "stu")(jax_state.stu_params[0], jax_state.stu_stats[0])
+    init = tl._to_sd(case, "stu")(state0.stu_params[0], state0.stu_stats[0])
+    jax_update = {n: jax_sd[n].double() - init[n].double() for n in updates["fp64"]}
+    want = updates["fp64"]
+    return {"port_fp32_vs_port_fp64": tl._rel([(updates["fp32"][n], want[n]) for n in want]),
+            "jax_fp32_vs_port_fp64": tl._rel([(jax_update[n], want[n]) for n in want]),
+            "port_fp32_vs_jax_fp32": tl._rel([(updates["fp32"][n], jax_update[n]) for n in want])}
 
 
 def _recording(step, log, metrics_of=lambda out: out):
@@ -202,3 +238,4 @@ if __name__ == "__main__":
         print(json.dumps({"srresnet_tl_students": row}), flush=True)
     for row in srcnn_tl_distill_noise():
         print(json.dumps({"srcnn_tl_trainer": row}), flush=True)
+    print(json.dumps({"vdsr_tl_student_update": vdsr_tl_student_update_noise()}), flush=True)

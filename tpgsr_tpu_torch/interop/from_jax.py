@@ -15,8 +15,11 @@ copy:
     PReLU         alpha                      -> weight
 
 ``sr_state_dict(arch, variables)`` converts the SR model of each ported
-arch (TSRN / TSRN_TL, SRCNN(_TL), SRResNet(_TL), RDN(_TL)), inverting
-``import_sr_checkpoint`` (torch_import.py:620-647).  The STN head (``stn_head``) inverts torch_import.py:163-181, running
+arch (TSRN / TSRN_TL and ``textzoom_net``, SRCNN(_TL), SRResNet(_TL),
+RDN(_TL), VDSR(_TL), EDSR, LapSRN, RRDBNet(_TL); ``bicubic`` has none),
+inverting ``import_sr_checkpoint`` (torch_import.py:620-647).  LapSRN's
+deconvs take the conv-T rule: the flax kernel is the unflipped kernel of
+the dilated conv.  The STN head (``stn_head``) inverts torch_import.py:163-181, running
 statistics included, when the flax variables hold one (``init`` in train
 mode).  ``aster_state_dict`` and ``moran_state_dict`` invert ``import_aster``
 (torch_import.py:195) and ``import_moran`` (:235): the eval recognizers.
@@ -179,12 +182,99 @@ def rdn_state_dict(variables: Mapping[str, Any]) -> StateDict:
     return sd
 
 
+def vdsr_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """Flax ``VDSR`` / ``VDSR_TL`` -> ``models.vdsr`` (torch_import.py:470-489):
+    the plain model's blocks under ``residual_layer.{i}``, the TL model's
+    under ``block{k}``."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: StateDict = {}
+    tl = "infoGen" in p
+    _conv(sd, p["input"], "input")
+    k = 1
+    while f"block{k}" in p:
+        _conv(sd, p[f"block{k}"], f"block{k}.conv" if tl else f"residual_layer.{k - 1}.conv")
+        k += 1
+    _conv(sd, p["output"], "output")
+    if tl:
+        _infogen(sd, p, s)
+    return sd
+
+
+def edsr_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """Flax ``EDSR`` -> ``models.edsr.EDSR`` (torch_import.py:492-509)."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _conv(sd, p["conv_input"], "conv_input")
+    i = 0
+    while f"res{i}" in p:
+        for c in ("conv1", "conv2"):
+            _conv(sd, p[f"res{i}"][c], f"residual.{i}.{c}")
+        i += 1
+    _conv(sd, p["conv_mid"], "conv_mid")
+    j = 0
+    while f"up{j}" in p:
+        _conv(sd, p[f"up{j}"], f"upscale.{2 * j}")
+        j += 1
+    _conv(sd, p["conv_output"], "conv_output")
+    return sd
+
+
+def lapsrn_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """Flax ``LapSRN`` -> ``models.lapsrn.LapSRN`` (torch_import.py:512-530)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: StateDict = {}
+    _conv(sd, p["conv_input"], "conv_input")
+    level = 1
+    while f"convt_F{level}" in p:
+        fb = p[f"convt_F{level}"]
+        for i in range(10):
+            _conv(sd, fb[f"conv{i}"], f"convt_F{level}.0.cov_block.{2 * i}")
+        _conv_t(sd, fb["deconv"], f"convt_F{level}.0.cov_block.20")
+        _conv_t(sd, p[f"convt_I{level}"], f"convt_I{level}")
+        _conv(sd, p[f"convt_R{level}"], f"convt_R{level}")
+        level += 1
+    _stn(sd, p, s)
+    return sd
+
+
+def rrdbnet_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """Flax ``RRDBNet`` / ``RRDBNet_TL`` -> ``models.rrdb`` (torch_import.py:533-551
+    for RRDBNet; the JAX importer reads no ``infoGen``, which this writes for
+    RRDBNet_TL)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: StateDict = {}
+    _conv(sd, p["conv_first"], "conv_first")
+    i = 0
+    while f"RRDB{i}" in p:
+        for k in (1, 2, 3):
+            for c in range(1, 6):
+                _conv(sd, p[f"RRDB{i}"][f"RDB{k}"][f"conv{c}"], f"RRDB_trunk.{i}.RDB{k}.conv{c}")
+        i += 1
+    _conv(sd, p["trunk_conv"], "trunk_conv")
+    j = 1
+    while f"upconv{j}" in p:
+        _conv(sd, p[f"upconv{j}"], f"upconv{j}")
+        j += 1
+    _conv(sd, p["HRconv"], "HRconv")
+    _conv(sd, p["conv_last"], "conv_last")
+    if "infoGen" in p:
+        _infogen(sd, p, s)
+    return sd
+
+
 def sr_state_dict(arch: str, variables: Mapping[str, Any], srb_nums: int = 5) -> StateDict:
     """The SR model of a ported ``arch``: the dispatch of
-    ``import_sr_checkpoint`` (torch_import.py:620-647), inverted."""
+    ``import_sr_checkpoint`` (torch_import.py:620-647), inverted;
+    ``textzoom_net`` is a TSRN of 6 SRBs, ``bicubic`` has no parameters."""
     if arch.startswith("tsrn"):
         return tsrn_state_dict(variables, srb_nums)
-    for prefix, convert in (("srcnn", srcnn_state_dict), ("srres", srresnet_state_dict), ("rdn", rdn_state_dict)):
+    if arch == "textzoom_net":
+        return tsrn_state_dict(variables, 6)
+    if arch == "bicubic":
+        return {}
+    for prefix, convert in (("srcnn", srcnn_state_dict), ("srres", srresnet_state_dict), ("rdn", rdn_state_dict),
+                            ("vdsr", vdsr_state_dict), ("edsr", edsr_state_dict), ("lapsrn", lapsrn_state_dict),
+                            ("esrgan", rrdbnet_state_dict)):
         if arch.startswith(prefix):
             return convert(variables)
     raise ValueError(f"no converter for arch {arch!r}")

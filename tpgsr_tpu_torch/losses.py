@@ -8,14 +8,17 @@ NHWC images and [T, B, C] probability sequences, as the JAX package:
   (loss/image_loss.py:33-51);
 * ``semantic_loss``: the text-prior distillation, mean |gt - pred| plus torch
   ``KLDivLoss``'s elementwise mean of gt (log gt - log pred), eps 1e-20 on
-  both (loss/semantic_loss.py:10-43).
+  both (loss/semantic_loss.py:10-43);
+* ``ssim_loss``: (1 - SSIM) x 10 (``--ssim_loss``, super_resolution.py:388-391);
+* ``charbonnier_loss``: LapSRN's L1_Charbonnier, the SUM of sqrt(d^2 + 1e-6)
+  over every element, not a mean (model/lapsrn.py:126-137).
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpgsr_tpu_torch.ops.image import gradient_map
+from tpgsr_tpu_torch.ops.image import gradient_map, ssim
 
 
 def mse_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -42,3 +45,12 @@ def semantic_loss(pred_vec: torch.Tensor, gt_vec: torch.Tensor) -> torch.Tensor:
     target = gt_vec + eps
     kl = target * (torch.log(target) - torch.log(pred_vec + eps))
     return torch.mean(torch.abs(gt_vec - pred_vec)) + torch.mean(kl)
+
+
+def ssim_loss(sr: torch.Tensor, hr: torch.Tensor) -> torch.Tensor:
+    return (1.0 - ssim(sr, hr)) * 10.0
+
+
+def charbonnier_loss(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    diff = a - b
+    return torch.sum(torch.sqrt(diff * diff + eps))

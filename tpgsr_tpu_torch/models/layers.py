@@ -17,7 +17,9 @@ normalization in fp32 and keeps fp32 running statistics, on both devices.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -37,14 +39,15 @@ def init_torch_defaults_(module: nn.Module, generator: torch.Generator) -> nn.Mo
     with torch's default ranges: U(+-1/sqrt(fan_in)) for weights and biases
     (fan_in of a transposed conv is out_channels * kh * kw),
     U(+-1/sqrt(hidden)) for recurrent ones, N(0, 1) for embeddings.
-    BatchNorm and PReLU keep their constant defaults.  An STN head draws its
-    own init instead (``STNHead.init_from_``)."""
+    BatchNorm and PReLU keep their constant defaults.  An STN head, an
+    ``MSRAConv2d`` and a ``BilinearConvTranspose2d`` draw their own init
+    instead (``init_from_``)."""
     own = set()
     with torch.no_grad():
         for m in module.modules():
             if id(m) in own:
                 continue
-            if isinstance(m, STNHead):
+            if isinstance(m, (STNHead, MSRAConv2d, BilinearConvTranspose2d)):
                 m.init_from_(generator)
                 own.update(id(c) for c in m.modules())
             elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
@@ -63,6 +66,46 @@ def init_torch_defaults_(module: nn.Module, generator: torch.Generator) -> nn.Mo
             elif isinstance(m, nn.Embedding):
                 m.weight.normal_(0.0, 1.0, generator=generator)
     return module
+
+
+class MSRAConv2d(nn.Conv2d):
+    """A bias-free 3x3 conv, padding 1, its weights drawn from N(0, 2 / (9 *
+    out_channels)): the init of the original's VDSR, EDSR and LapSRN
+    (model/vdsr.py:47-51; tpgsr_tpu/models/vdsr.py, edsr.py, lapsrn.py)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3, padding=1, bias=False)
+        self.init_from_(None)
+
+    def init_from_(self, generator: Optional[torch.Generator]) -> "MSRAConv2d":
+        with torch.no_grad():
+            self.weight.normal_(0.0, math.sqrt(2.0 / (9 * self.out_channels)), generator=generator)
+        return self
+
+
+def bilinear_upsample_filter(size: int) -> np.ndarray:
+    """The [size, size] bilinear upsampling filter (reference model/lapsrn.py:79-84)."""
+    factor = (size + 1) // 2
+    center = factor - 1 if size % 2 == 1 else factor - 0.5
+    og = np.ogrid[:size, :size]
+    return ((1 - abs(og[0] - center) / factor) * (1 - abs(og[1] - center) / factor)).astype(np.float32)
+
+
+class BilinearConvTranspose2d(nn.ConvTranspose2d):
+    """LapSRN's x2 deconv, ``ConvTranspose2d(k4, s2, p1)`` without bias, its
+    weights the bilinear filter for every (in, out) pair (model/lapsrn.py:79-84).
+    The JAX package runs it as a convolution of the input dilated by 2 and
+    padded by 2 with the kernel unflipped; this weight is that kernel flipped
+    in both spatial axes, [in, out, kh, kw] (``interop.from_jax._conv_t``)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 4, 2, 1, bias=False)
+        self.init_from_(None)
+
+    def init_from_(self, generator: Optional[torch.Generator] = None) -> "BilinearConvTranspose2d":
+        with torch.no_grad():
+            self.weight.copy_(torch.from_numpy(bilinear_upsample_filter(4)).expand_as(self.weight))
+        return self
 
 
 class BiGRUParams(nn.Module):

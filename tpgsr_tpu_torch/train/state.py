@@ -13,7 +13,9 @@ Plain PyTorch objects in place of the JAX package's functional state:
 
 an arch without a prior has no students and no teacher (``stu`` empty,
 ``teacher`` None; tpgsr_tpu/train/state.py:67-117 with ``n_stu=0``), and
-Adam covers its SR model alone;
+Adam covers its SR model alone; a model without parameters (``bicubic``)
+gets an Adam of one empty group, which steps, saves and loads as the JAX
+package's Adam of an empty tree does: it changes nothing;
 * ``step``, the count of optimizer steps.
 
 ``clip_sr_grads`` clips each SR model's gradients at global norm 0.25 and
@@ -61,7 +63,8 @@ def create_train_state(sr: Sequence[nn.Module], teacher: Optional[nn.Module], n_
             if isinstance(rnn, nn.RNNBase):
                 rnn.flatten_parameters()
     params = [p for m in (*sr, *stu) for p in m.parameters()]
-    optimizer = torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999))
+    # one group, so that an empty list is a group and not an error
+    optimizer = torch.optim.Adam([{"params": params}], lr=lr, betas=(beta1, 0.999))
     return TrainState(sr=list(sr), stu=stu, teacher=teacher, optimizer=optimizer)
 
 

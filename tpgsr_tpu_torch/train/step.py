@@ -1,17 +1,20 @@
 """The train and eval steps of the SR zoo (counterpart of
 tpgsr_tpu/train/step.py:47-398: the cascade branch for the ``ABLATION_SET``
-archs and the plain branch for the archs without a prior; the CRNN, ASTER
-and MORAN eval recognizers).
+archs, the one-student branch for the ``TL_SIMPLE`` archs and the plain
+branch for the archs without a prior; the CRNN, ASTER and MORAN eval
+recognizers).
 
 Cascade archs: each stage runs the student CRNN on the previous stage's
 image (the LR at stage 0), turns its logits into the prior, and runs the SR
-model on the LR with that prior.  Plain archs run the SR model on the LR
-alone.  In eval a frozen CRNN then reads SR, LR, HR and each earlier stage's
-SR for the word accuracies: the teacher of a cascade arch, the explicit eval
-recognizer (``EvalModels.rec``) of a plain one, or ASTER or MORAN for
-either (``EvalModels.rec_kind``, tpgsr_tpu/train/step.py:317-346).  That is
+model on the LR with that prior.  ``TL_SIMPLE`` archs (``tsrn_tl``,
+``tsrn_tl_wmask``, ``esrgan_tl``) run one such stage whatever
+``stu_iter`` says.  Plain archs run the SR model on the LR alone.  In eval
+a frozen CRNN then reads SR, LR, HR and each earlier stage's SR for the
+word accuracies: the teacher of a prior arch, the explicit eval recognizer
+(``EvalModels.rec``) of a plain one, or ASTER or MORAN for either
+(``EvalModels.rec_kind``, tpgsr_tpu/train/step.py:317-346).  That is
 what ``TextSR.test()`` and ``demo()`` serve (tpgsr_tpu/train/trainer.py:736-800).
-In training the cascade's teacher reads HR, and its softmax is the
+In training the teacher of a prior arch reads HR, and its softmax is the
 distillation target; the step ends with backward, the SR clip and Adam.
 
 Batches are NHWC numpy arrays or tensors (a loader's, pinned), float in
@@ -41,13 +44,14 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from tpgsr_tpu_torch.charset import AsterInfo
 from tpgsr_tpu_torch.device import DeviceLike, resolve_device
-from tpgsr_tpu_torch.losses import image_loss, l1_loss, mse_loss, semantic_loss
+from tpgsr_tpu_torch.losses import charbonnier_loss, image_loss, l1_loss, mse_loss, semantic_loss, ssim_loss
 from tpgsr_tpu_torch.models.aster import RecognizerBuilder, decode_aster_ids
 from tpgsr_tpu_torch.models.moran import MORAN, decode_moran_ids
-from tpgsr_tpu_torch.models.registry import ABLATION_SET, check_arch
+from tpgsr_tpu_torch.models.registry import ABLATION_SET, TL_SIMPLE, check_arch
 from tpgsr_tpu_torch.ops.ctc import ctc_loss, decode_crnn
 from tpgsr_tpu_torch.ops.image import append_contour_mask_u8, ssim
 from tpgsr_tpu_torch.ops.resize import interpolate_bicubic
@@ -167,20 +171,21 @@ def _as_image(arr, dev: torch.device, want_mask: bool = False, dtype: torch.dtyp
 def train_wire_keys(arch: str = "tsrn_tl_cascade") -> frozenset:
     """The batch keys the train step reads, the only ones it copies to the
     device (tpgsr_tpu/train/step.py:85-98): the collate's ``label_vecs`` and
-    ``labels`` stay on the host, and a plain arch reads the images alone."""
+    ``labels`` stay on the host, and a plain arch reads the images alone.
+    A ``TL_SIMPLE`` arch ships the cascade's keys, as the JAX step does."""
     check_arch(arch)
-    if arch in ABLATION_SET:
+    if arch in ABLATION_SET or arch in TL_SIMPLE:
         return frozenset({"hr", "lr", "ctc_labels", "ctc_lengths", "weighted_tics"})
     return frozenset({"hr", "lr"})
 
 
 def image_crit(kind: str, gradient: bool) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """An arch's image loss (tpgsr_tpu/train/step.py:47-56): ``image`` (with
-    the gradient prior under ``gradient``), ``mse`` or ``l1``; ``gradient``
-    does nothing for the last two."""
+    the gradient prior under ``gradient``), ``mse``, ``l1`` or
+    ``charbonnier``; ``gradient`` does nothing for the last three."""
     if kind == "image":
         return lambda sr, hr: image_loss(sr, hr, gradient=gradient)
-    return {"mse": mse_loss, "l1": l1_loss}[kind]
+    return {"mse": mse_loss, "l1": l1_loss, "charbonnier": charbonnier_loss}[kind]
 
 
 EvalStep = Callable[[EvalModels, Mapping[str, np.ndarray]], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -191,8 +196,9 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
 
     ``args`` reads ``arch``, ``stu_iter``, ``sr_share``, ``tpg_share`` and
     ``mask`` as the CLI names them; ``width`` is TRAIN.width (it sets the
-    CRNN input width).  A cascade arch runs ``stu_iter`` stages, a plain one
-    its SR model on the LR (tpgsr_tpu/train/step.py:354-379).  The batch's
+    CRNN input width).  A cascade arch runs ``stu_iter`` stages, a
+    ``TL_SIMPLE`` arch one, a plain one its SR model on the LR
+    (tpgsr_tpu/train/step.py:354-379).  The batch's
     ``hr`` and ``lr`` go to ``device`` (the card unless told otherwise).
 
     The ``logits_<name>`` outputs are what the recognizer of
@@ -201,10 +207,10 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
     its L2R logits [B, 20, 37].  ``rec_decoder`` turns each into strings."""
     arch = args.get("arch", "tsrn_tl_cascade")
     in_ch = check_arch(arch).in_channels
-    cascade_arch = arch in ABLATION_SET
+    tl_arch = arch in ABLATION_SET or arch in TL_SIMPLE
     dev = resolve_device(device)
     want_mask = bool(args.get("mask", False))
-    stu_iter = int(args.get("stu_iter", 1))
+    n_stage = int(args.get("stu_iter", 1)) if arch in ABLATION_SET else 1
     sr_share = bool(args.get("sr_share", False))
     tpg_share = bool(args.get("tpg_share", False))
     cw = crnn_width(int(width))
@@ -220,9 +226,9 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
         hr, lr = _as_image(batch["hr"], dev, want_mask), _as_image(batch["lr"], dev, want_mask)
         lr_in = _nchw(lr[..., :in_ch])
         sr_list = []
-        if cascade_arch:
+        if tl_arch:
             cascade = lr
-            for i in range(stu_iter):
+            for i in range(n_stage):
                 stu = models.stu[0 if tpg_share else i]
                 prior = logits_to_prior(stu(_nchw(parse_crnn_data(cascade, cw))))
                 cascade = _nhwc(models.sr[0 if sr_share else i](lr_in, _nchw(prior)))
@@ -247,7 +253,24 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
 
 
 TrainStep = Callable[[TrainState, Mapping[str, np.ndarray]], Dict[str, torch.Tensor]]
-_NOT_PORTED = ("ssim_loss",)
+
+
+@contextlib.contextmanager
+def _running_stats_kept(model: nn.Module):
+    """Put back every BatchNorm running statistic of ``model`` (and
+    ``num_batches_tracked``) on leaving: the recompute of a checkpointed SR
+    stage runs it in train mode again, and its statistics must move once a
+    call, as the JAX step threads them out of the forward alone."""
+    bns = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm) and m.track_running_stats]
+    kept = [(m.running_mean.clone(), m.running_var.clone(), m.num_batches_tracked.clone()) for m in bns]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for m, (mean, var, count) in zip(bns, kept):
+                m.running_mean.copy_(mean)
+                m.running_var.copy_(var)
+                m.num_batches_tracked.copy_(count)
 
 
 def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
@@ -263,15 +286,28 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
     (``use_distill``), both to ``loss_distill``, zeroes the prior of the
     first B // 4 samples, runs its SR model in train mode on the LR and adds
     the arch's image loss x 100 (``image_crit``).  Gradients flow through the
-    whole cascade.  A plain arch runs its one SR model on the LR: the loss is
-    its image loss x 100, and ``loss_distill`` is 0 whatever ``use_label``
-    and ``use_distill`` say.  Then each SR model is clipped and Adam steps.
-    BatchNorm running statistics update by torch's own rule.  ``args`` reads
-    ``arch``, ``stu_iter``, ``sr_share``, ``tpg_share``, ``use_label``,
-    ``use_distill``, ``gradient`` and ``mask`` as the CLI names them;
-    ``ssim_loss`` is not ported and raises.  Metrics are detached tensors on
-    the device: ``loss_img_{i}`` (a cascade's stages), ``loss_img``,
-    ``loss_distill``, ``loss_total``.
+    whole cascade.  A ``TL_SIMPLE`` arch runs one stage with student 0 and
+    SR model 0 whatever ``stu_iter`` says: the distillation always, CTC
+    never (not even under ``use_label``), and the prior is not dropped.
+    Under ``ssim_loss`` each stage of either branch adds (1 - SSIM(SR, HR))
+    x 10 to ``loss_img`` (not to ``loss_img_{i}``).  A plain arch runs its
+    one SR model on the LR: the loss is its image loss x 100, and
+    ``loss_distill`` is 0 whatever ``use_label``, ``use_distill`` and
+    ``ssim_loss`` say; an arch without parameters (``bicubic``) reports its
+    loss and changes nothing.  Then each SR model is clipped and Adam
+    steps.  BatchNorm running statistics update by torch's own rule, once a
+    call of a model.  ``args`` reads ``arch``, ``stu_iter``, ``sr_share``,
+    ``tpg_share``, ``use_label``, ``use_distill``, ``gradient``,
+    ``ssim_loss`` and ``mask`` as the CLI names them.  Metrics are detached
+    tensors on the device: ``loss_img_{i}`` (the stages of a prior arch),
+    ``loss_img``, ``loss_distill``, ``loss_total``.
+
+    A cascade of several stages recomputes each SR stage in its backward
+    (``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``,
+    step.py:190-193): that changes memory, not results.  The recompute
+    keeps the autocast state, and runs K1's forward again on the card; the
+    BatchNorm statistics it would move a second time are put back
+    (``_running_stats_kept``).
 
     In bf16 (tpgsr_tpu/train/step.py:148-201): the batch is divided by 255 in
     fp32 and cast to bf16; every model runs under ``torch.autocast`` in
@@ -279,26 +315,22 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
     softmaxes, CTC and the distillation; the prior is cast to bf16 for the
     SR model; the image loss compares fp32 casts of the bf16 SR output and
     of the bf16 HR.  Parameters, gradients, BatchNorm statistics, the clip
-    and Adam are fp32.  In fp32 every cast is the identity.
-
-    The JAX package recomputes each stage in its backward when there are
-    several (``jax.checkpoint``, step.py:191-193); that changes memory, not
-    results, and the port keeps every stage's activations."""
+    and Adam are fp32.  In fp32 every cast is the identity."""
     arch = args.get("arch", "tsrn_tl_cascade")
     spec = check_arch(arch)
     wire_keys = train_wire_keys(arch)
-    for name in _NOT_PORTED:
-        if args.get(name, False):
-            raise NotImplementedError(f"--{name} is not ported to the train step yet (ROADMAP.md queue 1 item 5)")
     dev = resolve_device(device)
     cascade_arch = arch in ABLATION_SET
+    tl_arch = cascade_arch or arch in TL_SIMPLE
     crit = image_crit(spec.crit, bool(args.get("gradient", False)))
     in_ch = spec.in_channels
-    stu_iter = int(args.get("stu_iter", 1))
+    n_stage = int(args.get("stu_iter", 1)) if cascade_arch else 1
+    remat = n_stage > 1
     sr_share = bool(args.get("sr_share", False))
     tpg_share = bool(args.get("tpg_share", False))
-    use_label = bool(args.get("use_label", False))
-    use_distill = bool(args.get("use_distill", False))
+    use_label = cascade_arch and bool(args.get("use_label", False))
+    use_distill = bool(args.get("use_distill", False)) or not cascade_arch
+    use_ssim = bool(args.get("ssim_loss", False))
     want_mask = bool(args.get("mask", False))
     cw = crnn_width(int(width))
     dtype = torch_dtype(compute_dtype)
@@ -307,26 +339,36 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
         with compute_context(dev.type, dtype):
             return model(*inputs)
 
+    def run_sr(model: nn.Module, *inputs: torch.Tensor) -> torch.Tensor:
+        if not remat:
+            return run(model, *inputs)
+        return checkpoint(run, model, *inputs, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(), _running_stats_kept(model)))
+
     def image_term(sr_out: torch.Tensor, hr: torch.Tensor) -> torch.Tensor:
         return crit(sr_out.float(), hr[..., :in_ch].float()) * 100.0
 
-    def cascade_losses(state: TrainState, wire, hr, lr, metrics):
+    def prior_losses(state: TrainState, wire, hr, lr, metrics):
         with torch.no_grad():
             target = torch.softmax(run(state.teacher, _nchw(parse_crnn_data(hr, cw))).float(), -1)
         loss_img = lr.new_zeros((), dtype=torch.float32)
         loss_distill = lr.new_zeros((), dtype=torch.float32)
         cascade = lr
-        for i in range(stu_iter):
+        for i in range(n_stage):
             logits = run(state.stu[0 if tpg_share else i], _nchw(parse_crnn_data(cascade, cw))).float()
             if use_label:
                 per = ctc_loss(logits, wire["ctc_labels"], wire["ctc_lengths"])
                 loss_distill = loss_distill + torch.mean(per * wire["weighted_tics"])
             if use_distill:
                 loss_distill = loss_distill + semantic_loss(torch.softmax(logits, -1), target) * 100.0
-            prior = prior_dropout_first_quarter(logits_to_prior(logits)).to(dtype)
-            sr_out = _nhwc(run(state.sr[0 if sr_share else i], _nchw(lr[..., :in_ch]), _nchw(prior)))
+            prior = logits_to_prior(logits)
+            if cascade_arch:
+                prior = prior_dropout_first_quarter(prior)
+            sr_out = _nhwc(run_sr(state.sr[0 if sr_share else i], _nchw(lr[..., :in_ch]), _nchw(prior.to(dtype))))
             loss_each = image_term(sr_out, hr)
             loss_img = loss_img + loss_each
+            if use_ssim:
+                loss_img = loss_img + ssim_loss(sr_out.float(), hr[..., :in_ch].float())
             metrics[f"loss_img_{i}"] = loss_each.detach()
             cascade = sr_out
         return loss_img, loss_distill
@@ -338,13 +380,14 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
             m.train()
         state.optimizer.zero_grad(set_to_none=True)
         metrics: Dict[str, torch.Tensor] = {}
-        if cascade_arch:
-            loss_img, loss_distill = cascade_losses(state, wire, hr, lr, metrics)
+        if tl_arch:
+            loss_img, loss_distill = prior_losses(state, wire, hr, lr, metrics)
         else:
             loss_img = image_term(_nhwc(run(state.sr[0], _nchw(lr[..., :in_ch]))), hr)
             loss_distill = torch.zeros_like(loss_img)
         loss = loss_img + loss_distill
-        loss.backward()
+        if spec.trainable:
+            loss.backward()
         clip_sr_grads(state.sr)
         state.optimizer.step()
         state.step += 1

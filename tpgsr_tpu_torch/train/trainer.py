@@ -302,8 +302,8 @@ class TextSR:
     def _eval_recognizer(self) -> Optional[torch.nn.Module]:
         """The eval recognizer of ``--test_model`` that the state lacks
         (``eval_recognizer``): ASTER or MORAN for any arch, a CRNN for a
-        plain arch; None for a cascade arch scored by CRNN, whose teacher
-        reads the images.  Built when ``--test_model`` changes (``test()``
+        plain arch; None for a prior arch (cascade or ``TL_SIMPLE``) scored
+        by CRNN, whose teacher reads the images.  Built when ``--test_model`` changes (``test()``
         sets it from ``--rec``), as the JAX package rebuilds its eval step
         (tpgsr_tpu/train/trainer.py:470-481), and frozen on the device."""
         kind = str(self.args.get("test_model") or "CRNN")
@@ -317,7 +317,7 @@ class TextSR:
         return rec_decoder(str(self.args.get("test_model") or "CRNN"), self.config.TRAIN.voc_type)
 
     def init_state(self) -> TrainState:
-        """SR models drawn from TRAIN.manualSeed (then a cascade arch's
+        """SR models drawn from TRAIN.manualSeed (then a prior arch's
         teacher, when it is not loaded), students copied from the teacher, Adam; then
         ``--resume`` (or TRAIN.resume): the periodic files, Adam and the
         step, or for an eval-only run the best files alone."""
