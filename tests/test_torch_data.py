@@ -387,11 +387,16 @@ def test_val_loaders_match_jax(tmp_path):
 
 
 def test_collate_kinds_match_jax():
-    from tpgsr_tpu.train.trainer import _collate_kind
+    """Each arch's train and val collate is the one the JAX ``TextSR``
+    picks: ``_collate_kind``'s, or for ``tsrn_c2f`` and ``sem_tsrn`` their
+    own (``TextSR._collate``, tpgsr_tpu/train/trainer.py:233-236)."""
+    from tpgsr_tpu import config as jax_config
 
     for arch in list(ARCHS):
+        mission = TextSR(jax_config.load_config(), jax_config.default_args(arch=arch))
         for train in (True, False):
-            assert trainer.collate_kind(arch, train) == _collate_kind(arch, train), arch
+            got = jax_collate.COLLATES[trainer.collate_kind(arch, train)]
+            assert mission._collate(train).func is got, (arch, train)
 
 
 # ---------------------------------------------------------------- CTC

@@ -9,7 +9,7 @@ import torch
 
 from tpgsr_tpu_torch import device as port_device
 from tpgsr_tpu_torch import cli, entry, profile_zoo
-from tpgsr_tpu_torch.config import default_args, load_config
+from tpgsr_tpu_torch.config import default_args, load_config, tpg_opt
 from tpgsr_tpu_torch.data.loader import make_loader
 from tpgsr_tpu_torch.models.registry import NOT_PORTED, PORTED_ARCHS
 from tpgsr_tpu_torch.train import trainer
@@ -53,6 +53,11 @@ def test_port_imports_no_jax():
     lambda: trainer.eval_recognizer("MORAN", load_config()),
     lambda: trainer.TextSR(load_config(), default_args(arch="tsrn_tl_cascade", test=True, rec="aster")),
     lambda: cli.main(["--arch", "srcnn", "--go_test", "--test_model", "MORAN"]),
+    lambda: trainer.eval_recognizer("SEED", load_config()),
+    lambda: trainer.TextSR(load_config(), default_args(arch="tsrn_tl_cascade", tpg="OPT"), tpg_opt()),
+    lambda: cli.main(["--arch", "tsrn_tl_cascade", "--tpg", "OPT", "--go_test", "--test_model", "SEED"]),
+    lambda: cli.main(["--arch", "tsrn_c2f", "--STN", "--mask"]),
+    lambda: cli.main(["--arch", "sem_tsrn", "--mask"]),
     lambda: port_device.resolve_device(),
     lambda: port_device.resolve_device("cuda:0"),
 ])
@@ -67,15 +72,17 @@ def test_cpu_is_taken_only_when_asked():
 
 
 def test_the_zoo_is_the_jax_package_s():
-    """The port's archs and the ones it raises for are the JAX package's, and
-    the eight ported are the repo's train scripts' (train_*.sh)."""
+    """The port's archs are the JAX package's, every one of them: the repo's
+    train scripts' (train_*.sh), the rest of the single-model zoo and the
+    two experimental archs; none is left to raise for."""
     from tpgsr_tpu.models.registry import ARCHS
 
     assert sorted(PORTED_ARCHS + NOT_PORTED) == sorted(ARCHS)
     assert sorted(PORTED_ARCHS) == sorted(["tsrn_tl_cascade", "tsrn", "srcnn", "srcnn_tl", "srres", "srresnet_tl",
                                            "rdn", "rdn_tl", "tsrn_tl", "tsrn_tl_wmask", "textzoom_net", "vdsr",
-                                           "vdsr_tl", "edsr", "lapsrn", "esrgan", "esrgan_tl", "bicubic"])
-    assert sorted(NOT_PORTED) == ["sem_tsrn", "tsrn_c2f"]
+                                           "vdsr_tl", "edsr", "lapsrn", "esrgan", "esrgan_tl", "bicubic",
+                                           "tsrn_c2f", "sem_tsrn"])
+    assert NOT_PORTED == ()
 
 
 def _entry_points():
@@ -96,13 +103,16 @@ def _entry_points():
 
 @pytest.mark.parametrize("entry", ["check_ported", "TextSR", "build_model", "train_wire_keys", "make_train_step",
                                    "make_eval_step"])
-@pytest.mark.parametrize("arch", NOT_PORTED)
+@pytest.mark.parametrize("arch", ["tsrn_c2f", "sem_tsrn"])
 def test_check_ported_raises_for_each_arch_not_ported(arch, entry):
-    """``check_ported`` (what ``TextSR`` runs first) raises
-    ``NotImplementedError`` naming the arch and its ``ROADMAP.md`` item, as
-    does every other way in to the arch."""
-    with pytest.raises(NotImplementedError, match=rf"'{arch}'.*ROADMAP.md queue 1 item 7"):
-        _entry_points()[entry](arch)
+    """Every way in to an arch (``check_ported``, what ``TextSR`` runs first,
+    and the rest) takes the two archs that were the last not ported
+    (``NOT_PORTED`` is empty now), and raises ``ValueError`` naming a name
+    the JAX package lacks too."""
+    _entry_points()[entry](arch)
+    unknown = f"{arch}_v2"
+    with pytest.raises(ValueError, match=rf"'{unknown}'"):
+        _entry_points()[entry](unknown)
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)

@@ -263,7 +263,7 @@ def test_registry_entry_matches_jax(arch):
     spec, want = ARCHS[arch], JAX_ARCHS[arch]
     assert (spec.crit, spec.in_channels, spec.uses_prior, spec.trainable) == (
         want.crit, want.in_channels, want.uses_prior, want.trainable)
-    assert TL_SIMPLE == JAX_TL_SIMPLE and NOT_PORTED == ("tsrn_c2f", "sem_tsrn")
+    assert TL_SIMPLE == JAX_TL_SIMPLE and NOT_PORTED == ()
     if arch == "textzoom_net":
         model = build_model(arch, {"STN": False, "mask": True, "srb": 2, "hd_u": 8},
                             {"scale_factor": 2, "width": 128, "height": 32})[0]

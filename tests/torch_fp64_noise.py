@@ -24,6 +24,23 @@ measurements behind two bounds, run as ``python -m tests.torch_fp64_noise``.
   Adam update (lr times the sign of its gradient, near enough, where that
   gradient is far above Adam's eps) against the fp64 one, which is why that
   file holds it at ``STUDENT_UPDATE_RTOL``.
+* ``opt_train_forward_noise``: the ``--tpg OPT`` model's train-mode forward
+  (tests/test_torch_zoo_last.py's weights and input) in the port's fp32, the
+  port's fp64 and the JAX package's fp32: the logits' largest error, which
+  is why that file holds the train-mode logits at ``OPT_TRAIN_ATOL``
+  (BatchNorm over 2 x 17 values a channel in the last layers).
+* ``opt_flagship_step``: one step of the flagship with ``--tpg OPT`` at
+  ``--stu_iter 2`` (tests/test_torch_zoo_last_train.py's sizes, weights and
+  batch) in the port's fp32, the port's fp64 and the JAX package's fp32:
+  the losses and the first moments of the SR model and the two students,
+  which is why that file holds that path at ``OPT_LOSS_RTOL`` and
+  ``OPT_MOMENT_RTOL``.
+* ``opt_student_full_width_noise``: ``chip_smoke.py`` phase 16(a)'s OPT
+  flagship train step (full width, OPT at 512 channels, batch 8, its
+  weights and batch) in the port's fp32 and fp64 on the CPU: each model's
+  gradient error relative to its norm and the worst tensor's, which is why
+  phase 16 holds the OPT student's card-against-CPU gradient at
+  ``OPT_STUDENT_GRAD_TOL`` and each SR tensor's at ``OPT_SR_TENSOR_TOL``.
 
 Prints one JSON object a line."""
 
@@ -206,6 +223,101 @@ def srcnn_tl_distill_noise(steps: int = 3):
     return out
 
 
+def opt_train_forward_noise():
+    from tests import test_torch_zoo_last as zl
+    from tpgsr_tpu_torch.interop import from_jax
+    from tpgsr_tpu_torch.models.opt_tpg import OPTModel
+
+    v, x, _, jax_train, _ = zl._opt()
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        model = OPTModel(37, zl.OPT_CHANNELS)
+        model.load_state_dict(from_jax.opt_state_dict(v))
+        out[dtype] = model.to(dtype).train()(zl.nchw(x).to(dtype)).detach().double().numpy()
+    ref = out[torch.float64]
+    return {"port_fp32_vs_port_fp64": float(np.abs(out[torch.float32] - ref).max()),
+            "jax_fp32_vs_port_fp64": float(np.abs(jax_train - ref).max()),
+            "port_fp32_vs_jax_fp32": float(np.abs(out[torch.float32] - jax_train).max()),
+            "max_abs_logit": float(np.abs(ref).max())}
+
+
+def opt_step_noise():
+    from tests import test_torch_zoo_last_train as lt
+
+    from tpgsr_tpu_torch.ops import gru_seq
+
+    path = "opt"
+    _, _, state0 = lt._jax(path)
+    jax_state, jax_metrics = lt._jax_step(path, "fp32")
+    ports, metrics = {}, {}
+    check = gru_seq._check
+    # K1's plain recurrence on the CPU runs fp64 too; its wrapper's check takes fp32 and bf16
+    gru_seq._check = lambda x, fw, bw: None if x.dtype == torch.float64 else check(x, fw, bw)
+    with contextlib.ExitStack() as undo, pytest_free_patch() as patch:
+        undo.callback(setattr, gru_seq, "_check", check)
+        patch(port_step.COMPUTE_DTYPES, "fp64", torch.float64)
+        for name in ("fp32", "fp64"):
+            port = lt._port_state(path, state0)
+            if name == "fp64":
+                for m in (*port.sr, *port.stu, port.teacher):
+                    m.double()
+                port.optimizer = torch.optim.Adam([p for m in (*port.sr, *port.stu) for p in m.parameters()],
+                                                  lr=lt.LR, betas=(0.5, 0.999))
+            out = port_step.make_train_step(lt._args(path), width=2 * lt.W, device="cpu", compute_dtype=name)(
+                port, lt._batch(0))
+            ports[name], metrics[name] = port, {k: float(v) for k, v in out.items()}
+    row = {"losses": {k: {"port_fp32_vs_port_fp64": abs(metrics["fp32"][k] - v) / abs(v),
+                          "jax_fp32_vs_port_fp64": abs(float(jax_metrics[k]) - v) / abs(v)}
+                      for k, v in metrics["fp64"].items()}}
+    for kind, i in [("sr", 0)] + [("stu", i) for i in range(len(ports["fp32"].stu))]:
+        moments = {}
+        for name, port in ports.items():
+            m = port.sr[i] if kind == "sr" else port.stu[i]
+            moments[name] = {n: port.optimizer.state[p]["exp_avg"].float() for n, p in m.named_parameters()
+                             if not zt.PRE_BN_BIAS.search(n)}
+        stats = jax_state.sr_stats[i] if kind == "sr" else jax_state.stu_stats[i]
+        jax_mu = lt._to_sd(path, kind)(jax_state.opt_state[0].mu[kind][i], stats)
+        want = moments["fp64"]
+        row[f"{kind}{i}_first_moment"] = {
+            "port_fp32_vs_port_fp64": zt._rel([(moments["fp32"][n], want[n]) for n in want]),
+            "jax_fp32_vs_port_fp64": zt._rel([(jax_mu[n], want[n]) for n in want]),
+            "port_fp32_vs_jax_fp32": zt._rel([(moments["fp32"][n], jax_mu[n]) for n in want])}
+    return row
+
+
+def opt_student_full_width_noise():
+    import chip_smoke
+    from tpgsr_tpu_torch.ops import gru_seq
+    from tpgsr_tpu_torch.profile_zoo import mission
+
+    batch = chip_smoke.with_aux(chip_smoke.synthetic_batch(np.random.default_rng(16),
+                                                           chip_smoke.CARD_VS_CPU_TRAIN_BATCH, labels=False))
+    grads = {}
+    check = gru_seq._check
+    gru_seq._check = lambda x, fw, bw: None if x.dtype == torch.float64 else check(x, fw, bw)
+    with contextlib.ExitStack() as undo, pytest_free_patch() as patch:
+        undo.callback(setattr, gru_seq, "_check", check)
+        patch(port_step.COMPUTE_DTYPES, "fp64", torch.float64)
+        for name in ("fp32", "fp64"):
+            m, state, _ = mission(chip_smoke.LAST_PATHS["opt"], "fp32", device="cpu")
+            if name == "fp64":
+                for mod in (*state.sr, *state.stu, state.teacher):
+                    mod.double()
+                state.optimizer = torch.optim.Adam([p for mm in (*state.sr, *state.stu) for p in mm.parameters()])
+            port_step.make_train_step(m.args, 128, device="cpu", compute_dtype=name)(state, batch)
+            grads[name] = {f"{kind}{i}": {k: p.grad.double().clone() for k, p in mm.named_parameters()}
+                           for kind, models in (("sr", state.sr), ("stu", state.stu)) for i, mm in enumerate(models)}
+    out = {}
+    for model, want in grads["fp64"].items():
+        got = grads["fp32"][model]
+        keys = [k for k in want if not zt.PRE_BN_BIAS.search(k) and not chip_smoke.PRE_BN_BIAS.search(k)]
+        total = float(torch.sqrt(sum(want[k].pow(2).sum() for k in keys)))
+        out[model] = {"fp32_vs_fp64_rel_err": float(torch.sqrt(sum((got[k] - want[k]).pow(2).sum() for k in keys)))
+                      / total,
+                      "worst_tensor_rel_err": max(float((got[k] - want[k]).norm() / want[k].norm()) for k in keys)}
+    return out
+
+
 @contextlib.contextmanager
 def pytest_free_patch():
     """Set dict entries for the block, with the step's autocast context off
@@ -239,3 +351,6 @@ if __name__ == "__main__":
     for row in srcnn_tl_distill_noise():
         print(json.dumps({"srcnn_tl_trainer": row}), flush=True)
     print(json.dumps({"vdsr_tl_student_update": vdsr_tl_student_update_noise()}), flush=True)
+    print(json.dumps({"opt_train_forward": opt_train_forward_noise()}), flush=True)
+    print(json.dumps({"opt_flagship_step": opt_step_noise()}), flush=True)
+    print(json.dumps({"opt_student_full_width": opt_student_full_width_noise()}), flush=True)

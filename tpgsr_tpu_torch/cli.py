@@ -8,14 +8,15 @@ runs on the card.  ``main(argv, device="cpu")`` runs on the CPU: the flag
 surface is the reference's, so the device is an argument of the entry
 point, not a flag.  ``main`` returns what the run returns: ``test()``'s
 metric dict, ``demo()``'s predictions, ``train()``'s state, or
-``--go_test``'s metric dicts.
+``--go_test``'s metric dicts.  The "OPT" text-prior generator's options
+(``--tpg OPT``) are main.py's (``config.tpg_opt``).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from tpgsr_tpu_torch.config import AttrDict, build_arg_parser, load_config
+from tpgsr_tpu_torch.config import AttrDict, build_arg_parser, load_config, tpg_opt
 from tpgsr_tpu_torch.device import DeviceLike
 from tpgsr_tpu_torch.train.trainer import TextSR
 
@@ -23,7 +24,7 @@ from tpgsr_tpu_torch.train.trainer import TextSR
 def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None):
     args = AttrDict(vars(build_arg_parser().parse_args(argv)))
     config = load_config(args["config"])
-    mission = TextSR(config, args, device=device)
+    mission = TextSR(config, args, tpg_opt(), device=device)
     if args.get("test"):
         return mission.test()
     if args.get("demo"):

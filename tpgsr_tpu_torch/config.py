@@ -108,6 +108,26 @@ def default_args(**overrides: Any) -> AttrDict:
     return d
 
 
+def tpg_opt() -> AttrDict:
+    """The "OPT" text-prior generator's options, hard-coded in main.py:60-75
+    (tpgsr_tpu/config.py:104-119): clova's None-ResNet-None-CTC, 37 classes,
+    its weights from ``saved_model`` when that file exists."""
+    opt = AttrDict(
+        Transformation="None",
+        FeatureExtraction="ResNet",
+        SequenceModeling="None",
+        Prediction="CTC",
+        num_fiducial=20,
+        input_channel=1,
+        output_channel=512,
+        hidden_size=256,
+        saved_model="None-ResNet-None-CTC.pth",
+        character="-0123456789abcdefghijklmnopqrstuvwxyz",
+    )
+    opt["num_class"] = len(opt["character"])
+    return opt
+
+
 def apply_arg_overrides(config: AttrDict, args: AttrDict) -> AttrDict:
     """Flags over the YAML (interfaces/base.py:216-229); edits ``config``."""
     if args.get("batch_size"):

@@ -10,7 +10,13 @@ tpgsr_tpu/data/collate.py: ``CollateConfig`` :35, ``_xformed`` :66,
 * ``collate_real_wtl_amask`` is ``alignCollate_realWTLAMask`` (:1226-1323),
   the TL train collate: CTC labels padded to 15, their lengths, and
   ``weighted_tics``, 1 where a word has a label and 0 where it falls back to
-  the blank.
+  the blank;
+* ``collate_c2f_real`` is ``alignCollatec2f_real`` (:1447-1482, tsrn_c2f's):
+  ``coarse``, the mean of the HR and the LR resized to the HR size, at LR
+  size (tpgsr_tpu/data/collate.py:248-264);
+* ``collate_w2v_real`` is ``alignCollateW2V_real`` (:1414-1444, sem_tsrn's):
+  ``w2v``, zero word vectors of width 300, the original's FastText being
+  disabled (tpgsr_tpu/data/collate.py:267-275).
 
 Batches are dicts of numpy arrays and the ``labels`` list, as the JAX
 package's: NHWC images ``hr`` [B, H, W, C] and ``lr`` [B, H/s, W/s, C],
@@ -144,3 +150,28 @@ COLLATES = {
     "realWTL": collate_real_wtl,
     "realWTLAMask": collate_real_wtl_amask,
 }
+
+
+def collate_c2f_real(batch, cfg: CollateConfig) -> Dict:
+    """``collate_real`` plus ``coarse`` [B, H/s, W/s, C] float in [0, 1]: the
+    HR and the LR resized (PIL bicubic) to the HR size, averaged in fp32 and
+    truncated to uint8, then ``resize_normalize``d to the LR size with the
+    mask channel when ``mask`` (whatever the wire)."""
+    hr, lr, labels = _stack_pairs(batch, cfg)
+    lr_size = (cfg.imgW // cfg.down_sample_scale, cfg.imgH // cfg.down_sample_scale)
+    coarse = []
+    for img_hr, img_lr, *_ in batch:
+        a = np.asarray(img_hr.convert("RGB"), np.float32)
+        b = np.asarray(img_lr.resize(img_hr.size).convert("RGB"), np.float32)
+        mid = Image.fromarray(((a + b) / 2.0).astype(np.uint8))
+        coarse.append(resize_normalize(mid, lr_size, cfg.mask))
+    return {"hr": hr, "lr": lr, "labels": labels, "coarse": np.stack(coarse)}
+
+
+def collate_w2v_real(batch, cfg: CollateConfig) -> Dict:
+    """``collate_real`` plus ``w2v`` [B, 300] zeros."""
+    hr, lr, labels = _stack_pairs(batch, cfg)
+    return {"hr": hr, "lr": lr, "labels": labels, "w2v": np.zeros((len(labels), 300), np.float32)}
+
+
+COLLATES.update({"c2f_real": collate_c2f_real, "W2V_real": collate_w2v_real})

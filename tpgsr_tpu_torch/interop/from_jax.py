@@ -15,14 +15,16 @@ copy:
     PReLU         alpha                      -> weight
 
 ``sr_state_dict(arch, variables)`` converts the SR model of each ported
-arch (TSRN / TSRN_TL and ``textzoom_net``, SRCNN(_TL), SRResNet(_TL),
-RDN(_TL), VDSR(_TL), EDSR, LapSRN, RRDBNet(_TL); ``bicubic`` has none),
-inverting ``import_sr_checkpoint`` (torch_import.py:620-647).  LapSRN's
+arch (TSRN / TSRN_TL / TSRN_C2F and ``textzoom_net``, SEM_TSRN, SRCNN(_TL),
+SRResNet(_TL), RDN(_TL), VDSR(_TL), EDSR, LapSRN, RRDBNet(_TL); ``bicubic``
+has none), inverting ``import_sr_checkpoint`` (torch_import.py:620-647).  LapSRN's
 deconvs take the conv-T rule: the flax kernel is the unflipped kernel of
 the dilated conv.  The STN head (``stn_head``) inverts torch_import.py:163-181, running
 statistics included, when the flax variables hold one (``init`` in train
 mode).  ``aster_state_dict`` and ``moran_state_dict`` invert ``import_aster``
-(torch_import.py:195) and ``import_moran`` (:235): the eval recognizers.
+(torch_import.py:195) and ``import_moran`` (:235): the eval recognizers;
+``seed_state_dict`` maps SEED's flax tree to the original SEED's keys.
+``opt_state_dict`` inverts ``import_opt`` (:317), the ``--tpg OPT`` model.
 """
 
 from __future__ import annotations
@@ -88,9 +90,10 @@ def _stn(sd: StateDict, p: Mapping, s: Mapping) -> None:
 
 
 def tsrn_state_dict(variables: Mapping[str, Any], srb_nums: int = 5) -> StateDict:
-    """Flax ``TSRN`` or ``TSRN_TL`` variables -> ``models.tsrn.TSRN`` or
-    ``TSRN_TL`` state_dict (torch_import.py:118-160); the prior's pyramid
-    when the variables hold one."""
+    """Flax ``TSRN``, ``TSRN_TL`` or ``TSRN_C2F`` variables ->
+    ``models.tsrn.TSRN``, ``TSRN_TL`` or ``TSRN_C2F`` state_dict
+    (torch_import.py:118-160); the prior's pyramid and ``coarse_proj`` when
+    the variables hold them."""
     p, s = variables["params"], variables.get("batch_stats", {})
     sd: StateDict = {}
     _conv(sd, p["block1_conv"], "block1.0")
@@ -109,18 +112,59 @@ def tsrn_state_dict(variables: Mapping[str, Any], srb_nums: int = 5) -> StateDic
     last = srb_nums + 2
     _conv(sd, p[f"block{last}_conv"], f"block{last}.0")
     _bn(sd, p[f"block{last}_bn"], s[f"block{last}_bn"], f"block{last}.1")
-    out = srb_nums + 3
-    j = 0
-    while f"block{out}_up{j}" in p:
-        _conv(sd, p[f"block{out}_up{j}"]["conv"], f"block{out}.{j}.conv")
-        j += 1
-    # the fused head's ConvParams hold the HR 9x9 conv (tsrn.py:222-224)
-    _conv(sd, p[f"block{out}_conv"], f"block{out}.{j}")
+    if "coarse_proj" in p:  # TSRN_C2F (torch_import.py:147)
+        _conv(sd, p["coarse_proj"], "coarse_proj")
+    _head(sd, p, srb_nums)
     _stn(sd, p, s)
     return sd
 
 
 tsrn_tl_state_dict = tsrn_state_dict
+
+
+def _head(sd: StateDict, p: Mapping, srb_nums: int) -> None:
+    """The upsample convs ``block{srb+3}_up{j}`` and the HR 9x9 conv (in
+    TSRN and TSRN_TL the fused head's ConvParams, tsrn.py:222-224)."""
+    out = srb_nums + 3
+    j = 0
+    while f"block{out}_up{j}" in p:
+        _conv(sd, p[f"block{out}_up{j}"]["conv"], f"block{out}.{j}.conv")
+        j += 1
+    _conv(sd, p[f"block{out}_conv"], f"block{out}.{j}")
+
+
+def sem_tsrn_state_dict(variables: Mapping[str, Any], srb_nums: int = 5) -> StateDict:
+    """Flax ``SEM_TSRN`` -> ``models.tsrn.SEM_TSRN`` (torch_import.py:580-608,
+    inverted).  Each block's ``feature_enhancer.w2v_proj``, which the
+    original declares and bypasses and the JAX package lacks, is written as
+    zeros so that the state_dict loads strictly."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: StateDict = {}
+    _conv(sd, p["block1_conv"], "block1.0")
+    _prelu(sd, p["block1_prelu"], "block1.1")
+    for i in range(2, srb_nums + 2):
+        bp, bs = p[f"block{i}"], s[f"block{i}"]
+        for n in (1, 2):
+            _conv(sd, bp[f"conv{n}"], f"block{i}.conv{n}")
+            _bn(sd, bp[f"bn{n}"], bs[f"bn{n}"], f"block{i}.bn{n}")
+        fp, prefix = bp["feature_enhancer"], f"block{i}.feature_enhancer"
+        for j, lin in enumerate(("linear_q", "linear_k", "linear_v", "linear_out")):
+            _linear(sd, fp["mask_multihead"][lin], f"{prefix}.mask_multihead.linears.{j}")
+        for ln in ("mul_layernorm1", "mul_layernorm3"):
+            sd[f"{prefix}.{ln}.a_2"] = _t(fp[ln]["a_2"])
+            sd[f"{prefix}.{ln}.b_2"] = _t(fp[ln]["b_2"])
+        for lin in ("w_1", "w_2"):
+            _linear(sd, fp["pff"][lin], f"{prefix}.pff.{lin}")
+        c = fp["pff"]["w_2"]["kernel"].shape[1]
+        sd[f"{prefix}.w2v_proj.weight"] = torch.zeros(c, 300)
+        sd[f"{prefix}.w2v_proj.bias"] = torch.zeros(c)
+    _linear(sd, p["w2v_proj"]["vec_proj"], "w2v_proj.vec_proj")
+    last = srb_nums + 2
+    _conv(sd, p[f"block{last}_conv"], f"block{last}.0")
+    _bn(sd, p[f"block{last}_bn"], s[f"block{last}_bn"], f"block{last}.1")
+    _head(sd, p, srb_nums)
+    _stn(sd, p, s)
+    return sd
 
 
 def srcnn_state_dict(variables: Mapping[str, Any]) -> StateDict:
@@ -265,9 +309,12 @@ def rrdbnet_state_dict(variables: Mapping[str, Any]) -> StateDict:
 def sr_state_dict(arch: str, variables: Mapping[str, Any], srb_nums: int = 5) -> StateDict:
     """The SR model of a ported ``arch``: the dispatch of
     ``import_sr_checkpoint`` (torch_import.py:620-647), inverted;
-    ``textzoom_net`` is a TSRN of 6 SRBs, ``bicubic`` has no parameters."""
+    ``textzoom_net`` is a TSRN of 6 SRBs, ``tsrn_c2f`` a TSRN with
+    ``coarse_proj``, ``bicubic`` has no parameters."""
     if arch.startswith("tsrn"):
         return tsrn_state_dict(variables, srb_nums)
+    if arch == "sem_tsrn":
+        return sem_tsrn_state_dict(variables, srb_nums)
     if arch == "textzoom_net":
         return tsrn_state_dict(variables, 6)
     if arch == "bicubic":
@@ -311,6 +358,40 @@ def _rnn_layer(sd: StateDict, p: Mapping, prefix: str, layer: int) -> None:
     for ours, value in p.items():
         name = ours.replace("w_", "weight_", 1) if ours.startswith("w_") else ours.replace("b_", "bias_", 1)
         sd[f"{prefix}.{name.replace('_l0', f'_l{layer}')}"] = _t(value)
+
+
+def opt_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """Flax ``OPTModel`` -> ``models.opt_tpg.OPTModel``, clova's keys
+    (torch_import.py:289-326, inverted)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    fp, fs, base = p["FeatureExtraction"], s["FeatureExtraction"], "FeatureExtraction.ConvNet"
+    sd: StateDict = {}
+
+    def conv_bn(name: str, conv: str, bn: str) -> None:
+        _conv(sd, fp[f"{name}_conv"], f"{base}.{conv}")
+        _bn(sd, fp[f"{name}_bn"], fs[f"{name}_bn"], f"{base}.{bn}")
+
+    conv_bn("conv0_1", "conv0_1", "bn0_1")
+    conv_bn("conv0_2", "conv0_2", "bn0_2")
+    si = 1
+    while f"layer{si}_0" in fp:
+        bi = 0
+        while f"layer{si}_{bi}" in fp:
+            bp, bs, prefix = fp[f"layer{si}_{bi}"], fs[f"layer{si}_{bi}"], f"{base}.layer{si}.{bi}"
+            for n in (1, 2):
+                _conv(sd, bp[f"conv{n}"], f"{prefix}.conv{n}")
+                _bn(sd, bp[f"bn{n}"], bs[f"bn{n}"], f"{prefix}.bn{n}")
+            if "down_conv" in bp:
+                _conv(sd, bp["down_conv"], f"{prefix}.downsample.0")
+                _bn(sd, bp["down_bn"], bs["down_bn"], f"{prefix}.downsample.1")
+            bi += 1
+        if f"conv{si}_conv" in fp:
+            conv_bn(f"conv{si}", f"conv{si}", f"bn{si}")
+        si += 1
+    conv_bn("conv4_1", "conv4_1", "bn4_1")
+    conv_bn("conv4_2", "conv4_2", "bn4_2")
+    _linear(sd, p["Prediction"], "Prediction")
+    return sd
 
 
 def aster_state_dict(variables: Mapping[str, Any]) -> StateDict:
@@ -388,4 +469,16 @@ def moran_state_dict(variables: Mapping[str, Any]) -> StateDict:
         for part in ("w_ih", "w_hh", "b_ih", "b_hh"):
             name = part.replace("w_", "weight_") if part.startswith("w_") else part.replace("b_", "bias_")
             sd[f"{prefix}.attention_cell.rnn.{name}"] = _t(tp[f"gru_{part}"])
+    return sd
+
+
+def seed_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """Flax ``SEEDModelBuilder`` (no STN) -> ``models.seed.SEEDModelBuilder``:
+    ASTER's encoder and decoder keys (``aster_state_dict``), the semantic
+    head ``embeder.eEmbed`` and the decoder's ``embed_fc`` (the original
+    SEED's names, attention_recognition_head.py:251)."""
+    p = variables["params"]
+    sd = aster_state_dict(variables)
+    _linear(sd, p["embeder"]["eEmbed"], "embeder.eEmbed")
+    _linear(sd, p["embed_fc"], "decoder.decoder.embed_fc")
     return sd

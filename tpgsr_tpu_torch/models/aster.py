@@ -30,7 +30,7 @@ backtracking from the best last-step beam.
 from __future__ import annotations
 
 import string
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,16 +158,19 @@ class AttentionRecognitionHead(nn.Module):
         self.num_classes, self.s_dim, self.max_len = num_classes, s_dim, max_len
         self.decoder = DecoderUnit(num_classes, in_planes, s_dim, att_dim)
 
-    def _start(self, x: torch.Tensor):
-        """(xEmbed(x), zero state, <BOS> ids) for the rows of ``x``."""
+    def _start(self, x: torch.Tensor, state0: Optional[torch.Tensor] = None):
+        """(xEmbed(x), the first state: ``state0`` or zeros, <BOS> ids) for the
+        rows of ``x``."""
         b = x.shape[0]
         bos = torch.full((b,), self.num_classes, dtype=torch.long, device=x.device)
-        return self.decoder.attention_unit.xEmbed(x), x.new_zeros(b, self.s_dim), bos
+        state = x.new_zeros(b, self.s_dim) if state0 is None else state0
+        return self.decoder.attention_unit.xEmbed(x), state, bos
 
-    def forward(self, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, targets: torch.Tensor, state0: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, T, C], targets [B, L] -> logits [B, L, num_classes], step i
-        fed targets[:, i - 1] (<BOS> at step 0)."""
-        x_proj, state, y = self._start(x)
+        fed targets[:, i - 1] (<BOS> at step 0).  ``state0`` [B, s_dim] seeds
+        the GRU state (SEED's; zeros by default, ASTER's)."""
+        x_proj, state, y = self._start(x, state0)
         logits = []
         for i in range(targets.shape[1]):
             out, state = self.decoder(x, x_proj, state, y)
@@ -187,15 +190,17 @@ class AttentionRecognitionHead(nn.Module):
             scores.append(probs.max(dim=-1).values)
         return torch.stack(ids, dim=1), torch.stack(scores, dim=1)
 
-    def beam_search(self, x: torch.Tensor, beam_width: int = 5, eos: int = 0) -> BeamResult:
+    def beam_search(self, x: torch.Tensor, beam_width: int = 5, eos: int = 0,
+                    state0: Optional[torch.Tensor] = None) -> BeamResult:
         """The JAX package's vectorized beam search: its ids, with the best
         beam's score and the selection margin (``BeamResult``).  Candidates
         are ranked by a stable sort, so ties go to the lower index, as XLA's
-        top-k gives them."""
+        top-k gives them.  ``state0`` [B, s_dim] seeds every beam of its row
+        (SEED's; zeros by default, ASTER's)."""
         b, k, c = x.shape[0], beam_width, self.num_classes
-        x_proj, _, _ = self._start(x)
+        x_proj, state, _ = self._start(x, state0)
         x_inf, x_proj = x.repeat_interleave(k, dim=0), x_proj.repeat_interleave(k, dim=0)
-        state = x.new_zeros(b * k, self.s_dim)
+        state = state.repeat_interleave(k, dim=0)
         y = torch.full((b * k,), c, dtype=torch.long, device=x.device)
         rows = torch.arange(b * k, device=x.device)
         seq_scores = torch.where(rows % k == 0, 0.0, float("-inf")).to(x.dtype)

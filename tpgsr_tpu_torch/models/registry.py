@@ -8,8 +8,9 @@ still run with ``--mask``; tpgsr_tpu/models/registry.py:55-60), whether it
 takes the text prior, and whether it has parameters to train (not
 ``bicubic``).  ``textzoom_net`` is TSRN with 3 channels, 6 SRBs and hidden
 32 whatever ``--srb`` and ``--hd_u`` say (tpgsr_tpu/models/registry.py:109-115).
-The JAX package's two other archs raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item.
+``tsrn_c2f`` and ``sem_tsrn``, the reference's experimental archs, return
+(SR, an auxiliary output); their steps have branches of their own.  Every
+arch of the JAX package is ported: ``NOT_PORTED`` is empty.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from tpgsr_tpu_torch.models.rdn import RDN, RDN_TL
 from tpgsr_tpu_torch.models.rrdb import RRDBNet, RRDBNet_TL
 from tpgsr_tpu_torch.models.srcnn import SRCNN, SRCNN_TL
 from tpgsr_tpu_torch.models.srresnet import SRResNet, SRResNet_TL
-from tpgsr_tpu_torch.models.tsrn import TSRN, TSRN_TL
+from tpgsr_tpu_torch.models.tsrn import SEM_TSRN, TSRN, TSRN_C2F, TSRN_TL
 from tpgsr_tpu_torch.models.vdsr import VDSR, VDSR_TL
 
 # archs trained through the cascade (reference super_resolution.py:44) and
@@ -72,23 +73,21 @@ ARCHS = {
                        "charbonnier", 3, False),
     "esrgan": ArchSpec(lambda a, c: RRDBNet(c["scale_factor"]), "l1", 3, False),
     "esrgan_tl": ArchSpec(lambda a, c: RRDBNet_TL(c["scale_factor"]), "l1", 3, True),
+    "tsrn_c2f": ArchSpec(_tsrn(TSRN_C2F), "image", 4, False),
+    "sem_tsrn": ArchSpec(_tsrn(SEM_TSRN), "image", 4, False),
     "textzoom_net": ArchSpec(lambda a, c: TSRN(scale_factor=c["scale_factor"], width=c["width"], height=c["height"],
                                                stn=a["STN"], mask=False, srb_nums=6, hidden_units=32),
                              "image", 3, False),
 }
 PORTED_ARCHS = tuple(ARCHS)
-# the JAX package's other archs: ROADMAP.md queue 1 item 7 ports them
-NOT_PORTED = ("tsrn_c2f", "sem_tsrn")
+# the JAX package's archs that the port lacks: none
+NOT_PORTED = ()
 
 
 def check_arch(arch: str) -> ArchSpec:
-    """``arch``'s spec; ``NotImplementedError`` naming its item for an arch
-    not ported yet, ``ValueError`` for a name the JAX package lacks too."""
+    """``arch``'s spec; ``ValueError`` for a name the JAX package lacks too."""
     if arch in ARCHS:
         return ARCHS[arch]
-    if arch in NOT_PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet (ROADMAP.md queue 1 item 7); "
-                                  f"ported: {', '.join(PORTED_ARCHS)}")
     raise ValueError(f"unknown arch {arch!r}")
 
 

@@ -1,11 +1,14 @@
-"""TSRN and TSRN_TL, the recurrent SR backbones (counterpart of
-tpgsr_tpu/models/tsrn.py:42-226; reference model/tsrn.py:18-215).
+"""TSRN, TSRN_TL, TSRN_C2F and SEM_TSRN, the recurrent SR backbones
+(counterpart of tpgsr_tpu/models/tsrn.py:42-346; reference
+model/tsrn.py:18-370).
 
 NCHW, with the reference's keys: ``block1.{0,1}``, ``block{2..srb+1}.*``,
 ``infoGen.*`` (TSRN_TL), ``block{srb+2}.{0,1}``, ``block{srb+3}.{j}.conv``
-and the final ``block{srb+3}.{ups}`` conv.  The head is the original form
-(upsample conv, PixelShuffle, mish, 9x9 conv at HR), which equals the JAX
-package's fused 5x5 LR head exactly.
+and the final ``block{srb+3}.{ups}`` conv; ``coarse_proj`` (TSRN_C2F),
+``w2v_proj.vec_proj`` and each block's ``feature_enhancer.*`` (SEM_TSRN).
+The head is the original form (upsample conv, PixelShuffle, mish, 9x9 conv
+at HR), which equals the JAX package's fused 5x5 LR head of TSRN and TSRN_TL
+exactly and is the JAX package's own head of the other two.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch.nn as nn
 from tpgsr_tpu_torch.models.layers import GruBlock, UpsampleBlock, mish
 from tpgsr_tpu_torch.models.prior import TSRN_PADDINGS, InfoGenP
 from tpgsr_tpu_torch.models.stn import STNHead, TPSSpatialTransformer
+from tpgsr_tpu_torch.models.transformer import FeatureEnhancerW2V, ImFeat2WordVec
 from tpgsr_tpu_torch.ops.resize import interpolate_bilinear
 
 
@@ -74,24 +78,25 @@ class TSRN(nn.Module):
         self._build(scale_factor, width, height, stn, srb_nums, mask, hidden_units)
 
     def _build(self, scale_factor, width, height, stn, srb_nums, mask, hidden_units, text_emb=0,
-               out_text_channels=0):
+               out_text_channels=0, block=RecurrentResidualBlock, head_extra=0):
         """Register the trunk in the reference's order; with ``text_emb`` the
         first ``TL_BLOCKS`` SRBs take the prior and ``infoGen`` follows the
-        SRBs."""
+        SRBs.  ``block(ch)`` builds each other SRB; the upsampling head takes
+        ``head_extra`` channels more than the trunk's."""
         self.in_planes = 4 if mask else 3
         self.stn = stn
         self.srb_nums = srb_nums
         ch = 2 * hidden_units
         self.block1 = nn.Sequential(nn.Conv2d(self.in_planes, ch, 9, padding=4), nn.PReLU())
         for i in range(srb_nums):
-            block = (RecurrentResidualBlockTL(ch, out_text_channels) if text_emb and i < TL_BLOCKS
-                     else RecurrentResidualBlock(ch))
-            setattr(self, f"block{i + 2}", block)
+            setattr(self, f"block{i + 2}", RecurrentResidualBlockTL(ch, out_text_channels)
+                    if text_emb and i < TL_BLOCKS else block(ch))
         if text_emb:
             self.infoGen = InfoGenP(text_emb, out_text_channels, TSRN_PADDINGS)
         setattr(self, f"block{srb_nums + 2}", nn.Sequential(nn.Conv2d(ch, ch, 3, padding=1), nn.BatchNorm2d(ch)))
-        head = [UpsampleBlock(ch, 2) for _ in range(int(math.log2(scale_factor)))]
-        head.append(nn.Conv2d(ch, self.in_planes, 9, padding=4))
+        head_ch = ch + head_extra
+        head = [UpsampleBlock(head_ch, 2) for _ in range(int(math.log2(scale_factor)))]
+        head.append(nn.Conv2d(head_ch, self.in_planes, 9, padding=4))
         setattr(self, f"block{srb_nums + 3}", nn.Sequential(*head))
         if stn:
             lr_size = (height // scale_factor, width // scale_factor)
@@ -135,3 +140,76 @@ class TSRN_TL(TSRN):
             text_emb = x.new_zeros(x.shape[0], self.text_emb, 1, 26)
         spatial = interpolate_bilinear(self.infoGen(text_emb), (x.shape[2], x.shape[3]), align_corners=True)
         return self._trunk(x, spatial)
+
+
+class TSRN_C2F(TSRN):
+    """Coarse-to-fine TSRN (arch tsrn_c2f; tpgsr_tpu/models/tsrn.py:229-269,
+    reference model/tsrn.py:218-283): the plain SRB trunk, ``coarse_proj`` (a
+    9x9 conv to ``in_planes`` at LR), and the head over the concatenation
+    [block1 + trunk, coarse], so its upsample blocks take ``2 hidden_units +
+    in_planes`` channels; it ends in the HR 9x9 conv and tanh."""
+
+    def __init__(self, scale_factor: int = 2, width: int = 128, height: int = 32, stn: bool = False,
+                 srb_nums: int = 5, mask: bool = True, hidden_units: int = 32):
+        nn.Module.__init__(self)
+        in_planes = 4 if mask else 3
+        self._build(scale_factor, width, height, stn, srb_nums, mask, hidden_units, head_extra=in_planes)
+        self.coarse_proj = nn.Conv2d(2 * hidden_units, in_planes, 9, padding=4)
+
+    def forward(self, x: torch.Tensor):
+        """x [B, in_planes, h, w] -> (SR [B, in_planes, 2h, 2w], coarse [B, in_planes, h, w])."""
+        x = self._rectify(x)
+        block1 = self.block1(x)
+        b = block1
+        for i in range(self.srb_nums):
+            b = getattr(self, f"block{i + 2}")(b)
+        b = getattr(self, f"block{self.srb_nums + 2}")(b)
+        coarse = self.coarse_proj(b)
+        sr = getattr(self, f"block{self.srb_nums + 3}")(torch.cat([block1 + b, coarse], 1))
+        return torch.tanh(sr), coarse
+
+
+class ReasoningResidualBlock(nn.Module):
+    """conv-BN-mish-conv-BN, then ``feature_enhancer``'s self-attention over
+    the H x W positions, added to x (reference model/tsrn.py:430-461)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
+        self.bn1 = nn.BatchNorm2d(channels)
+        self.conv2 = nn.Conv2d(channels, channels, 3, padding=1)
+        self.bn2 = nn.BatchNorm2d(channels)
+        self.feature_enhancer = FeatureEnhancerW2V(300, channels, 4)
+
+    def forward(self, x: torch.Tensor, word_vecs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        residual = self.bn2(self.conv2(mish(self.bn1(self.conv1(x)))))
+        b, c, h, w = residual.shape
+        residual = self.feature_enhancer(residual.reshape(b, c, h * w), word_vecs)
+        return x + residual.reshape(b, c, h, w)
+
+
+class SEM_TSRN(TSRN):
+    """Semantic-reasoning TSRN (arch sem_tsrn; tpgsr_tpu/models/tsrn.py:272-346,
+    reference model/tsrn.py:286-370): ``ReasoningResidualBlock``s, each after
+    ``w2v_proj`` predicts a word vector from its input.  In train mode with
+    ``word_vecs`` given the blocks get those, otherwise the predicted ones;
+    either way their feature enhancer ignores them."""
+
+    def __init__(self, scale_factor: int = 2, width: int = 128, height: int = 32, stn: bool = False,
+                 srb_nums: int = 5, mask: bool = True, hidden_units: int = 32, word_vec_d: int = 300):
+        nn.Module.__init__(self)
+        self._build(scale_factor, width, height, stn, srb_nums, mask, hidden_units, block=ReasoningResidualBlock)
+        self.w2v_proj = ImFeat2WordVec(2 * hidden_units, word_vec_d)
+
+    def forward(self, x: torch.Tensor, word_vecs: Optional[torch.Tensor] = None):
+        """x [B, in_planes, h, w] -> (SR [B, in_planes, 2h, 2w], [the
+        ``srb_nums`` predicted word vectors, each [B, word_vec_d]])."""
+        x = self._rectify(x)
+        block1 = self.block1(x)
+        b, pred_vecs = block1, []
+        for i in range(self.srb_nums):
+            pred_vecs.append(self.w2v_proj(b))
+            wv = word_vecs if self.training and word_vecs is not None else pred_vecs[-1]
+            b = getattr(self, f"block{i + 2}")(b, wv)
+        b = getattr(self, f"block{self.srb_nums + 2}")(b)
+        return torch.tanh(getattr(self, f"block{self.srb_nums + 3}")(block1 + b)), pred_vecs

@@ -21,7 +21,7 @@ import sys
 import numpy as np
 import torch
 
-from tpgsr_tpu_torch.config import AttrDict, build_arg_parser, load_config, script_argv
+from tpgsr_tpu_torch.config import AttrDict, build_arg_parser, load_config, script_argv, tpg_opt
 from tpgsr_tpu_torch.device import DeviceLike
 from tpgsr_tpu_torch.profile_eval import random_batch, trace
 from tpgsr_tpu_torch.train.trainer import TextSR
@@ -58,7 +58,7 @@ def mission(argv, compute_dtype: str = "fp32", device: DeviceLike = None):
     cfg = load_config()
     cfg.TRAIN.compute_dtype = compute_dtype
     cfg.TRAIN.VAL.crnn_pretrained = ""
-    m = TextSR(cfg, AttrDict(vars(build_arg_parser().parse_args(argv))), device=device)
+    m = TextSR(cfg, AttrDict(vars(build_arg_parser().parse_args(argv))), tpg_opt(), device=device)
     state = m.init_state()
     m._build_steps()
     return m, state, m._eval_models(state, m._eval_recognizer())

@@ -1,8 +1,8 @@
 """The train and eval steps of the SR zoo (counterpart of
 tpgsr_tpu/train/step.py:47-398: the cascade branch for the ``ABLATION_SET``
 archs, the one-student branch for the ``TL_SIMPLE`` archs and the plain
-branch for the archs without a prior; the CRNN, ASTER and MORAN eval
-recognizers).
+branch for the archs without a prior, with the branches of ``tsrn_c2f``
+and ``sem_tsrn``; the CRNN, ASTER, MORAN and SEED eval recognizers).
 
 Cascade archs: each stage runs the student CRNN on the previous stage's
 image (the LR at stage 0), turns its logits into the prior, and runs the SR
@@ -11,7 +11,8 @@ model on the LR with that prior.  ``TL_SIMPLE`` archs (``tsrn_tl``,
 ``stu_iter`` says.  Plain archs run the SR model on the LR alone.  In eval
 a frozen CRNN then reads SR, LR, HR and each earlier stage's SR for the
 word accuracies: the teacher of a prior arch, the explicit eval recognizer
-(``EvalModels.rec``) of a plain one, or ASTER or MORAN for either
+(``EvalModels.rec``) of a plain one or of the ``--tpg OPT`` flagship, whose
+OPT teacher cannot read for it, or ASTER, MORAN or SEED for any
 (``EvalModels.rec_kind``, tpgsr_tpu/train/step.py:317-346).  That is
 what ``TextSR.test()`` and ``demo()`` serve (tpgsr_tpu/train/trainer.py:736-800).
 In training the teacher of a prior arch reads HR, and its softmax is the
@@ -24,7 +25,8 @@ RGB only, and the steps append the contour mask on the device
 (``_ensure_mask``).  The SR model reads the first ``ArchSpec.in_channels``
 of the LR, and its loss the same channels of the HR.  The cascade's train
 step also reads ``ctc_labels``, ``ctc_lengths`` and ``weighted_tics`` under
-``use_label``; only the keys of ``train_wire_keys`` cross to the device.
+``use_label``, ``tsrn_c2f``'s its ``coarse`` target and ``sem_tsrn``'s its
+``w2v`` vectors; only the keys of ``train_wire_keys`` cross to the device.
 Outputs keep the JAX layouts: ``sr`` NHWC, per-sample ``mse`` and ``ssim``
 [B], logits [T, B, C].
 
@@ -52,6 +54,7 @@ from tpgsr_tpu_torch.losses import charbonnier_loss, image_loss, l1_loss, mse_lo
 from tpgsr_tpu_torch.models.aster import RecognizerBuilder, decode_aster_ids
 from tpgsr_tpu_torch.models.moran import MORAN, decode_moran_ids
 from tpgsr_tpu_torch.models.registry import ABLATION_SET, TL_SIMPLE, check_arch
+from tpgsr_tpu_torch.models.seed import SEEDModelBuilder, parse_seed_data
 from tpgsr_tpu_torch.ops.ctc import ctc_loss, decode_crnn
 from tpgsr_tpu_torch.ops.image import append_contour_mask_u8, ssim
 from tpgsr_tpu_torch.ops.resize import interpolate_bicubic
@@ -60,7 +63,7 @@ from tpgsr_tpu_torch.train.state import TrainState, clip_sr_grads
 
 
 # the eval recognizers (--test_model) that the port runs
-REC_KINDS = ("CRNN", "ASTER", "MORAN")
+REC_KINDS = ("CRNN", "ASTER", "MORAN", "SEED")
 
 
 @dataclass
@@ -70,7 +73,8 @@ class EvalModels:
     frozen teacher CRNN (None for a plain arch) and the eval recognizer
     ``rec``, which reads SR, LR and HR in place of the teacher
     (tpgsr_tpu/train/step.py:318-346): a CRNN for a plain arch, which has no
-    teacher, or an ASTER or MORAN for any arch (``rec_kind``)."""
+    teacher, or for ``--tpg OPT``, whose teacher is no CRNN; or an ASTER,
+    MORAN or SEED for any arch (``rec_kind``)."""
 
     sr: Sequence[nn.Module]
     stu: Sequence[nn.Module]
@@ -89,18 +93,20 @@ class EvalModels:
 
     @property
     def rec_kind(self) -> str:
-        """The kind of the recognizer that reads the images: 'ASTER' or
-        'MORAN' for those models as ``rec``, else 'CRNN'."""
-        if isinstance(self.rec, RecognizerBuilder):
-            return "ASTER"
-        return "MORAN" if isinstance(self.rec, MORAN) else "CRNN"
+        """The kind of the recognizer that reads the images: 'ASTER',
+        'MORAN' or 'SEED' for those models as ``rec``, else 'CRNN'."""
+        for cls, kind in ((RecognizerBuilder, "ASTER"), (MORAN, "MORAN"), (SEEDModelBuilder, "SEED")):
+            if isinstance(self.rec, cls):
+                return kind
+        return "CRNN"
 
 
 def rec_decoder(rec_kind: str, voc_type: str = "all") -> Callable[[torch.Tensor], list]:
     """The host decoder of a recognizer's output in the eval step: CRNN
-    logits by greedy CTC, ASTER's beam ids through ``AsterInfo(voc_type)``,
-    MORAN's L2R logits by argmax cut at '$' (tpgsr_tpu/train/trainer.py:381-436)."""
-    if rec_kind == "ASTER":
+    logits by greedy CTC, ASTER's and SEED's beam ids through
+    ``AsterInfo(voc_type)``, MORAN's L2R logits by argmax cut at '$'
+    (tpgsr_tpu/train/trainer.py:381-436)."""
+    if rec_kind in ("ASTER", "SEED"):
         info = AsterInfo(voc_type)
         return lambda ids: decode_aster_ids(ids, info)
     return {"CRNN": decode_crnn, "MORAN": decode_moran_ids}[rec_kind]
@@ -109,11 +115,14 @@ def rec_decoder(rec_kind: str, voc_type: str = "all") -> Callable[[torch.Tensor]
 def recognizer_input(rec_kind: str, img: torch.Tensor, crnn_w: int = 100) -> torch.Tensor:
     """NHWC images in [0, 1] -> what a recognizer of ``rec_kind`` reads, NCHW
     (tpgsr_tpu/train/step.py:320-346): ASTER the RGB resized bicubic to
-    32x128 and scaled to [-1, 1] (parse_aster_data); MORAN the bicubic
-    32x100 grayscale (parse_moran_data); a CRNN the bicubic 32 x ``crnn_w``
-    grayscale (parse_crnn_data)."""
+    32x128 and scaled to [-1, 1] (parse_aster_data); SEED the RGB resized
+    bicubic to 32x100 and scaled to [-1, 1] (parse_seed_data); MORAN the
+    bicubic 32x100 grayscale (parse_moran_data); a CRNN the bicubic 32 x
+    ``crnn_w`` grayscale (parse_crnn_data)."""
     if rec_kind == "ASTER":
         return interpolate_bicubic(_nchw(img[..., :3]), (32, 128)) * 2.0 - 1.0
+    if rec_kind == "SEED":
+        return parse_seed_data(_nchw(img))
     return _nchw(parse_crnn_data(img, 100 if rec_kind == "MORAN" else crnn_w))
 
 
@@ -168,15 +177,21 @@ def _as_image(arr, dev: torch.device, want_mask: bool = False, dtype: torch.dtyp
     return t.to(dev, dtype, non_blocking=True)
 
 
+# the batch keys of the archs whose model returns (SR, an auxiliary output)
+AUX_KEYS = {"tsrn_c2f": ("coarse",), "sem_tsrn": ("w2v",)}
+
+
 def train_wire_keys(arch: str = "tsrn_tl_cascade") -> frozenset:
     """The batch keys the train step reads, the only ones it copies to the
     device (tpgsr_tpu/train/step.py:85-98): the collate's ``label_vecs`` and
-    ``labels`` stay on the host, and a plain arch reads the images alone.
+    ``labels`` stay on the host, and a plain arch reads the images alone,
+    ``tsrn_c2f`` with its ``coarse`` target and ``sem_tsrn`` with its ``w2v``.
     A ``TL_SIMPLE`` arch ships the cascade's keys, as the JAX step does."""
     check_arch(arch)
     if arch in ABLATION_SET or arch in TL_SIMPLE:
         return frozenset({"hr", "lr", "ctc_labels", "ctc_lengths", "weighted_tics"})
-    return frozenset({"hr", "lr"})
+    return frozenset({"hr", "lr", *AUX_KEYS.get(arch, ())})
+
 
 
 def image_crit(kind: str, gradient: bool) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
@@ -197,14 +212,15 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
     ``args`` reads ``arch``, ``stu_iter``, ``sr_share``, ``tpg_share`` and
     ``mask`` as the CLI names them; ``width`` is TRAIN.width (it sets the
     CRNN input width).  A cascade arch runs ``stu_iter`` stages, a
-    ``TL_SIMPLE`` arch one, a plain one its SR model on the LR
-    (tpgsr_tpu/train/step.py:354-379).  The batch's
+    ``TL_SIMPLE`` arch one, a plain one its SR model on the LR, keeping the
+    SR of ``tsrn_c2f``'s and ``sem_tsrn``'s pairs (tpgsr_tpu/train/step.py:354-379).  The batch's
     ``hr`` and ``lr`` go to ``device`` (the card unless told otherwise).
 
     The ``logits_<name>`` outputs are what the recognizer of
     ``models.rec_kind`` gives for its input (``recognizer_input``): a CRNN
     its [T, B, 37] logits, ASTER its beam-search ids [B, max_len], MORAN
-    its L2R logits [B, 20, 37].  ``rec_decoder`` turns each into strings."""
+    its L2R logits [B, 20, 37], SEED its beam-search ids [B, max_len].
+    ``rec_decoder`` turns each into strings."""
     arch = args.get("arch", "tsrn_tl_cascade")
     in_ch = check_arch(arch).in_channels
     tl_arch = arch in ABLATION_SET or arch in TL_SIMPLE
@@ -234,7 +250,8 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
                 cascade = _nhwc(models.sr[0 if sr_share else i](lr_in, _nchw(prior)))
                 sr_list.append(cascade)
         else:
-            sr_list.append(_nhwc(models.sr[0](lr_in)))
+            out = models.sr[0](lr_in)
+            sr_list.append(_nhwc(out[0] if isinstance(out, tuple) else out))
         sr = sr_list[-1]
         diff = (sr[..., :3] - hr[..., :3]) * 255.0
         outs = {
@@ -294,7 +311,14 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
     one SR model on the LR: the loss is its image loss x 100, and
     ``loss_distill`` is 0 whatever ``use_label``, ``use_distill`` and
     ``ssim_loss`` say; an arch without parameters (``bicubic``) reports its
-    loss and changes nothing.  Then each SR model is clipped and Adam
+    loss and changes nothing.  ``tsrn_c2f`` adds the image loss x 100 of its
+    coarse output against the batch's ``coarse`` (its first ``in_planes``
+    channels, fp32) to ``loss_total``, not to ``loss_img``; ``sem_tsrn``
+    feeds the batch's ``w2v`` to its model, whose loss is the image loss
+    alone (tpgsr_tpu/train/step.py:213-242).  ``sem_tsrn``'s ``w2v_proj``
+    and its blocks' bypassed ``w2v_proj`` reach no loss: they get no
+    gradient (``None``), Adam keeps no state for them and leaves them as they
+    are, as optax's zero gradients leave them in the JAX package.  Then each SR model is clipped and Adam
     steps.  BatchNorm running statistics update by torch's own rule, once a
     call of a model.  ``args`` reads ``arch``, ``stu_iter``, ``sr_share``,
     ``tpg_share``, ``use_label``, ``use_distill``, ``gradient``,
@@ -380,12 +404,24 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
             m.train()
         state.optimizer.zero_grad(set_to_none=True)
         metrics: Dict[str, torch.Tensor] = {}
+        loss_aux = None
         if tl_arch:
             loss_img, loss_distill = prior_losses(state, wire, hr, lr, metrics)
         else:
-            loss_img = image_term(_nhwc(run(state.sr[0], _nchw(lr[..., :in_ch]))), hr)
+            lr_in = _nchw(lr[..., :in_ch])
+            if arch == "tsrn_c2f":
+                sr_out, coarse = run(state.sr[0], lr_in)
+                target = _as_image(wire["coarse"], dev)[..., : coarse.shape[1]]
+                loss_aux = crit(_nhwc(coarse).float(), target) * 100.0
+            elif arch == "sem_tsrn":
+                sr_out, _ = run(state.sr[0], lr_in, wire.get("w2v"))
+            else:
+                sr_out = run(state.sr[0], lr_in)
+            loss_img = image_term(_nhwc(sr_out), hr)
             loss_distill = torch.zeros_like(loss_img)
         loss = loss_img + loss_distill
+        if loss_aux is not None:
+            loss = loss + loss_aux
         if spec.trainable:
             loss.backward()
         clip_sr_grads(state.sr)

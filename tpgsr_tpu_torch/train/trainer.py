@@ -18,7 +18,9 @@ iterations from the restored step.  ``--go_test`` runs val with
 visualizations, ``--test`` times eval over TEST.test_data_dir, ``--demo``
 reads the images of ``--demo_dir``.  Val, ``--go_test`` and ``--test`` score
 the images with the recognizer of ``--test_model`` (``--rec`` for
-``--test``): the teacher CRNN, or ASTER or MORAN (``eval_recognizer``).
+``--test``): the teacher CRNN, or ASTER, MORAN or SEED (``eval_recognizer``).
+``--tpg OPT`` makes clova's None-ResNet-None-CTC the teacher and the students
+(``load_opt``); a CRNN of its own then scores the images.
 What is not ported raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item (``check_ported``);
 ``dispatch_chain``, ``eval_tile`` and ``wire_uint8`` are read by nothing:
@@ -46,6 +48,8 @@ from tpgsr_tpu_torch.device import DeviceLike, resolve_device
 from tpgsr_tpu_torch.models import aster, moran
 from tpgsr_tpu_torch.models.crnn import CRNN
 from tpgsr_tpu_torch.models.layers import init_torch_defaults_
+from tpgsr_tpu_torch.models.opt_tpg import OPTModel
+from tpgsr_tpu_torch.models.seed import SEEDModelBuilder
 from tpgsr_tpu_torch.models.registry import ABLATION_SET, TL_SIMPLE, build_model, check_arch
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
 from tpgsr_tpu_torch.ops.gru_seq import SUPPORTED_HIDDEN
@@ -61,10 +65,10 @@ REC_MAP = {"aster": "ASTER", "moran": "MORAN", "crnn": "CRNN"}
 
 def collate_kind(arch: str, train: bool) -> str:
     """The collate an arch trains or validates with (reference
-    interfaces/base.py:51-214)."""
+    interfaces/base.py:51-214; tpgsr_tpu/train/trainer.py:233-236)."""
     if arch in ABLATION_SET or arch in TL_SIMPLE:
         return "realWTLAMask" if train else "realWTL"
-    return "real"
+    return {"tsrn_c2f": "c2f_real", "sem_tsrn": "W2V_real"}.get(arch, "real")
 
 
 def make_collate(arch: str, train: bool, mask: bool = False, *, height: int = 32, width: int = 128,
@@ -181,6 +185,22 @@ def load_crnn(path: str, generator: torch.Generator) -> CRNN:
     return model
 
 
+def load_opt(path: str, generator: torch.Generator, opt_TPG: Optional[Mapping] = None) -> OPTModel:
+    """The ``--tpg OPT`` text-prior generator (reference interfaces/base.py:681-718;
+    tpgsr_tpu/train/trainer.py:300-312): clova's None-ResNet-None-CTC of
+    ``opt_TPG``'s ``num_class`` and ``output_channel`` (37 and 512 without
+    it), from ``path`` when that file exists (clova's file,
+    ``module.`` prefixes stripped), drawn from ``generator`` otherwise."""
+    opt = opt_TPG or {}
+    model = OPTModel(nclass=int(opt.get("num_class", CTC_NUM_CLASSES)),
+                     output_channel=int(opt.get("output_channel", 512)))
+    if path and os.path.exists(path):
+        model.load_state_dict(ckpt.load_recognizer_state_dict(path))
+    else:
+        init_torch_defaults_(model, generator)
+    return model
+
+
 def eval_recognizer(kind: str, config: AttrDict, device: DeviceLike = None) -> torch.nn.Module:
     """The frozen eval recognizer of ``--test_model`` (test_bible,
     super_resolution.py:107-135; tpgsr_tpu/train/trainer.py:381-458), in
@@ -191,7 +211,9 @@ def eval_recognizer(kind: str, config: AttrDict, device: DeviceLike = None) -> t
     keeps as buffers are dropped), a CRNN from TRAIN.VAL.crnn_pretrained.
     Where the file does not exist the weights are drawn from seed 7, as the
     JAX package draws them from its key 7 (other numbers, the same
-    distributions)."""
+    distributions).  SEED (``AsterInfo(TRAIN.voc_type)``, no STN) is always
+    drawn from seed 7: the JAX package reads no SEED file either
+    (tpgsr_tpu/train/trainer.py:414-426)."""
     dev = resolve_device(device)
     val = config.TRAIN.VAL
     gen = torch.Generator().manual_seed(7)
@@ -209,8 +231,12 @@ def eval_recognizer(kind: str, config: AttrDict, device: DeviceLike = None) -> t
             model.load_state_dict({k: v for k, v in sd.items() if not k.startswith(constants)})
         else:
             model.init_from_(gen)
+    elif kind == "SEED":
+        info = AsterInfo(config.TRAIN.voc_type)
+        model = SEEDModelBuilder(info.rec_num_classes, info.char2id[info.EOS], max_len_labels=info.max_len)
+        model.init_from_(gen)
     else:
-        raise NotImplementedError(f"--test_model {kind}: not ported yet (ROADMAP.md queue 1 item 8)")
+        raise ValueError(f"unknown --test_model {kind!r}")
     return model.to(dev).eval().requires_grad_(False)
 
 
@@ -226,11 +252,11 @@ def check_ported(config: AttrDict, args: Mapping, device: torch.device) -> None:
     torch_dtype(t.get("compute_dtype", "fp32"))  # raises ValueError for a value that is neither fp32 nor bf16
     if int(t.get("n_devices", 0) or 0) > 1:
         missing(f"TRAIN.n_devices {t.n_devices}: data parallelism over several cards", "queue 1 item 10")
-    if args.get("tpg", "CRNN") != "CRNN":
-        missing(f"--tpg {args['tpg']}", "queue 1 item 8")
+    if args.get("tpg", "CRNN") not in ("CRNN", "OPT"):
+        raise ValueError(f"unknown --tpg {args['tpg']!r}")
     kind = eval_rec_kind(args)
     if kind not in REC_KINDS:
-        missing(f"--test_model {kind}", "queue 1 item 8")
+        raise ValueError(f"unknown --test_model {kind!r}")
     if args.get("demo") and kind != "CRNN":
         # the JAX package's demo() decodes any recognizer's output by CTC
         missing(f"--demo with --test_model {kind}", "queue 1 item 8")
@@ -251,12 +277,16 @@ class TextSR:
     it says, as the JAX package does.  On the card it turns TF32 off for the
     process, cuBLAS's and cuDNN's, in both precisions: the fp32 parts (fp32
     steps, and in bf16 the losses, BatchNorm, K1's state, the clip, Adam and
-    eval) stay IEEE fp32."""
+    eval) stay IEEE fp32.  ``opt_TPG`` is the ``--tpg OPT`` generator's
+    options (``config.tpg_opt``, which the CLI passes)."""
 
-    def __init__(self, config: AttrDict, args: AttrDict, device: DeviceLike = None):
+    def __init__(self, config: AttrDict, args: AttrDict, opt_TPG: Optional[AttrDict] = None,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         self.config = apply_arg_overrides(config, args)
         self.args = args
+        self.opt_TPG = opt_TPG
+        self.tpg = str(args.get("tpg") or "CRNN")
         check_ported(self.config, args, self.device)
         if self.device.type == "cuda":
             # fp32 is IEEE fp32 on the card too, in either compute dtype:
@@ -301,13 +331,13 @@ class TextSR:
 
     def _eval_recognizer(self) -> Optional[torch.nn.Module]:
         """The eval recognizer of ``--test_model`` that the state lacks
-        (``eval_recognizer``): ASTER or MORAN for any arch, a CRNN for a
-        plain arch; None for a prior arch (cascade or ``TL_SIMPLE``) scored
-        by CRNN, whose teacher reads the images.  Built when ``--test_model`` changes (``test()``
+        (``eval_recognizer``): ASTER, MORAN or SEED for any arch, a CRNN for a
+        plain arch and under ``--tpg OPT``; None for a prior arch (cascade or
+        ``TL_SIMPLE``) scored by CRNN, whose CRNN teacher reads the images.  Built when ``--test_model`` changes (``test()``
         sets it from ``--rec``), as the JAX package rebuilds its eval step
         (tpgsr_tpu/train/trainer.py:470-481), and frozen on the device."""
         kind = str(self.args.get("test_model") or "CRNN")
-        if kind == "CRNN" and self.is_tl:
+        if kind == "CRNN" and self.is_tl and self.tpg == "CRNN":
             return None
         if self._rec_kind != kind:
             self._rec, self._rec_kind = eval_recognizer(kind, self.config, self.device), kind
@@ -316,16 +346,24 @@ class TextSR:
     def _decoder(self):
         return rec_decoder(str(self.args.get("test_model") or "CRNN"), self.config.TRAIN.voc_type)
 
+    def _teacher(self, gen: torch.Generator) -> torch.nn.Module:
+        """A prior arch's teacher: the CRNN of TRAIN.VAL.crnn_pretrained, or
+        under ``--tpg OPT`` the OPT model of ``opt_TPG.saved_model``; drawn
+        from ``gen`` where the file does not exist."""
+        if self.tpg == "OPT":
+            return load_opt((self.opt_TPG or {}).get("saved_model", ""), gen, self.opt_TPG)
+        return load_crnn(self.config.TRAIN.VAL.get("crnn_pretrained", ""), gen)
+
     def init_state(self) -> TrainState:
         """SR models drawn from TRAIN.manualSeed (then a prior arch's
-        teacher, when it is not loaded), students copied from the teacher, Adam; then
+        teacher, CRNN or OPT, when it is not loaded), students copied from the teacher, Adam; then
         ``--resume`` (or TRAIN.resume): the periodic files, Adam and the
         step, or for an eval-only run the best files alone."""
         t = self.config.TRAIN
         gen = torch.Generator().manual_seed(int(t.get("manualSeed", 1234)))
         a, cfg = registry_dicts(self.config, self.args)
         sr = [init_torch_defaults_(build_model(self.arch, a, cfg)[0], gen).to(self.device) for _ in range(self.n_sr)]
-        teacher = load_crnn(t.VAL.get("crnn_pretrained", ""), gen).to(self.device) if self.is_tl else None
+        teacher = self._teacher(gen).to(self.device) if self.is_tl else None
         state = create_train_state(sr, teacher, n_stu=self.n_stu, lr=float(t.lr), beta1=float(t.beta1))
         resume = self.args.get("resume") or t.get("resume")
         if resume:
