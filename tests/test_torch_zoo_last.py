@@ -27,12 +27,11 @@ import jax
 import numpy as np
 import pytest
 import torch
-from flax.core import unfreeze
 from PIL import Image
 
 from tests.fixtures import make_textzoom_lmdb
 from tests.test_torch_aster import FEATURE_ATOL, MARGIN, SCORE_ATOL, _sequence_score
-from tests.torch_recognizers import _randomize_batchnorm, _scale_convs, _scale_decoder, nchw, numpy_tree
+from tests.torch_recognizers import nchw, numpy_tree, seed_variables
 from tpgsr_tpu.charset import AsterInfo as JaxAsterInfo
 from tpgsr_tpu.data import collate as jax_collate
 from tpgsr_tpu.data import datasets as jax_datasets
@@ -285,20 +284,7 @@ def seed_case():
     info = JaxAsterInfo("all")
     eos = info.char2id[info.EOS]
     port = seed.SEEDModelBuilder(info.rec_num_classes, eos, max_len_labels=SEED_MAX_LEN)
-    port.init_from_(torch.Generator().manual_seed(45))
-    sd = _np_sd(port)
-    v = numpy_tree(ti.import_aster(sd))
-    v["params"]["embeder"] = {"eEmbed": {"kernel": sd["embeder.eEmbed.weight"].T, "bias": sd["embeder.eEmbed.bias"]}}
-    v["params"]["embed_fc"] = {"kernel": sd["decoder.decoder.embed_fc.weight"].T,
-                               "bias": sd["decoder.decoder.embed_fc.bias"]}
-    rng = np.random.default_rng(45)
-    _randomize_batchnorm(v["params"], rng, stats=False)
-    _randomize_batchnorm(v["batch_stats"], rng, stats=True)
-    _scale_convs(v["params"]["encoder"], np.sqrt(6.0))
-    dec = v["params"]["decoder"]["decoder"]
-    _scale_decoder(dec, "gru_w_ih", slice(dec["tgt_embedding"]["embedding"].shape[1], None), "fc")
-    dec["fc"]["bias"] = dec["fc"]["bias"].copy()
-    dec["fc"]["bias"][eos] += 1.5
+    v = seed_variables(port.init_from_(torch.Generator().manual_seed(45)), 45)
     model = jax_seed.SEEDModelBuilder(rec_num_classes=info.rec_num_classes, eos_id=eos, max_len_labels=SEED_MAX_LEN)
     port.load_state_dict(from_jax.seed_state_dict(v), strict=True)
     raw = np.random.default_rng(46).random((SEED_B, 16, 64, 4), dtype=np.float32)

@@ -5,14 +5,15 @@ flagship with ``--tpg OPT`` at ``--stu_iter 2`` (two OPT students feeding
 one SR model, the stages recomputed in the backward), in fp32 and in bf16.
 
 The rule is tests/test_torch_zoo_train.py's: every metric at rtol 5e-6;
-per model, Adam's first and second moments at a relative L2 error of 5e-3 and the
-BatchNorm statistics at 1e-5, the pre-BN biases apart; every parameter
-within 2.5 lr of the JAX one; the update of every tracked parameter within
-5 % of the JAX update.  The OPT flagship's losses, moments and updates are
-held at ``OPT_LOSS_RTOL`` and ``OPT_MOMENT_RTOL``, measured against fp64.  ``sem_tsrn``'s ``w2v_proj`` and its blocks' bypassed
-projections reach no loss: the port leaves them without a gradient and
-without Adam state where optax holds zero moments; both leave them as they
-were.  bf16 follows tests/test_torch_bf16.py: E_port <= 2 E_jax + floor
+per model, Adam's first and second moments at a relative L2 error of 5e-3
+and the BatchNorm statistics at 1e-5, the pre-BN biases apart; every
+parameter within 2.5 lr of the JAX one; the update of every tracked
+parameter within 5 % of the JAX update.  The OPT flagship's losses,
+moments and updates are held at ``OPT_LOSS_RTOL`` and ``OPT_MOMENT_RTOL``,
+measured against fp64.  ``sem_tsrn``'s ``w2v_proj`` and its blocks'
+bypassed projections reach no loss: the port leaves them without a
+gradient and without Adam state where optax holds zero moments; both leave
+them as they were.  bf16 follows tests/test_torch_bf16.py: E_port <= 2 E_jax + floor
 against the JAX fp32 step, for every loss and the SR model's moments.
 Sizes: LR 16x32 -> HR 32x64, batch 4, 2 SRBs at hidden 8; the OPT models
 at 64 channels."""

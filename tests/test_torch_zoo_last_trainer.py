@@ -32,15 +32,14 @@ from tests.test_torch_cli import _relabelled_lmdb
 from tests.test_torch_train import LOSS_RTOL
 from tests.test_torch_trainer import LATE_LOSS_RTOL, PSNR_SSIM_RTOL, VAL_RTOL
 from tests.test_torch_zoo_last_train import OPT_LOSS_RTOL
-from tests.torch_recognizers import _randomize_batchnorm, _scale_convs, _scale_decoder, numpy_tree
+from tests.torch_recognizers import seed_variables
 from tpgsr_tpu import config as jax_config
 from tpgsr_tpu.charset import AsterInfo as JaxAsterInfo
-from tpgsr_tpu.interop.torch_import import import_aster
 from tpgsr_tpu.models.aster import decode_aster_ids as jax_decode_aster_ids
 from tpgsr_tpu.models.seed import SEEDModelBuilder as JaxSEED
 from tpgsr_tpu.train.trainer import TextSR as JaxTextSR
 from tpgsr_tpu_torch import cli, config
-from tpgsr_tpu_torch.charset import CTC_NUM_CLASSES, AsterInfo
+from tpgsr_tpu_torch.charset import CTC_NUM_CLASSES
 from tpgsr_tpu_torch.interop import from_jax
 from tpgsr_tpu_torch.models.crnn import CRNN
 from tpgsr_tpu_torch.models.layers import init_torch_defaults_
@@ -191,26 +190,6 @@ def test_train_losses_val_and_files_match_jax(runs):
         assert port_vals[0]["relabelled"]["accuracy_hr"] > 0
 
 
-def _sharpened_seed(seed_):
-    """SEED's flax variables (no STN) from the port's seeded draw, rescaled
-    as tests/torch_recognizers.py rescales ASTER's."""
-    info = AsterInfo("all")
-    eos = info.char2id[info.EOS]
-    port = SEEDModelBuilder(info.rec_num_classes, eos).init_from_(torch.Generator().manual_seed(seed_))
-    sd = {k: t.numpy() for k, t in port.state_dict().items()}
-    v = numpy_tree(import_aster(sd))
-    v["params"]["embeder"] = {"eEmbed": {"kernel": sd["embeder.eEmbed.weight"].T, "bias": sd["embeder.eEmbed.bias"]}}
-    v["params"]["embed_fc"] = {"kernel": sd["decoder.decoder.embed_fc.weight"].T,
-                               "bias": sd["decoder.decoder.embed_fc.bias"]}
-    rng = np.random.default_rng(seed_)
-    _randomize_batchnorm(v["params"], rng, stats=False)
-    _randomize_batchnorm(v["batch_stats"], rng, stats=True)
-    _scale_convs(v["params"]["encoder"], np.sqrt(6.0))
-    dec = v["params"]["decoder"]["decoder"]
-    _scale_decoder(dec, "gru_w_ih", slice(dec["tgt_embedding"]["embedding"].shape[1], None), "fc")
-    return v
-
-
 def test_go_test_with_seed_matches_jax(shared, tmp_path):
     """``--go_test --test_model SEED`` for ``tsrn_c2f``: the JAX ``TextSR``'s
     val with a sharpened SEED, and ``cli.main(..., device="cpu")`` from a
@@ -220,8 +199,9 @@ def test_go_test_with_seed_matches_jax(shared, tmp_path):
     by both on the first batch."""
     root, db, crnn_path, opt = shared
     args = dict(ARGS["tsrn_c2f"], srb=2, hd_u=8, batch_size=B, vis_dir="seed", go_test=True, test_model="SEED")
-    seed_vars = _sharpened_seed(9)
     info = JaxAsterInfo("all")
+    seed_vars = seed_variables(SEEDModelBuilder(info.rec_num_classes, info.char2id[info.EOS]).init_from_(
+        torch.Generator().manual_seed(9)), 9)
     jax_seed = JaxSEED(rec_num_classes=info.rec_num_classes, eos_id=info.char2id[info.EOS],
                        max_len_labels=info.max_len)
     jax_cfg = _configure(jax_config.load_config(), db, crnn_path, tmp_path / "ckpt_jax")

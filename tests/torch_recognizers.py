@@ -1,7 +1,8 @@
 """Shared pieces of the eval-recognizer parity tests (tests/test_torch_aster.py,
 tests/test_torch_moran.py, tests/test_torch_rec_eval.py): the JAX package's
-ASTER and MORAN drawn from a seed, their variables as numpy trees, the same
-weights in the port through ``interop.from_jax``, and the decode margins.
+ASTER and MORAN drawn from a seed, SEED's flax variables from a port draw,
+their variables as numpy trees, the same weights in the port through
+``interop.from_jax``, and the decode margins.
 
 The draws are rescaled so that the outputs depend on the image, as a
 trained model's do; with the package's draws alone every image decodes to
@@ -27,6 +28,7 @@ import torch
 from flax.core import unfreeze
 
 from tpgsr_tpu.charset import AsterInfo as JaxAsterInfo
+from tpgsr_tpu.interop.torch_import import import_aster
 from tpgsr_tpu.models.aster import RecognizerBuilder as JaxAster
 from tpgsr_tpu.models.moran import MORAN as JaxMORAN
 from tpgsr_tpu_torch.interop import from_jax
@@ -117,6 +119,28 @@ def port_moran(variables) -> MORAN:
     model = MORAN()
     model.load_state_dict(from_jax.moran_state_dict(variables))
     return model.eval()
+
+
+def seed_variables(port, seed: int):
+    """A port SEED's draw (no STN) as the JAX ``SEEDModelBuilder``'s numpy
+    variables, rescaled as ``jax_aster`` rescales ASTER's (less the STN):
+    ASTER's encoder and decoder through ``import_aster``, then the semantic
+    head ``embeder.eEmbed`` and the decoder's ``embed_fc``, which the JAX
+    module keeps at its top level."""
+    sd = {k: t.numpy() for k, t in port.state_dict().items()}
+    v = numpy_tree(import_aster(sd))
+    for name, key in (("embeder", "embeder.eEmbed"), ("embed_fc", "decoder.decoder.embed_fc")):
+        linear = {"kernel": sd[f"{key}.weight"].T, "bias": sd[f"{key}.bias"]}
+        v["params"][name] = {"eEmbed": linear} if name == "embeder" else linear
+    rng = np.random.default_rng(seed)
+    _randomize_batchnorm(v["params"], rng, stats=False)
+    _randomize_batchnorm(v["batch_stats"], rng, stats=True)
+    _scale_convs(v["params"]["encoder"], np.sqrt(6.0))
+    dec = v["params"]["decoder"]["decoder"]
+    _scale_decoder(dec, "gru_w_ih", slice(dec["tgt_embedding"]["embedding"].shape[1], None), "fc")
+    dec["fc"]["bias"] = dec["fc"]["bias"].copy()
+    dec["fc"]["bias"][port.eos_id] += 1.5
+    return v
 
 
 def greedy_margins(logits_blc: np.ndarray) -> np.ndarray:
