@@ -9,22 +9,23 @@ package beside this script):
 
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: compiles every kernel under tpgsr_tpu_torch/csrc with nvcc and
-   checks that no instantiation of K1's forward or backward, fp32 or bf16,
-   spills;
+   checks that no instantiation of K1's forward or backward, fp32
+   (csrc/bigru_seq.cu, csrc/bigru_seq_bwd.cu) or bf16 on the tensor cores
+   (csrc/bigru_seq_bf16.cu, csrc/bigru_seq_bwd_bf16.cu), spills;
 3. K1 (the BiGRU recurrence) against its plain PyTorch version on the card,
-   in fp32 and in bf16, at the flagship's two sweep shapes, at edge cases and
-   at every compiled instantiation (storage type x hidden size x rows a
-   thread), with times beside the plain version, ``nn.GRU`` (in the same
-   dtype) and the card's bound, and the launch configuration of each timed
-   shape;
+   in fp32 and in bf16, at the flagship's two sweep shapes (in bf16 also at
+   batch 512), at edge cases and at every compiled instantiation (hidden
+   size x rows a thread in fp32, x rows an m-tile in bf16), with times
+   beside the plain version, ``nn.GRU`` (in the same dtype) and the card's
+   bound, and the launch configuration of each timed shape;
 4. the flagship eval path on the card against the same path on the CPU;
 5. serving: ``evaluate`` over 4 batches of 48 at full width, with K1's
    launches counted on that run alone;
 6. K1's backward kernel (with the GEMM for dW_hh) against the plain BPTT on
-   the card, in fp32 and in bf16, at the flagship's two sweeps, edge cases
-   and every compiled instantiation, with times beside the plain version,
-   ``nn.GRU`` forward + backward and the card's bound, and the launch
-   configuration of each case;
+   the card, in fp32 and in bf16, at the flagship's two sweeps (in bf16 also
+   at batch 512), edge cases and every compiled instantiation, with times
+   beside the plain version, ``nn.GRU`` forward + backward and the card's
+   bound, and the launch configuration of each case;
 7. one flagship train step on the card against the same step on the CPU,
    from the same weights and batch: losses, every gradient, BN statistics;
 8. training: 20 flagship train steps at batch 48 after 2 warm-up steps, with
@@ -69,7 +70,7 @@ package beside this script):
    ``train_TPGSR-SRResNet.sh``, ``train_RDN.sh``, ``train_TPGSR-RDN.sh``),
    each with its flags at batch 48 and full width, TF32 off: (a) the eval
    step and one fp32 train step on the card against the CPU from the same
-   weights and batch; (b) 20 train steps after 2 warm-up steps in fp32 and
+   weights and batch; (b) 10 train steps after 2 warm-up steps in fp32 and
    in bf16 (images/s, peak memory, K1's launches: 10 + 10 a step for
    ``tsrn``, none for the others), then ``evaluate`` over 4 batches; a
    ``{"zoo": ...}`` line each; (c) ``cli.main`` with each script's flags,
@@ -98,7 +99,7 @@ package beside this script):
    whose stages are recomputed in the backward, card against CPU at batch
    8, K1 launched 20 + 20 times forward (the second 20 the recompute) and 20
    backward; then each arch's eval step and one fp32 train step at batch 8,
-   card against CPU (phase 13's bounds); (b) each arch's 20 fp32 and 20
+   card against CPU (phase 13's bounds); (b) each arch's 10 fp32 and 10
    bf16 train steps at batch 48 and ``evaluate`` over 4 batches (a
    ``{"zoo_rest": ...}`` line each, the host's load beside them), then
    ``srresnet_tl --stu_iter=3 --sr_share`` (recomputed) at batch 48 and one
@@ -113,7 +114,7 @@ package beside this script):
    batch 8, card against CPU (phase 13's bounds), K1 launched 10 + 10 a
    step by ``tsrn_c2f`` and the OPT flagship and not by ``sem_tsrn``; the
    flagship's eval step scored by SEED (sharpened; phase 14's bounds, and
-   its first decoder state at 2e-3); (b) 20 fp32 and 20 bf16 train steps at
+   its first decoder state at 2e-3); (b) 10 fp32 and 10 bf16 train steps at
    batch 48 and ``evaluate`` over 4 batches for each (a ``{"zoo_last":
    ...}`` line each), ``sem_tsrn`` at batch 512 where its batch-48 peak
    scaled to 512 stays under 70 GiB, the flagship's ``evaluate`` scored by
@@ -165,6 +166,7 @@ from tpgsr_tpu_torch.ops.image import append_contour_mask_u8
 from tpgsr_tpu_torch.profile_eval import trace
 from tpgsr_tpu_torch.profile_zoo import ARCH_FLAGS, argv_of
 from tpgsr_tpu_torch.profile_zoo import mission as zoo_mission
+from tpgsr_tpu_torch.train import step as port_step
 from tpgsr_tpu_torch.train import trainer
 from tpgsr_tpu_torch.train.evaluate import evaluate
 from tpgsr_tpu_torch.train.step import EvalModels, make_eval_step, make_train_step, rec_decoder, recognizer_input
@@ -179,6 +181,9 @@ DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 BATCH = 48
 SERVE_BATCHES = 4
 TRAIN_STEPS = 20
+# timed train steps an arch in phases 13, 15 and 16 (the flagship's phases 8
+# and 11 time TRAIN_STEPS): cut from 20 to keep the run inside its limit
+ZOO_TRAIN_STEPS = 10
 TRAIN_WARMUP = 2
 CARD_VS_CPU_TRAIN_BATCH = 8
 N_SRB = 5  # flagship SRBs; each runs K1 once over W and once over H
@@ -215,6 +220,19 @@ def median_ms(fn, iters: int, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+# the bf16 kernels' recurrent products: each fp32 operand (the forward's h,
+# the backward's dhp_t) split into three bf16 terms (ops/rnn.py::bf16_split3)
+BF16_SPLIT_TERMS = 3
+
+
+def recurrent_product_s(n: int, t: int, h: int, elem: int, terms: int = BF16_SPLIT_TERMS) -> float:
+    """Seconds of one recurrent product over N*T row-steps, both directions
+    (2 N T 2 3H H flops): at the fp32 rate in fp32; in bf16 on the tensor
+    cores, ``terms`` products at the bf16 rate."""
+    flops = 2 * n * t * 2 * 3 * h * h
+    return flops / PEAK_FP32_FLOP_PER_S if elem == 4 else terms * flops / PEAK_BF16_FLOP_PER_S
+
+
 def bigru_bound_ms(n: int, t: int, c: int, h: int, projection: bool, elem: int = 4):
     """(ms for the bytes at HBM bandwidth, ms for the products at their
     type's rate) of the BiGRU; the least time is the larger.  With
@@ -222,9 +240,10 @@ def bigru_bound_ms(n: int, t: int, c: int, h: int, projection: bool, elem: int =
     without, K1 alone, xp [N,T,6H] -> [N,T,2H].  Activations of ``elem``
     bytes (4 fp32, 2 bf16), fp32 weights; the projection's products at the
     fp32 rate in fp32 and the bf16 tensor-core rate in bf16, the recurrent
-    ones at the fp32 rate (K1 keeps them fp32)."""
+    ones by ``recurrent_product_s`` (in bf16 the tensor-core kernel's three
+    terms of h)."""
     weights = 2 * 3 * h * h + 2 * 3 * h
-    recurrent = 2 * n * t * 2 * 3 * h * h / PEAK_FP32_FLOP_PER_S
+    recurrent = recurrent_product_s(n, t, h, elem)
     if projection:
         weights += 6 * h * c + 6 * h
         bytes_moved = elem * (n * t * c + n * t * 2 * h) + 4 * weights
@@ -309,9 +328,13 @@ def phase_k1(dtype: torch.dtype = torch.float32):
     # the kernel's and cuBLAS's differently ordered sums compound over 64
     # dependent steps, so 2e-5 there.  bf16 outputs within one bf16 ulp of
     # the plain version's plus the same atol (``agrees``).
+    # the first ``timed`` cases are timed: the flagship's sweeps, in bf16 also
+    # at batch 512
     cases = [
         ("sweep over W, B=48", BATCH * 16, 64, 64, 32, 2e-5),
         ("sweep over H, B=48", BATCH * 64, 16, 64, 32, 1e-5),
+        *([("sweep over W, B=512", 512 * 16, 64, 64, 32, 2e-5), ("sweep over H, B=512", 512 * 64, 16, 64, 32, 1e-5)]
+          if dtype == torch.bfloat16 else []),
         ("ragged N", 771, 64, 64, 32, 2e-5),
         ("T=1", 37, 1, 64, 32, 1e-5),
         ("H=8", 100, 20, 16, 8, 1e-5),
@@ -321,6 +344,8 @@ def phase_k1(dtype: torch.dtype = torch.float32):
         ("T=3 < S", 37, 3, 64, 32, 1e-5),
         ("T=13, not a multiple of S", 45, 13, 64, 32, 1e-5),
     ]
+    timed = 4 if dtype == torch.bfloat16 else 2
+    stages = gru_seq.BF16_RING_STAGES if dtype == torch.bfloat16 else gru_seq.RING_STAGES
     max_err, shapes = 0.0, []
     for i, (label, n, t, c, h, tol) in enumerate(cases):
         x, fw, bw = gru_case(i, n, t, c, h)
@@ -332,13 +357,11 @@ def phase_k1(dtype: torch.dtype = torch.float32):
         check(got.dtype == dtype and torch.isfinite(got).all().item(), f"{tag} {label}: non-finite output")
         check(agrees(got, ref, tol), f"{tag} {label}: max abs err {err:.3g} beyond the tolerance ({tol})")
         cfg = gru_seq.config_for(n, h, x.device, dtype=dtype)
-        print(f"{tag} {label}: N={n} T={t} C={c} H={h} rpt={cfg.rpt} S={gru_seq.RING_STAGES} "
+        print(f"{tag} {label}: N={n} T={t} C={c} H={h} {cfg} S={stages} "
               f"max_abs_err={err:.3g} (tol {tol}{' + 1 bf16 ulp' if elem == 2 else ''})", flush=True)
         max_err = max(max_err, err)
-        if i >= 2:
+        if i >= timed:
             continue
-        print(f"{tag} {label}: launch rpt={cfg.rpt} S={gru_seq.RING_STAGES} grid={cfg.blocks} "
-              f"blocks_per_sm={cfg.blocks_per_sm} waves={cfg.waves}", flush=True)
         lib = library_gru(c, h, fw, bw, dtype)
         with torch.no_grad():
             xp = rnn.input_projection(x, fw, bw).contiguous()
@@ -349,8 +372,7 @@ def phase_k1(dtype: torch.dtype = torch.float32):
             library_device_ms, library_device_note = library_time(lambda: lib(x), device_ms)
             row = {
                 "label": label, "dtype": name, "N": n, "T": t, "C": c, "H": h, "max_abs_err": err,
-                "rpt": cfg.rpt, "stages": gru_seq.RING_STAGES, "blocks": cfg.blocks,
-                "blocks_per_sm": cfg.blocks_per_sm, "waves": cfg.waves,
+                **cfg._asdict(), "stages": stages,
                 "ms": median_ms(lambda: gru_seq.bigru(x, fw, bw), 50),
                 "plain_ms": median_ms(lambda: rnn.bigru(x, fw, bw), 5, warmup=1),
                 "library_ms": library_ms,
@@ -378,15 +400,24 @@ def phase_k1(dtype: torch.dtype = torch.float32):
         for t in (13, 3):
             xp = rnn.input_projection(x[:, :t].contiguous(), fw, bw).contiguous()
             ref = rnn.bigru_recurrence(xp, w_hh, b_hh)
-            for rpt in gru_seq.RPTS:
-                got = gru_seq._recurrence(xp, *gru_seq._kernel_weights(xp, w_hh, b_hh),
-                                          config=gru_seq.LaunchConfig(rpt, 0, 0, 0))
+            for forced in instantiations(dtype):
+                got = gru_seq._recurrence(xp, *gru_seq._kernel_weights(xp, w_hh, b_hh), config=forced)
                 torch.cuda.synchronize()
                 err = float((got.float() - ref.float()).abs().max())
-                check(agrees(got, ref, 1e-5), f"{tag} H={h} rpt={rpt} T={t}: max abs err {err:.3g} beyond 1e-5")
+                check(agrees(got, ref, 1e-5), f"{tag} H={h} {forced} T={t}: max abs err {err:.3g} beyond 1e-5")
                 max_err = max(max_err, err)
-        print(f"{tag} H={h}: rpt {gru_seq.RPTS} at N={x.shape[0]}, T=13 and T=3 agree (1e-5)", flush=True)
+        print(f"{tag} H={h}: {[f[0] for f in instantiations(dtype)]} at N={x.shape[0]}, T=13 and T=3 agree (1e-5)",
+              flush=True)
     return max_err, shapes
+
+
+def instantiations(dtype: torch.dtype, backward: bool = False):
+    """Launch configurations that force each compiled instantiation of K1's
+    forward (or backward) in ``dtype`` (a hidden size apart): rows a thread
+    in fp32, rows an m-tile in bf16 (the bf16 backward's 8 only)."""
+    if dtype == torch.bfloat16:
+        return [gru_seq.TileConfig(rows, 0, 0, 0) for rows in gru_seq.TILE_ROWS[:1 if backward else None]]
+    return [gru_seq.LaunchConfig(rpt, 0, 0, 0) for rpt in gru_seq.RPTS]
 
 
 def synthetic_batch(rng, n: int, labels: bool = True):
@@ -461,16 +492,24 @@ def phase_serve(models, step):
     return launches, serve["images_per_s"]
 
 
-def bigru_backward_bound_ms(n: int, t: int, h: int, elem: int = 4):
-    """(ms for the bytes, ms for the fp32 products) of the recurrence's
-    backward, (xp, W_hh, b_hh, out, grad_out) -> (dxp, dW_hh, db_hh): reads
-    xp, out and grad_out and writes dxp once, each of ``elem`` bytes (4 fp32,
-    2 bf16), with fp32 weights and their gradients; per row-step and
-    direction it runs the recompute W_hh h, the product W_hh^T dhp and dhp^T h
-    for dW_hh, all in fp32."""
-    bytes_moved = elem * n * t * (6 * h + 2 * h + 2 * h + 6 * h) + 4 * 2 * (2 * 3 * h * h + 2 * 3 * h)
-    flops = 3 * 2 * n * t * 2 * 3 * h * h
-    return bytes_moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOP_PER_S * 1e3
+def bigru_backward_bound_ms(n: int, t: int, h: int, elem: int = 4, kernel_only: bool = False):
+    """(ms for the bytes, ms for the products) of the recurrence's backward,
+    (xp, W_hh, b_hh, out, grad_out) -> (dxp, dW_hh, db_hh): reads xp, out and
+    grad_out and writes dxp once, each of ``elem`` bytes (4 fp32, 2 bf16),
+    with fp32 weights and their gradients; per row-step and direction it runs
+    the recompute W_hh h, the product W_hh^T dhp (in fp32, or in bf16 on the
+    tensor cores: one term of the bf16 h_{t-1}, three of dhp) and, in fp32,
+    dhp^T h for dW_hh.  With ``kernel_only``, the kernel alone: it writes the
+    fp32 dhp and h_{t-1} for the GEMM in place of dW_hh and db_hh, and runs
+    the first two products."""
+    io = elem * n * t * (6 * h + 2 * h + 2 * h + 6 * h)
+    gemm = 0.0 if kernel_only else 2 * n * t * 2 * 3 * h * h / PEAK_FP32_FLOP_PER_S
+    if kernel_only:
+        bytes_moved = io + 4 * n * t * 2 * (3 * h + h) + 4 * 2 * (3 * h * h + 3 * h)
+    else:
+        bytes_moved = io + 4 * 2 * (2 * 3 * h * h + 2 * 3 * h)
+    ops_s = recurrent_product_s(n, t, h, elem, terms=1) + recurrent_product_s(n, t, h, elem) + gemm
+    return bytes_moved / PEAK_BYTES_PER_S * 1e3, ops_s * 1e3
 
 
 def backward_case(seed: int, n: int, t: int, c: int, h: int, dtype: torch.dtype = torch.float32):
@@ -507,15 +546,20 @@ def phase_k1_backward(dtype: torch.dtype = torch.float32):
     # (label, N, T, C, H).  dxp at 2e-5, 5e-5 at T = 64 (a reverse chain of 64
     # dependent steps compounds differently ordered fp32 sums); in bf16,
     # within one bf16 ulp of the plain version's plus the same atol
+    # the first ``timed`` cases are timed: the flagship's sweeps, in bf16 also
+    # at batch 512
     cases = [
         ("sweep over W, B=48", BATCH * 16, 64, 64, 32),
         ("sweep over H, B=48", BATCH * 64, 16, 64, 32),
+        *([("sweep over W, B=512", 512 * 16, 64, 64, 32), ("sweep over H, B=512", 512 * 64, 16, 64, 32)]
+          if dtype == torch.bfloat16 else []),
         ("ragged N", 771, 64, 64, 32),
         ("T=1", 37, 1, 64, 32),
         ("T=3", 37, 3, 64, 32),
         ("H=8", 100, 20, 16, 8),
         ("H=16", 100, 20, 32, 16),
     ]
+    timed = 4 if dtype == torch.bfloat16 else 2
     max_err, shapes = 0.0, []
     for i, (label, n, t, c, h) in enumerate(cases):
         x, fw, bw, xp, w_hh, b_hh, out, grad_out = backward_case(200 + i, n, t, c, h, dtype)
@@ -532,9 +576,8 @@ def phase_k1_backward(dtype: torch.dtype = torch.float32):
               f"(tol {w_rtol})", flush=True)
         max_err = max(max_err, err)
         cfg = gru_seq.config_for(n, h, x.device, backward=True, dtype=dtype)
-        print(f"{tag} {label}: launch rpt={cfg.rpt} grid={cfg.blocks} blocks_per_sm={cfg.blocks_per_sm} "
-              f"waves={cfg.waves}", flush=True)
-        if i >= 2:
+        print(f"{tag} {label}: launch {cfg}", flush=True)
+        if i >= timed:
             continue
         w_t, b_k = gru_seq._kernel_weights(xp, w_hh, b_hh)  # the kernel alone, weights prepared
         leaves = [x.clone().requires_grad_(True), *({k: v.clone().requires_grad_(True) for k, v in d.items()}
@@ -552,8 +595,7 @@ def phase_k1_backward(dtype: torch.dtype = torch.float32):
         library_ms, library_note = library_time(lib_fwd_bwd, device_ms)
         row = {
             "label": label, "dtype": name, "N": n, "T": t, "C": c, "H": h, "max_abs_err": err,
-            "w_b_rel_err": max(rel), "rpt": cfg.rpt, "blocks": cfg.blocks, "blocks_per_sm": cfg.blocks_per_sm,
-            "waves": cfg.waves,
+            "w_b_rel_err": max(rel), **cfg._asdict(),
             "ms": device_ms(lambda: gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)),
             "kernel_only_ms": device_ms(lambda: gru_seq._backward_kernel(xp, w_t, b_k, out, grad_out)),
             "fwd_bwd_ms": device_ms(fwd_bwd),
@@ -564,6 +606,7 @@ def phase_k1_backward(dtype: torch.dtype = torch.float32):
             row["library_note"] = library_note
         row["bytes_ms"], row["operations_ms"] = bigru_backward_bound_ms(n, t, h, elem)
         row.update(bound_fields(row["bytes_ms"], row["operations_ms"]))
+        row.update(bound_fields(*bigru_backward_bound_ms(n, t, h, elem, kernel_only=True), prefix="kernel_only_"))
         print(f"{tag} timing " + json.dumps(row), flush=True)
         shapes.append(row)
 
@@ -574,18 +617,17 @@ def phase_k1_backward(dtype: torch.dtype = torch.float32):
             _, _, _, xp, w_hh, b_hh, out, grad_out = backward_case(300 + h + t, n, t, 16, h, dtype)
             kernel_weights = gru_seq._kernel_weights(xp, w_hh, b_hh)
             want = rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)
-            for rpt in gru_seq.RPTS:
-                dxp, dhp, h_prev = gru_seq._backward_kernel(xp, *kernel_weights, out, grad_out,
-                                                            config=gru_seq.LaunchConfig(rpt, 0, 0, 0))
+            for forced in instantiations(dtype, backward=True):
+                dxp, dhp, h_prev = gru_seq._backward_kernel(xp, *kernel_weights, out, grad_out, config=forced)
                 got = (dxp, *gru_seq.recurrent_weight_grads(dhp, h_prev))
                 torch.cuda.synchronize()
                 err = float((got[0].float() - want[0].float()).abs().max())
                 ok, rel = backward_agrees(got, want, 2e-5, w_rtol)
-                check(ok, f"{tag} H={h} rpt={rpt} T={t}: dxp max abs err {err:.3g} (tol 2e-5), "
+                check(ok, f"{tag} H={h} {forced} T={t}: dxp max abs err {err:.3g} (tol 2e-5), "
                       f"dW_hh / db_hh rel err {rel} (tol {w_rtol})")
                 max_err = max(max_err, err)
-        print(f"{tag} H={h}: rpt {gru_seq.RPTS} at N={n}, T=13 and T=3 agree (dxp 2e-5, dW_hh/db_hh {w_rtol})",
-              flush=True)
+        print(f"{tag} H={h}: {[f[0] for f in instantiations(dtype, backward=True)]} at N={n}, T=13 and T=3 agree "
+              f"(dxp 2e-5, dW_hh/db_hh {w_rtol})", flush=True)
     return max_err, shapes
 
 
@@ -1473,16 +1515,52 @@ def prelu_gap_without_cudnn(argv, batch):
     finally:
         torch.backends.cudnn.enabled = True
     cpu._train_step(cpu_state, batch)
-    ga, gb = grads_of(card_state.sr[0]), grads_of(cpu_state.sr[0])
-    total = float(torch.sqrt(sum(g.pow(2).sum() for g in gb.values())))
-    prelu = {k: float((ga[k] - gb[k]).norm() / gb[k].norm()) for k in gb if k.endswith(PRELU_KEYS)}
-    model = float(torch.sqrt(sum((ga[k] - gb[k]).pow(2).sum() for k in gb if not PRE_BN_BIAS.search(k)))) / total
+    return prelu_gap(grads_of(card_state.sr[0]), grads_of(cpu_state.sr[0]))
+
+
+def prelu_gap(got, want):
+    """The PReLU slopes' gradient errors of ``got`` against ``want`` relative
+    to their own norm, and the model's (the pre-BN biases apart) relative to
+    its norm."""
+    want = {k: g.double() for k, g in want.items()}
+    total = float(torch.sqrt(sum(g.pow(2).sum() for g in want.values())))
+    prelu = {k: float((got[k].double() - want[k]).norm() / want[k].norm()) for k in want if k.endswith(PRELU_KEYS)}
+    model = float(torch.sqrt(sum((got[k].double() - want[k]).pow(2).sum() for k in want
+                                 if not PRE_BN_BIAS.search(k)))) / total
     return {"prelu_rel_err": max(prelu.values()), "prelu_rel_errs": prelu, "sr0_grad_rel_err": model}
 
 
+def prelu_gap_fp64(argv, batch):
+    """``zoo_card_vs_cpu``'s train step of ``argv`` in fp32 and in fp64 (the
+    models cast to fp64 after the same seeded draw, autocast off), on the
+    card and on the CPU, TF32 off: ``prelu_gap`` of the card's fp32 against
+    its fp64, of the CPU's fp32 against its fp64 (``python -m
+    tests.torch_fp64_noise``'s measurement, on this step), and of the
+    card's fp64 against the CPU's.  Where the first is about the card's
+    fp32 gap to the CPU, the gap is fp32's rounding under the slopes'
+    cancellation.  A measurement, with no bound."""
+    grads, dtypes = {}, dict(port_step.COMPUTE_DTYPES)
+    port_step.COMPUTE_DTYPES["fp64"] = torch.float64
+    try:
+        for device in ("cuda", "cpu"):
+            for name in ("fp32", "fp64"):
+                mission, state, _ = zoo_mission(argv, name, device=device)
+                if name == "fp64":
+                    for m in (*state.sr, *state.stu):
+                        m.double()
+                mission._train_step(state, batch)
+                grads[device, name] = grads_of(state.sr[0])
+    finally:
+        port_step.COMPUTE_DTYPES.clear()
+        port_step.COMPUTE_DTYPES.update(dtypes)
+    return {"card_fp32_vs_card_fp64": prelu_gap(grads["cuda", "fp32"], grads["cuda", "fp64"]),
+            "cpu_fp32_vs_cpu_fp64": prelu_gap(grads["cpu", "fp32"], grads["cpu", "fp64"]),
+            "card_fp64_vs_cpu_fp64": prelu_gap(grads["cuda", "fp64"], grads["cpu", "fp64"])}
+
+
 def zoo_train(argv, compute_dtype: str, batches):
-    """(b) 2 warm-up and 20 timed train steps at batch 48 in ``compute_dtype``:
-    images/s by CUDA events, peak memory, K1's launches."""
+    """(b) 2 warm-up and ``len(batches) - 2`` timed train steps at batch 48 in
+    ``compute_dtype``: images/s by CUDA events, peak memory, K1's launches."""
     mission, state, _ = zoo_mission(argv, compute_dtype, device="cuda")
     for b in batches[:TRAIN_WARMUP]:
         mission._train_step(state, b)
@@ -1496,7 +1574,8 @@ def zoo_train(argv, compute_dtype: str, batches):
     torch.cuda.synchronize()
     event_s = start.elapsed_time(end) / 1e3
     check(all(np.isfinite(float(v)) for m in metrics for v in m.values()), f"{compute_dtype}: non-finite loss")
-    return {"images_per_s": BATCH * TRAIN_STEPS / event_s, "ms_per_step": event_s * 1e3 / TRAIN_STEPS,
+    steps = len(batches) - TRAIN_WARMUP
+    return {"images_per_s": BATCH * steps / event_s, "ms_per_step": event_s * 1e3 / steps,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "k1_launches": gru_seq.LAUNCHES,
             "k1_backward_launches": gru_seq.BACKWARD_LAUNCHES, "loss_first": float(metrics[0]["loss_total"]),
             "loss_last": float(metrics[-1]["loss_total"])}
@@ -1601,7 +1680,7 @@ def phase_zoo(root: str, train_dirs, val_dirs):
     print(json.dumps({"zoo_host": host_load()}), flush=True)
     rng = np.random.default_rng(13)
     check_batch = synthetic_batch(rng, BATCH, labels=False)
-    train_batches = [synthetic_batch(rng, BATCH, labels=False) for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    train_batches = [synthetic_batch(rng, BATCH, labels=False) for _ in range(TRAIN_WARMUP + ZOO_TRAIN_STEPS)]
     eval_batches = [synthetic_batch(rng, BATCH) for _ in range(1 + ZOO_EVAL_BATCHES)]
     launches = {}
     for script in ZOO_SCRIPTS:
@@ -1609,19 +1688,22 @@ def phase_zoo(root: str, train_dirs, val_dirs):
         arch = build_arg_parser().parse_args(argv).arch
         s0 = time.perf_counter()
         out = {"script": script, "arch": arch, "batch": BATCH, "card_vs_cpu": zoo_card_vs_cpu(argv, check_batch)}
-        if arch == "srres":  # ROADMAP.md queue 3 item 1: the PReLU slopes' gap with and without cuDNN
+        if arch == "srres":  # ROADMAP.md queue 3 item 1: the PReLU slopes' gap with and without cuDNN, and fp64
             out["card_vs_cpu_without_cudnn"] = prelu_gap_without_cudnn(argv, check_batch)
-            print(json.dumps({"srres_prelu_gap": {"with_cudnn": out["card_vs_cpu"].get("sr0_prelu_rel_err"),
-                                                  "without_cudnn": out["card_vs_cpu_without_cudnn"]["prelu_rel_err"]}}),
-                  flush=True)
+            out["fp32_vs_fp64"] = prelu_gap_fp64(argv, check_batch)
+            print(json.dumps({"srres_prelu_gap": {
+                "with_cudnn": out["card_vs_cpu"].get("sr0_prelu_rel_err"),
+                "without_cudnn": out["card_vs_cpu_without_cudnn"]["prelu_rel_err"],
+                **{k: v["prelu_rel_err"] for k, v in out["fp32_vs_fp64"].items()}}}), flush=True)
         for dtype in ("fp32", "bf16"):
             out[dtype] = zoo_train(argv, dtype, train_batches)
         out["eval"] = zoo_eval(argv, eval_batches)
         runs_k1 = arch == "tsrn"  # the only one of the seven with recurrent blocks
         for dtype in ("fp32", "bf16"):
-            want = 2 * N_SRB * TRAIN_STEPS if runs_k1 else 0
+            want = 2 * N_SRB * ZOO_TRAIN_STEPS if runs_k1 else 0
             got = (out[dtype]["k1_launches"], out[dtype]["k1_backward_launches"])
-            check(got == (want, want), f"{arch} {dtype}: K1 launched {got} times in 20 steps, expected {want} each way")
+            check(got == (want, want),
+                  f"{arch} {dtype}: K1 launched {got} times in {ZOO_TRAIN_STEPS} steps, expected {want} each way")
             if runs_k1:
                 launches[dtype] = got
         want = 2 * N_SRB * ZOO_EVAL_BATCHES if runs_k1 else 0
@@ -1727,7 +1809,7 @@ def phase_zoo_rest(root: str, train_dirs, val_dirs):
     batch 8 and full width with its flags, card against CPU (phase 13's
     bounds), and one ``tsrn_tl_cascade --stu_iter 2`` step whose stages are
     recomputed in the backward, its K1 launches counted; (b) each arch's fp32
-    and bf16 training (20 steps at batch 48) and eval (4 batches), then
+    and bf16 training (``ZOO_TRAIN_STEPS`` at batch 48) and eval (4 batches), then
     ``srresnet_tl --stu_iter=3 --sr_share`` at batch 48 and one step at batch
     512, with peak memory; (c) the CLI with no ``--arch``, ``--test``, and
     ``--ssim_loss``.  Returns K1's launches: (a)'s recomputed step, and the
@@ -1735,7 +1817,7 @@ def phase_zoo_rest(root: str, train_dirs, val_dirs):
     t0 = time.perf_counter()
     rng = np.random.default_rng(15)
     small = synthetic_batch(rng, CARD_VS_CPU_TRAIN_BATCH, labels=False)
-    train_batches = [synthetic_batch(rng, BATCH, labels=False) for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    train_batches = [synthetic_batch(rng, BATCH, labels=False) for _ in range(TRAIN_WARMUP + ZOO_TRAIN_STEPS)]
     eval_batches = [synthetic_batch(rng, BATCH) for _ in range(1 + ZOO_EVAL_BATCHES)]
     launches = {}
     # (a) the recompute: 2 stages of 5 SRBs, K1 forward 20 + 20 (the
@@ -1759,7 +1841,8 @@ def phase_zoo_rest(root: str, train_dirs, val_dirs):
         for dtype in ("fp32", "bf16"):
             out[dtype] = zoo_train(argv, dtype, train_batches)
             got = (out[dtype]["k1_launches"], out[dtype]["k1_backward_launches"])
-            check(got == (2 * srb * TRAIN_STEPS,) * 2, f"{arch} {dtype}: K1 launched {got} times in 20 steps")
+            check(got == (2 * srb * ZOO_TRAIN_STEPS,) * 2,
+                  f"{arch} {dtype}: K1 launched {got} times in {ZOO_TRAIN_STEPS} steps")
             if arch == "tsrn_tl_wmask":
                 launches[dtype] = got
         out["eval"] = zoo_eval(argv, eval_batches)
@@ -2179,7 +2262,7 @@ def phase_last(root: str, train_dirs, val_dirs, crnn_ips: float):
     eval step and one fp32 train step at batch 8, card against CPU from the
     same weights and batch (phase 13's bounds), K1's launches in the step;
     then the flagship's eval step scored by SEED, its draw sharpened as phase
-    14 sharpens ASTER's (phase 14's bounds).  (b) Each path's 20 fp32 and 20
+    14 sharpens ASTER's (phase 14's bounds).  (b) Each path's 10 fp32 and 10
     bf16 train steps at batch 48 and ``evaluate`` over 4 batches (a
     ``{"zoo_last": ...}`` line each, the host's load beside them);
     ``sem_tsrn`` at batch 512 where its batch-48 peak allows; the flagship's
@@ -2190,7 +2273,7 @@ def phase_last(root: str, train_dirs, val_dirs, crnn_ips: float):
     t0 = time.perf_counter()
     rng = np.random.default_rng(16)
     small = with_aux(synthetic_batch(rng, CARD_VS_CPU_TRAIN_BATCH, labels=False))
-    train_batches = [with_aux(synthetic_batch(rng, BATCH, labels=False)) for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    train_batches = [with_aux(synthetic_batch(rng, BATCH, labels=False)) for _ in range(TRAIN_WARMUP + ZOO_TRAIN_STEPS)]
     eval_batches = [synthetic_batch(rng, BATCH) for _ in range(1 + ZOO_EVAL_BATCHES)]
     launches = {}
     print(json.dumps({"zoo_host": host_load()}), flush=True)
@@ -2203,7 +2286,8 @@ def phase_last(root: str, train_dirs, val_dirs, crnn_ips: float):
         for dtype in ("fp32", "bf16"):
             out[dtype] = zoo_train(argv, dtype, train_batches)
             got = (out[dtype]["k1_launches"], out[dtype]["k1_backward_launches"])
-            check(got == (2 * srb * TRAIN_STEPS,) * 2, f"{path} {dtype}: K1 launched {got} times in 20 steps")
+            check(got == (2 * srb * ZOO_TRAIN_STEPS,) * 2,
+                  f"{path} {dtype}: K1 launched {got} times in {ZOO_TRAIN_STEPS} steps")
             launches[(path, dtype)] = got
         out["eval"] = zoo_eval(argv, eval_batches)
         check(out["eval"]["k1_launches"] == 2 * srb * ZOO_EVAL_BATCHES, f"{path} eval: K1 launches")
@@ -2226,9 +2310,10 @@ def phase_last(root: str, train_dirs, val_dirs, crnn_ips: float):
 
 
 def per_sr(rows, keys):
-    """Each key summed over the two sweep rows, times N_SRB: one SR forward
-    (or backward) at batch 48; None where a row has none (a library call
-    cuDNN refused)."""
+    """Each key summed over the two sweep rows at batch 48, times N_SRB: one
+    SR forward (or backward) at batch 48; None where a row has none (a
+    library call cuDNN refused)."""
+    rows = [row for row in rows if row["label"].endswith(f"B={BATCH}")]
     return {k: None if any(row[k] is None for row in rows) else N_SRB * sum(row[k] for row in rows) for k in keys}
 
 
@@ -2238,9 +2323,9 @@ def forward_entry(dtype, shapes, ptxas, launches, max_err, **extra):
     per = per_sr(shapes, ("ms", "plain_ms", "library_ms", "bytes_ms", "operations_ms", "kernel_only_ms",
                           "kernel_only_bound_ms", "device_ms", "library_device_ms", "kernel_only_device_ms"))
     return {
-        "name": "K1 bigru_seq" + ("" if dtype == torch.float32 else f" ({name})"),
+        "name": "K1 bigru_seq" + ("" if dtype == torch.float32 else f" ({name}, tensor cores)"),
         "route": "cuda",
-        "source": "tpgsr_tpu_torch/csrc/bigru_seq.cu",
+        "source": f"tpgsr_tpu_torch/csrc/{K1_SOURCES[dtype][0]}.cu",
         "replaces": "tpgsr_tpu/ops/pallas_gru.py:95",
         "dtype": name,
         "launches": launches,
@@ -2257,7 +2342,7 @@ def forward_entry(dtype, shapes, ptxas, launches, max_err, **extra):
         "library_device_ms": per["library_device_ms"],
         "kernel_only_device_ms": per["kernel_only_device_ms"],
         "shapes": shapes,
-        "ptxas": [r for r in ptxas if r["dtype"] == name],
+        "ptxas": ptxas[dtype],
         **extra,
     }
 
@@ -2266,11 +2351,11 @@ def backward_entry(dtype, shapes, ptxas, launches, max_err, **extra):
     """K1 backward's entry of the kernels line, in ``dtype``."""
     name = DTYPE_NAMES[dtype]
     per = per_sr(shapes, ("ms", "kernel_only_ms", "fwd_bwd_ms", "library_ms", "plain_ms", "bytes_ms",
-                          "operations_ms"))
+                          "operations_ms", "kernel_only_bound_ms"))
     return {
-        "name": "K1 bigru_seq backward" + ("" if dtype == torch.float32 else f" ({name})"),
+        "name": "K1 bigru_seq backward" + ("" if dtype == torch.float32 else f" ({name}, tensor cores)"),
         "route": "cuda",
-        "source": "tpgsr_tpu_torch/csrc/bigru_seq_bwd.cu",
+        "source": f"tpgsr_tpu_torch/csrc/{K1_SOURCES[dtype][1]}.cu",
         "replaces": "tpgsr_tpu/ops/pallas_gru.py:34 (backward of)",
         "dtype": name,
         "launches": launches,
@@ -2284,21 +2369,26 @@ def backward_entry(dtype, shapes, ptxas, launches, max_err, **extra):
         "fwd_bwd_ms": per["fwd_bwd_ms"],
         "plain_ms": per["plain_ms"],
         **bound_fields(per["bytes_ms"], per["operations_ms"]),
+        "kernel_only_bound_ms": per["kernel_only_bound_ms"],
         "library_ms": per["library_ms"],
         "shapes": shapes,
-        "ptxas": [r for r in ptxas if r["dtype"] == name],
+        "ptxas": ptxas[dtype],
         **extra,
     }
 
 
+# K1's sources by storage type: (forward, backward)
+K1_SOURCES = {torch.float32: ("bigru_seq", "bigru_seq_bwd"), torch.bfloat16: ("bigru_seq_bf16", "bigru_seq_bwd_bf16")}
+
+
 def check_ptxas(name: str, backward: bool):
-    """Phase 2's rows for one source: every instantiation (storage type x
-    hidden size x rows a thread) reported, none spilling or keeping a stack
-    frame."""
+    """Phase 2's rows for one source: every instantiation (hidden size x
+    ``instantiations``) reported, none spilling or keeping a stack frame."""
     rows = ptxas_report(_build.build_log(name), backward=backward)
     for r in rows:
         print(f"nvcc {name} " + json.dumps(r), flush=True)
-    want = len(gru_seq.SUPPORTED_DTYPES) * len(gru_seq.SUPPORTED_HIDDEN) * len(gru_seq.RPTS)
+    dtype = torch.bfloat16 if name.endswith("_bf16") else torch.float32
+    want = len(gru_seq.SUPPORTED_HIDDEN) * len(instantiations(dtype, backward))
     check(len(rows) == want, f"ptxas reported {len(rows)} instantiations of {name}, expected {want}")
     check(all(r["spill_bytes"] == 0 and r["stack_bytes"] == 0 for r in rows),
           f"an instantiation of {name} spills registers or keeps a stack frame")
@@ -2328,8 +2418,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build(_build.all_sources())
     print(f"build: {len(logs)} kernel source(s) compiled in {time.perf_counter() - t0:.1f} s", flush=True)
-    ptxas = check_ptxas("bigru_seq", backward=False)
-    bwd_ptxas = check_ptxas("bigru_seq_bwd", backward=True)
+    ptxas = {dtype: check_ptxas(fwd, backward=False) for dtype, (fwd, _) in K1_SOURCES.items()}
+    bwd_ptxas = {dtype: check_ptxas(bwd, backward=True) for dtype, (_, bwd) in K1_SOURCES.items()}
     lap("1-2 device, build")
 
     # 3. K1 against its plain version, fp32 and bf16

@@ -21,6 +21,8 @@ MAIN_PATH_CASES = [(768, 64, 64, 32), (3072, 16, 64, 32), (771, 64, 64, 32)]
 # the ring's and the rows-a-thread edges at the flagship's width: two rows a
 # thread (ragged), four rows a thread (ragged), T < S, T not a multiple of S
 EDGE_CASES = [(1500, 16, 64, 32), (3070, 16, 64, 32), (37, 3, 64, 32), (45, 13, 64, 32)]
+# the flagship's two sweeps at batch 512 (the bf16 kernels')
+BATCH_512_CASES = [(8192, 64, 64, 32), (32768, 16, 64, 32)]
 H100 = {"sms": 132, "blocks_per_sm": dict.fromkeys(gru_seq.RPTS, 3)}
 
 
@@ -131,7 +133,9 @@ def test_backward_config_reads_the_backward_occupancy(monkeypatch):
 
     def limits(index, hidden, backward=False, bf16=0):
         calls.append((backward, bf16))
-        return 132, ((1, 3), (2, 3), (4, 2 if backward or bf16 else 3))
+        if bf16:
+            return 132, ((8, 3), (16, 1 if backward else 2))
+        return 132, ((1, 3), (2, 3), (4, 2 if backward else 3))
 
     monkeypatch.setattr(gru_seq, "_device_limits", limits)
     gru_seq._config.cache_clear()
@@ -140,8 +144,9 @@ def test_backward_config_reads_the_backward_occupancy(monkeypatch):
         assert gru_seq.config_for(3072, 32, dev) == gru_seq.LaunchConfig(4, 384, 3, 1)
         assert gru_seq.config_for(3072, 32, dev, backward=True) == gru_seq.LaunchConfig(4, 384, 2, 2)
         assert gru_seq.config_for(3072, 32, dev, backward=True).waves == 2
-        assert gru_seq.config_for(3072, 32, dev, dtype=torch.bfloat16) == gru_seq.LaunchConfig(4, 384, 2, 2)
-        assert calls == [(False, 0), (True, 0), (False, 1)]
+        assert gru_seq.config_for(3072, 32, dev, dtype=torch.bfloat16) == gru_seq.TileConfig(16, 384, 2, 2)
+        assert gru_seq.config_for(3072, 32, dev, backward=True, dtype=torch.bfloat16) == gru_seq.TileConfig(8, 768, 3, 2)
+        assert calls == [(False, 0), (True, 0), (False, 1), (True, 1)]
         with pytest.raises(TypeError):
             gru_seq.config_for(3072, 32, dev, dtype=torch.float16)
     finally:
@@ -297,10 +302,10 @@ def assert_within_bf16_ulp(got, want, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t,c,h", GRU_CASES + MAIN_PATH_CASES + EDGE_CASES)
+@pytest.mark.parametrize("n,t,c,h", GRU_CASES + MAIN_PATH_CASES + EDGE_CASES + BATCH_512_CASES)
 def test_bigru_kernel_bf16_matches_plain_on_card(cuda, n, t, c, h):
-    """K1 in bf16 (bf16 x, fp32 parameters) against its bf16 plain version on
-    the card: out within one bf16 ulp; one launch."""
+    """K1 in bf16 (bf16 x, fp32 parameters; the tensor-core kernel) against
+    its bf16 plain version on the card: out within one bf16 ulp; one launch."""
     rng = np.random.default_rng(n + t + 1)
     x = torch.from_numpy(rng.random((n, t, c), dtype=np.float32)).to(cuda).bfloat16()
     fw, bw = (torch_params(p, cuda) for p in gru_params(rng, c, h))
@@ -312,20 +317,21 @@ def test_bigru_kernel_bf16_matches_plain_on_card(cuda, n, t, c, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rpt", gru_seq.RPTS)
+@pytest.mark.parametrize("tile_rows", gru_seq.TILE_ROWS)
 @pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
-def test_bigru_kernel_bf16_every_instantiation_matches_plain(cuda, h, rpt):
-    """Each bf16 (H, rows a thread), forced, on a ragged N with T = 13 and T = 3."""
-    rng = np.random.default_rng(h * rpt + 1)
+def test_bigru_kernel_bf16_every_instantiation_matches_plain(cuda, h, tile_rows):
+    """Each bf16 (H, rows a warp's m-tile), forced, on a ragged N with T = 13
+    and T = 3."""
+    rng = np.random.default_rng(h * tile_rows + 1)
     fw, bw = (torch_params(p, cuda) for p in gru_params(rng, 16, h))
     w_hh = torch.stack([fw["w_hh"], bw["w_hh"]])
     b_hh = torch.stack([fw["b_hh"], bw["b_hh"]])
-    rows = gru_seq.THREADS // h * rpt
+    rows = tile_rows * gru_seq.TILE_WARPS // (h // 8)  # rows a block
     for n, t in ((2 * rows + 3, 13), (rows - 1, 3)):
         x = torch.from_numpy(rng.random((n, t, 16), dtype=np.float32)).to(cuda).bfloat16()
         xp = rnn.input_projection(x, fw, bw).contiguous()
         got = gru_seq._recurrence(xp, *gru_seq._kernel_weights(xp, w_hh, b_hh),
-                                  config=gru_seq.LaunchConfig(rpt, 0, 0, 0))
+                                  config=gru_seq.TileConfig(tile_rows, 0, 0, 0))
         torch.cuda.synchronize()
         assert_within_bf16_ulp(got, rnn.bigru_recurrence(xp, w_hh, b_hh), atol=1e-5)
 
@@ -340,7 +346,7 @@ def assert_backward_bf16_close(got, want, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t,c,h", GRU_CASES + MAIN_PATH_CASES + EDGE_CASES)
+@pytest.mark.parametrize("n,t,c,h", GRU_CASES + MAIN_PATH_CASES + EDGE_CASES + BATCH_512_CASES)
 def test_bigru_kernel_bf16_backward_matches_plain_on_card(cuda, n, t, c, h):
     """K1's backward in bf16 (xp, out, grad_out and dxp in bf16) and the fp32
     GEMM for dW_hh, db_hh, against the bf16 plain BPTT on the card."""
@@ -355,18 +361,16 @@ def test_bigru_kernel_bf16_backward_matches_plain_on_card(cuda, n, t, c, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rpt", gru_seq.RPTS)
 @pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
-def test_bigru_kernel_bf16_backward_every_instantiation_matches_plain(cuda, h, rpt):
-    """Each bf16 (H, rows a thread) of the backward kernel, forced, on a
-    ragged N with T = 13 and T = 3 (at four rows a thread h_{t-1} passes
-    through shared memory in bf16, copied two columns an even lane)."""
-    rng = np.random.default_rng(100 * h + rpt + 1)
-    rows = gru_seq.THREADS // h * rpt
+def test_bigru_kernel_bf16_backward_every_instantiation_matches_plain(cuda, h):
+    """Each bf16 H of the tensor-core backward kernel (8 rows an m-tile, its
+    one instantiation a hidden size), on a ragged N with T = 13 and T = 3."""
+    rng = np.random.default_rng(100 * h + 9)
+    rows = 8 * gru_seq.TILE_WARPS // (h // 8)  # rows a block
     for n, t in ((2 * rows + 3, 13), (rows - 1, 3)):
         xp, w_hh, b_hh, out, grad_out = backward_case(rng, n, t, 16, h, cuda, torch.bfloat16)
         dxp, dhp, h_prev = gru_seq._backward_kernel(xp, *gru_seq._kernel_weights(xp, w_hh, b_hh), out, grad_out,
-                                                    config=gru_seq.LaunchConfig(rpt, 0, 0, 0))
+                                                    config=gru_seq.TileConfig(8, 0, 0, 0))
         got = (dxp, *gru_seq.recurrent_weight_grads(dhp, h_prev))
         torch.cuda.synchronize()
         assert_backward_bf16_close(got, rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out), atol=2e-5)
@@ -450,10 +454,41 @@ def test_ptxas_report_reads_the_backward():
     assert ptxas_report(PTXAS_LOG, backward=True) == []
 
 
-def _check_ablation_variants(backward):
-    file, table = ablate_k1._kernel(backward)
+TILE_PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__39c08763_17_bigru_seq_bf16_cu_270809c921bigru_seq_bf16_kernelILi32ELi16EEEvPK13__nv_bfloat16PKfS5_PS1_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__39c08763_17_bigru_seq_bf16_cu_270809c921bigru_seq_bf16_kernelILi32ELi16EEEvPK13__nv_bfloat16PKfS5_PS1_ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 16 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__39c08763_17_bigru_seq_bf16_cu_270809c921bigru_seq_bf16_kernelILi8ELi8EEEvPK13__nv_bfloat16PKfS5_PS1_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__39c08763_17_bigru_seq_bf16_cu_270809c921bigru_seq_bf16_kernelILi8ELi8EEEvPK13__nv_bfloat16PKfS5_PS1_ii
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 61 registers, used 16 barriers, 400 bytes cmem[0]
+"""
+TILE_BWD_PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__1a2b3c4d_21_bigru_seq_bwd_bf16_cu_5e6f7a8b25bigru_seq_bwd_bf16_kernelILi32EEEvPK13__nv_bfloat16PKfS5_S3_S3_PS1_PfS7_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN54_GLOBAL__N__1a2b3c4d_21_bigru_seq_bwd_bf16_cu_5e6f7a8b25bigru_seq_bwd_bf16_kernelILi32EEEvPK13__nv_bfloat16PKfS5_S3_S3_PS1_PfS7_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 16 barriers, 432 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_the_tensor_core_kernels():
+    """The bf16 kernels' instantiations by hidden size and rows an m-tile
+    (the backward's 8), with their rings and fragment buffers as shared
+    memory; the fp32 reports skip them."""
+    assert ptxas_report(TILE_PTXAS_LOG) == [
+        {"dtype": "bf16", "H": 32, "rows": 16, "registers": 96, "spill_bytes": 0, "stack_bytes": 0,
+         "smem_bytes": 4 * 2 * 3 * 2 * 4 * 32 + 2 * 4 * 3 * 16 * 24},
+        {"dtype": "bf16", "H": 8, "rows": 8, "registers": 61, "spill_bytes": 8, "stack_bytes": 8,
+         "smem_bytes": 4 * 4 * 2 * 3 * 1 * 32 + 2 * 4 * 3 * 8 * 24}]
+    assert ptxas_report(TILE_BWD_PTXAS_LOG, backward=True) == [
+        {"dtype": "bf16", "H": 32, "rows": 8, "registers": 80, "spill_bytes": 0, "stack_bytes": 0,
+         "smem_bytes": 4 * 2 * 3 * 12 * 32 + 2 * 4 * 3 * 8 * (24 + 8 + 40)}]
+    assert ptxas_report(TILE_PTXAS_LOG, backward=True) == ptxas_report(TILE_BWD_PTXAS_LOG) == []
+
+
+def _check_ablation_variants(backward, bf16=False):
+    file, table = ablate_k1._kernel(backward, bf16)
     source = (_build.CSRC / file).read_text()
-    variants = ablate_k1.variant_sources(backward)
+    variants = ablate_k1.variant_sources(backward, bf16)
     assert set(variants) == set(table)
     for name, (text, flags) in variants.items():
         changed = text != source
@@ -472,3 +507,10 @@ def test_backward_ablation_variants_match_the_kernel_source():
     four besides the full kernel."""
     assert len(ablate_k1.BACKWARD_VARIANTS) <= 5
     _check_ablation_variants(backward=True)
+
+
+def test_bf16_ablation_variants_match_the_kernel_source():
+    """The same for the tensor-core forward's variants in
+    csrc/bigru_seq_bf16.cu; at most four besides the full kernel."""
+    assert len(ablate_k1.BF16_VARIANTS) <= 5
+    _check_ablation_variants(backward=False, bf16=True)

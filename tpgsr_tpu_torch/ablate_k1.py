@@ -1,8 +1,9 @@
 """Where K1's time goes: variants of csrc/bigru_seq.cu (or, with
-``--backward``, of csrc/bigru_seq_bwd.cu), each with one part taken out, timed
-at the flagship's two sweeps on one NVIDIA card.
+``--backward``, of csrc/bigru_seq_bwd.cu; with ``--bf16``, of the tensor-core
+forward csrc/bigru_seq_bf16.cu), each with one part taken out, timed at the
+flagship's two sweeps on one NVIDIA card.
 
-    python -m tpgsr_tpu_torch.ablate_k1 [--backward]
+    python -m tpgsr_tpu_torch.ablate_k1 [--backward | --bf16]
 
 The card's profilers do not run on the machines this port is measured on, so
 this stands in for them.  Each variant is the kernel's source with a text
@@ -11,7 +12,8 @@ wrong by design, and only its time is read.  The difference between a
 variant's time and the full kernel's is what the removed part costs on the
 critical path.  Every substitution must match the source once, so an edit of
 the kernel that moves one of them stops this script instead of timing the
-wrong thing.  It times the fp32 instantiations.
+wrong thing.  It times the fp32 instantiations, or with ``--bf16`` the bf16
+ones.
 """
 
 from __future__ import annotations
@@ -77,14 +79,32 @@ BACKWARD_VARIANTS = {
 }
 
 
-def _kernel(backward: bool):
-    """(source file, its variants) of K1's forward or backward."""
+_PRODUCTS = "for (int p = 0; p < Sh::kProducts; ++p) {"
+_PRODUCT_BLOCKS = "for (int kb = 0; kb < Sh::kBlocksK; ++kb)\n#pragma unroll\n      for (int p = 0;"
+# the same for the bf16 forward on the tensor cores, csrc/bigru_seq_bf16.cu
+BF16_VARIANTS = {
+    "full": ((), (), "nothing"),
+    "fast_math": ((), ("--use_fast_math",), "accurate tanhf (fast approximations instead)"),
+    "one_product": (((_PRODUCTS, _PRODUCTS.replace("p < Sh::kProducts", "p < 1")),), (),
+                    "the products of h's third bf16 term (and at 16 rows an m-tile its second)"),
+    "no_products": (((_PRODUCT_BLOCKS, _PRODUCT_BLOCKS.replace("kb < Sh::kBlocksK", "kb < 0")),), (),
+                    "the recurrent products h W_hh^T and their fragments' loads"),
+    "no_out_store": ((("if (row0 + r < n) *reinterpret_cast<uint32_t*>(out",
+                       "if (row0 + r < n && t == t_len - 1) *reinterpret_cast<uint32_t*>(out"),), (),
+                     "the store of out at every step but the last"),
+}
+
+
+def _kernel(backward: bool, bf16: bool = False):
+    """(source file, its variants) of K1's forward or backward, or the bf16 forward."""
+    if bf16:
+        return "bigru_seq_bf16.cu", BF16_VARIANTS
     return ("bigru_seq_bwd.cu", BACKWARD_VARIANTS) if backward else ("bigru_seq.cu", VARIANTS)
 
 
-def variant_sources(backward: bool = False):
+def variant_sources(backward: bool = False, bf16: bool = False):
     """name -> (source text, extra nvcc flags) of every variant."""
-    file, variants = _kernel(backward)
+    file, variants = _kernel(backward, bf16)
     source = (_build.CSRC / file).read_text()
     out = {}
     for name, (subs, flags, _) in variants.items():
@@ -97,11 +117,11 @@ def variant_sources(backward: bool = False):
     return out
 
 
-def build_variants(backward: bool = False):
-    out_dir = OUT_DIR / ("backward" if backward else "forward")
+def build_variants(backward: bool = False, bf16: bool = False):
+    out_dir = OUT_DIR / ("backward" if backward else "forward_bf16" if bf16 else "forward")
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, (text, flags) in variant_sources(backward).items():
+    for name, (text, flags) in variant_sources(backward, bf16).items():
         src, lib = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
         src.write_text(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)]
@@ -111,8 +131,8 @@ def build_variants(backward: bool = False):
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        regs = {f"rpt{r['rpt']}": [r["registers"], r["spill_bytes"]] for r in ptxas_report(log, backward)
-                if r["H"] == H and r["dtype"] == "fp32"}
+        regs = {f"rows{r['rows']}" if bf16 else f"rpt{r['rpt']}": [r["registers"], r["spill_bytes"]]
+                for r in ptxas_report(log, backward) if r["H"] == H and r["dtype"] == ("bf16" if bf16 else "fp32")}
         libs[name] = (ctypes.CDLL(str(lib)), regs)
     return libs
 
@@ -120,7 +140,7 @@ def build_variants(backward: bool = False):
 def _forward_calls(lib, stream):
     """[(label, call(rpt), rpt of the launch configuration)] at both sweeps."""
     fn = lib.tpgsr_bigru_seq_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     calls = []
     for i, (label, n, t) in enumerate(SWEEPS):
@@ -131,9 +151,31 @@ def _forward_calls(lib, stream):
         out = torch.empty(n, t, 2 * H, device="cuda")
 
         def call(rpt, n=n, t=t, args=(xp, w_t, b_hh, out)):
-            return fn(*(a.data_ptr() for a in args), n, t, H, rpt, 0, stream)
+            return fn(*(a.data_ptr() for a in args), n, t, H, rpt, stream)
 
         calls.append((label, call, gru_seq.config_for(n, H, x.device).rpt))
+    return calls
+
+
+def _bf16_forward_calls(lib, stream):
+    """As ``_forward_calls``, for the bf16 forward: xp and out in bf16, the
+    weights rounded to bf16 values; the m-tile's rows in place of rpt."""
+    fn = lib.tpgsr_bigru_seq_bf16_forward
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    calls = []
+    for i, (label, n, t) in enumerate(SWEEPS):
+        x, fw, bw = case(i, n, t)
+        xp = rnn.input_projection(x.bfloat16(), fw, bw).contiguous()
+        w_hh = torch.stack([fw["w_hh"], bw["w_hh"]])
+        b_hh = torch.stack([fw["b_hh"], bw["b_hh"]])
+        w_t, b_k = gru_seq._kernel_weights(xp, w_hh, b_hh)
+        out = torch.empty(n, t, 2 * H, device="cuda", dtype=torch.bfloat16)
+
+        def call(rows, n=n, t=t, args=(xp, w_t, b_k, out)):
+            return fn(*(a.data_ptr() for a in args), n, t, H, rows, stream)
+
+        calls.append((label, call, gru_seq.config_for(n, H, x.device, dtype=torch.bfloat16).rows))
     return calls
 
 
@@ -141,7 +183,7 @@ def _backward_calls(lib, stream):
     """As ``_forward_calls``, for the backward kernel on the forward's output
     and a random cotangent."""
     fn = lib.tpgsr_bigru_seq_backward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     calls = []
     for i, (label, n, t) in enumerate(SWEEPS):
@@ -156,7 +198,7 @@ def _backward_calls(lib, stream):
         dxp, dhp, h_prev = torch.empty_like(xp), xp.new_zeros(2, n_pad, t, 3 * H), xp.new_zeros(2, n_pad, t, H)
 
         def call(rpt, n=n, t=t, n_pad=n_pad, args=(xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev)):
-            return fn(*(a.data_ptr() for a in args), n, n_pad, t, H, rpt, 0, stream)
+            return fn(*(a.data_ptr() for a in args), n, n_pad, t, H, rpt, stream)
 
         calls.append((label, call, gru_seq.config_for(n, H, x.device, backward=True).rpt))
     return calls
@@ -165,39 +207,44 @@ def _backward_calls(lib, stream):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--backward", action="store_true", help="ablate the backward kernel")
-    backward = parser.parse_args().backward
+    parser.add_argument("--bf16", action="store_true", help="ablate the bf16 forward on the tensor cores")
+    args = parser.parse_args()
+    backward, bf16 = args.backward, args.bf16
+    if backward and bf16:
+        parser.error("--bf16 ablates the bf16 forward only")
     if not torch.cuda.is_available():
         raise SystemExit("ablate_k1: needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    libs = build_variants(backward)
+    libs = build_variants(backward, bf16)
     torch.cuda._sleep(int(2e9))  # about a second of spinning, to read the clock under load
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
                              "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
     torch.cuda.synchronize()
     print(f"clocks under a spin kernel (sm, max sm, power): {clocks}", flush=True)
     stream = torch.cuda.current_stream().cuda_stream
-    variants = _kernel(backward)[1]
-    tag = "ablate_k1 backward " if backward else "ablate_k1 "
+    variants = _kernel(backward, bf16)[1]
+    tag = "ablate_k1 backward " if backward else "ablate_k1 bf16 " if bf16 else "ablate_k1 "
     for name, (lib, regs) in libs.items():
-        calls = (_backward_calls if backward else _forward_calls)(lib, stream)
+        calls = (_backward_calls if backward else _bf16_forward_calls if bf16 else _forward_calls)(lib, stream)
 
         def run(call, rpt):
             err = call(rpt)
             if err:
                 raise RuntimeError(f"variant {name}: cudaError {err}")
 
+        kind = "rows" if bf16 else "rpt"
         row = {"variant": name, "removes": variants[name][2]}
         for label, call, rpt in calls:
             row[f"{label} ms"] = device_ms(lambda: run(call, rpt))
-            row[f"{label} rpt"] = rpt
+            row[f"{label} {kind}"] = rpt
         row["registers, spilled bytes at H=32"] = regs
         print(tag + json.dumps(row), flush=True)
-        if name == "full":  # the full kernel at every rows a thread
-            for rpt in gru_seq.RPTS:
-                forced = {"variant": f"full, {rpt} rows a thread"}
+        if name == "full":  # the full kernel at every instantiation
+            for rpt in gru_seq.TILE_ROWS if bf16 else gru_seq.RPTS:
+                forced = {"variant": f"full, {rpt} rows an m-tile" if bf16 else f"full, {rpt} rows a thread"}
                 for label, call, _ in calls:
                     forced[f"{label} ms"] = device_ms(lambda: run(call, rpt))
                 print(tag + json.dumps(forced), flush=True)

@@ -31,8 +31,7 @@
 //      by cp.async.cg, 16 B a lane, one commit group a step (an empty one
 //      where there is nothing to load, so the count stays uniform for ragged
 //      rows and T < S), and wait_group S-2 before each step.  A slot holds the
-//      block's rows times 3H values of T (1,536 B x RPT for every H in fp32,
-//      768 B x RPT in bf16).  Each warp
+//      block's rows times 3H values (1,536 B x RPT for every H).  Each warp
 //      copies its own rows, with addresses set once before the loop.
 //   2. RPT rows a thread (1, 2 or 4): thread (j, g) owns hidden unit j of rows
 //      g*RPT .. g*RPT+RPT-1 and loads its 3H weights once for all of them.  The
@@ -52,15 +51,8 @@
 // fp32 throughout with accurate tanhf (sigmoid through tanhf); only the order
 // of the sums differs from the plain version.
 //
-// Storage type T (float or __nv_bfloat16).  xp and out are T in device memory
-// and in the ring; everything else is fp32: W_hh and b_hh (the wrapper hands
-// over the bf16-rounded values as fp32 when T is bf16, as the JAX layers cast
-// their weights to the activation dtype), the state h in registers and in its
-// shared-memory buffers, the sums and the gates.  Each value of xp is widened
-// to fp32 where the gates read it, and h is rounded to T only where it is
-// stored to out, so that the bf16 instantiation keeps the TPU kernel's fp32
-// state (pallas_gru.py:52-65) and halves the bytes.  A 16-byte cp.async moves
-// 4 fp32 or 8 bf16 values of a row; a bf16 slot is half the bytes.
+// Storage type T: float, the only instantiation.  bf16 storage has its own
+// kernel on the tensor cores, csrc/bigru_seq_bf16.cu.
 //
 // Measured (tpgsr_tpu_torch/ablate_k1.py, H100 SXM at 700 W; PERF.md): 36.9 us
 // over W and 31.5 us over H.  Over H the FMAs alone take about the 9 us of the
@@ -69,14 +61,8 @@
 //
 // -Xptxas -v on sm_90a (registers and dynamic shared memory a block; no
 // spills, no stack frame): H = 32: RPT 1 155 (7,168 B), RPT 2 147 (14,336 B),
-// RPT 4 168 (28,672 B); H = 16: 89, 98, 133; H = 8: 61, 71, 89.  bf16:
-// H = 32: 155 (4,096 B), 160 (8,192 B), 168 (16,384 B); H = 16: 91, 98, 132;
-// H = 8: 61, 70, 84.  In bf16 the bytes halve (0.075 ms per SR forward at
-// 3.35 TB/s) but the fp32 recurrent products (0.090 ms at 67 TFLOP/s) and
-// the step chain bind: alone it takes 4 % less than fp32 (chip_smoke.py,
-// H100 SXM at 700 W; PERF.md).
+// RPT 4 168 (28,672 B); H = 16: 89, 98, 133; H = 8: 61, 71, 89.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -89,15 +75,12 @@ constexpr int kStages = 4;     // slots of the xp ring
 // division, within 1e-7 of 1 / (1 + exp(-x)).
 __device__ __forceinline__ float sigmoid_f32(float x) { return fmaf(0.5f, tanhf(0.5f * x), 0.5f); }
 
-// The storage type to fp32 and back (round to nearest even, as torch's .to()).
+// The storage type to fp32 and back.
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -290,7 +273,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   cp_async_wait<0>();
 }
 
-// Ops run by dispatch() on the kernel instantiation of (storage type, hidden,
+// Ops run by by_hidden() on the kernel instantiation of (storage type, hidden,
 // rpt).  Shared memory stays under the 48 KB a launch gets without opting in.
 struct Forward {
   const void* xp;
@@ -349,25 +332,18 @@ int by_hidden(const Op& op, int hidden, int rpt) {
   }
 }
 
-// bf16: 0 for float storage, 1 for __nv_bfloat16.
-template <class Op>
-int dispatch(const Op& op, int bf16, int hidden, int rpt) {
-  return bf16 ? by_hidden<__nv_bfloat16>(op, hidden, rpt) : by_hidden<float>(op, hidden, rpt);
-}
-
 }  // namespace
 
-// Both return a cudaError_t as int: 0 on success.  xp and out are float, or
-// __nv_bfloat16 with bf16 = 1; w_t and b_hh are float either way.
+// Both return a cudaError_t as int: 0 on success.  xp and out are float.
 extern "C" int tpgsr_bigru_seq_forward(const void* xp, const float* w_t, const float* b_hh, void* out,
-                                       int n, int t_len, int hidden, int rpt, int bf16, void* stream) {
+                                       int n, int t_len, int hidden, int rpt, void* stream) {
   if (n <= 0 || t_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Forward op{xp, w_t, b_hh, out, n, t_len, static_cast<cudaStream_t>(stream)};
-  return dispatch(op, bf16, hidden, rpt);
+  return by_hidden<float>(op, hidden, rpt);
 }
 
-// Resident blocks an SM for the instantiation (storage, hidden, rpt), written to *blocks.
-extern "C" int tpgsr_bigru_seq_occupancy(int hidden, int rpt, int bf16, int* blocks) {
+// Resident blocks an SM for the instantiation (hidden, rpt), written to *blocks.
+extern "C" int tpgsr_bigru_seq_occupancy(int hidden, int rpt, int* blocks) {
   const Occupancy op{blocks};
-  return dispatch(op, bf16, hidden, rpt);
+  return by_hidden<float>(op, hidden, rpt);
 }

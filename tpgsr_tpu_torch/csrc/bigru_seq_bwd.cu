@@ -59,27 +59,16 @@
 // fp32 throughout with accurate tanhf; only the order of the sums differs
 // from the plain version.
 //
-// Storage type T (float or __nv_bfloat16), as in the forward: xp, out,
-// grad_out and dxp are T in device memory; W_hh and b_hh arrive as fp32 (the
-// bf16-rounded values when T is bf16), and every value is widened to fp32 on
-// load, so the gates, dh, the shuffles' sums and dh_next are fp32, and dxp is
-// rounded to T only where it is stored.  dhp and h_{t-1}, which feed the
-// GEMM for dW_hh, stay fp32 in both instantiations.  In bf16 the recompute
-// reads h_{t-1} as out stored it, rounded to bf16, where the forward carried
-// it in fp32; the plain version reads out the same way.  At four rows a
-// thread h_{t-1} stays in shared memory as T: cp.async copies 4 bytes, so in
-// bf16 the even lanes copy two columns each.
+// Storage type T: float, the only instantiation.  bf16 storage has its own
+// kernel on the tensor cores, csrc/bigru_seq_bwd_bf16.cu.
 //
 // Measured (tpgsr_tpu_torch/bench_k1.py and ablate_k1.py --backward, H100 SXM
 // at 700 W): 0.0785 ms over W and 0.073 over H, 1.6-1.75x the byte bound.
 // Taking out the stores, the recompute or accurate tanhf each saves 10-15 us
 // over W, 5-11 us over H; the shuffles 4 us.  -Xptxas -v on sm_90a: H = 32:
 // 168 registers at RPT 1, 2 and 4; H = 16: 128, 135, 168; H = 8: 96, 95,
-// 126; bf16: H = 32: 168 at every RPT; H = 16: 133, 124, 162; H = 8: 96,
-// 90, 126; no spills, no stack frame.  The bf16 instantiations take 6 %
-// longer than fp32's alone (chip_smoke.py, H100 SXM at 700 W; PERF.md).
+// 126; no spills, no stack frame.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -93,11 +82,10 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // one row in flight; at more rows a thread the registers hold one.
 template <int RPT>
 constexpr int kDepth = RPT == 1 ? 4 : 1;
-// Whether h_{t-1} reaches shared memory by cp.async (at four rows a thread,
-// and at two in bf16, where its registers would spill: the bf16 loads' and
-// conversions' registers spilled 16 bytes there) or through a register.
+// Whether h_{t-1} reaches shared memory by cp.async (at four rows a thread)
+// or through a register.
 template <typename T, int RPT>
-constexpr bool kAsyncH = RPT == 4 || (RPT == 2 && sizeof(T) == 2);
+constexpr bool kAsyncH = RPT == 4;
 // Buffers of h_{t-1} in shared memory: one a step in flight and the current.
 template <typename T, int RPT>
 constexpr int kHBuffers = kAsyncH<T, RPT> ? kDepth<RPT> + 1 : 2;
@@ -109,24 +97,15 @@ using HStore = std::conditional_t<kAsyncH<T, RPT>, T, float>;
 // As in the forward: sigmoid(x) = tanh(x / 2) / 2 + 1 / 2.
 __device__ __forceinline__ float sigmoid_f32(float x) { return fmaf(0.5f, tanhf(0.5f * x), 0.5f); }
 
-// The storage type to fp32 and back (round to nearest even, as torch's .to()).
+// The storage type to fp32 and back.
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
-// Four consecutive values from shared memory, widened to fp32: one 16-byte
-// load in fp32, one 8-byte load in bf16 (a bf16 is the top half of its fp32).
+// Four consecutive values from shared memory: one 16-byte load.
 __device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
 
 // 4 bytes from global to shared memory, in flight until a wait_group; zeros
 // where !valid (no byte is read then).
@@ -358,7 +337,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-// Ops run by dispatch() on the kernel instantiation of (storage type, hidden, rpt).
+// Ops run by by_hidden() on the kernel instantiation of (storage type, hidden, rpt).
 struct Backward {
   const void* xp;
   const float *w_t, *b_hh;
@@ -419,28 +398,21 @@ int by_hidden(const Op& op, int hidden, int rpt) {
   }
 }
 
-// bf16: 0 for float storage, 1 for __nv_bfloat16.
-template <class Op>
-int dispatch(const Op& op, int bf16, int hidden, int rpt) {
-  return bf16 ? by_hidden<__nv_bfloat16>(op, hidden, rpt) : by_hidden<float>(op, hidden, rpt);
-}
-
 }  // namespace
 
-// Both return a cudaError_t as int: 0 on success.  xp, out, grad_out and dxp
-// are float, or __nv_bfloat16 with bf16 = 1; w_t, b_hh, dhp and h_prev are
-// float either way.
+// Both return a cudaError_t as int: 0 on success.  xp, out, grad_out, dxp,
+// w_t, b_hh, dhp and h_prev are float.
 extern "C" int tpgsr_bigru_seq_backward(const void* xp, const float* w_t, const float* b_hh, const void* out,
                                         const void* grad_out, void* dxp, float* dhp, float* h_prev, int n,
-                                        int n_pad, int t_len, int hidden, int rpt, int bf16, void* stream) {
+                                        int n_pad, int t_len, int hidden, int rpt, void* stream) {
   if (n <= 0 || t_len <= 0 || n_pad < n) return static_cast<int>(cudaErrorInvalidValue);
   const Backward op{xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev, n, n_pad, t_len,
                     static_cast<cudaStream_t>(stream)};
-  return dispatch(op, bf16, hidden, rpt);
+  return by_hidden<float>(op, hidden, rpt);
 }
 
-// Resident blocks an SM for the instantiation (storage, hidden, rpt), written to *blocks.
-extern "C" int tpgsr_bigru_seq_backward_occupancy(int hidden, int rpt, int bf16, int* blocks) {
+// Resident blocks an SM for the instantiation (hidden, rpt), written to *blocks.
+extern "C" int tpgsr_bigru_seq_backward_occupancy(int hidden, int rpt, int* blocks) {
   const Occupancy op{blocks};
-  return dispatch(op, bf16, hidden, rpt);
+  return by_hidden<float>(op, hidden, rpt);
 }

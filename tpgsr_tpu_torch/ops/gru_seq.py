@@ -2,8 +2,10 @@
 CUDA kernels.
 
 Counterpart of tpgsr_tpu/ops/pallas_gru.py (``bigru_pallas``).  The kernel
-sources are ``csrc/bigru_seq.cu`` (forward) and ``csrc/bigru_seq_bwd.cu``
-(backward); their plain versions are ``ops.rnn.bigru_recurrence`` and
+sources are ``csrc/bigru_seq.cu`` and ``csrc/bigru_seq_bwd.cu`` (forward and
+backward, fp32) and ``csrc/bigru_seq_bf16.cu`` and
+``csrc/bigru_seq_bwd_bf16.cu`` (bf16, on the tensor cores); their plain
+versions are ``ops.rnn.bigru_recurrence`` and
 ``ops.rnn.bigru_recurrence_backward``.
 
 * ``x`` is fp32 or bf16 (``SUPPORTED_DTYPES``), its parameters fp32.  In
@@ -16,9 +18,10 @@ sources are ``csrc/bigru_seq.cu`` (forward) and ``csrc/bigru_seq_bwd.cu``
 * A CUDA tensor launches the kernels or raises; nothing falls back.
 * ``LAUNCHES`` and ``BACKWARD_LAUNCHES`` count kernel launches, so a run can
   show that its main path went through the kernels.
-* Each kernel's launch configuration (rows a thread, grid) comes from
-  ``launch_config``, a pure function of the shape and the card's limits,
-  fed that kernel's own occupancy.
+* Each kernel's launch configuration comes from a pure function of the
+  shape and the card's limits, fed that kernel's own occupancy:
+  ``launch_config`` (rows a thread, grid) for the fp32 kernels,
+  ``tile_config`` (rows an m-tile, grid) for the bf16 ones.
 * The backward kernel writes dxp, and dhp and h_{t-1} laid out per
   direction; dW_hh and db_hh are one batched GEMM and one sum outside it
   (``recurrent_weight_grads``), and the input projection's gradients come
@@ -44,6 +47,11 @@ SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)  # the storage types of xp, o
 THREADS = 128  # threads a block: H hidden units x 128 / H row groups
 RPTS = (1, 2, 4)  # rows a thread, the kernel's instantiations
 RING_STAGES = 4  # steps of xp in the kernel's shared-memory ring (kStages)
+TILE_ROWS = (8, 16)  # rows an m-tile, the bf16 kernels' instantiations
+TILE_WARPS = 4  # warps a block of the bf16 kernels, H / 8 an m-tile (kWarps)
+BF16_RING_STAGES = 3  # steps of the inputs in the bf16 kernels' rings (kStages)
+SUB_PARTITIONS = 4  # warp schedulers an SM
+SMALL_TILE_WARPS = 2  # warps a sub-partition up to which the bf16 forward takes 8-row m-tiles
 GEMM_CHUNK = 256  # row-steps a batch of the dW_hh GEMM sums over
 _PARAM_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
 
@@ -72,15 +80,69 @@ def launch_config(n: int, hidden: int, sms: int, blocks_per_sm: Mapping[int, int
     return next((c for c in configs if c.waves == 1), configs[-1])
 
 
+class TileConfig(NamedTuple):
+    rows: int  # rows an m-tile
+    blocks: int  # grid size, both directions
+    blocks_per_sm: int
+    waves: int
+
+
+def tile_config(n: int, hidden: int, sms: int, blocks_per_sm: Mapping[int, int],
+                backward: bool = False) -> TileConfig:
+    """The bf16 kernels' geometry: each m-tile of rows runs on ``hidden / 8``
+    warps (one 8-unit tile each), ``TILE_WARPS`` warps a block.  m-tiles of 8
+    rows, each warp's chain of steps carrying half the gates: always in the
+    backward (its only instantiation), whose steps carry the most; in the
+    forward where the grid's warps at 8 rows, ``2 * ceil(n / 8) * hidden /
+    8``, come to at most ``SMALL_TILE_WARPS`` a sub-partition of the card
+    (the flagship's sweep over W), else 16 rows (fewer warps, each product's
+    rows all used: over H and at batch 512).  Measured on an H100 at H = 32
+    (PERF.md)."""
+    if n < 1 or hidden not in SUPPORTED_HIDDEN:
+        raise ValueError(f"need n >= 1 and hidden in {SUPPORTED_HIDDEN}, got n={n} hidden={hidden}")
+    tile_warps = hidden // 8
+    small = TILE_ROWS[0]
+    fits = 2 * -(-n // small) * tile_warps <= SMALL_TILE_WARPS * SUB_PARTITIONS * sms
+    rows = small if backward or fits else TILE_ROWS[-1]
+    if blocks_per_sm[rows] < 1:
+        raise ValueError(f"K1 bf16 at hidden {hidden}, {rows} rows an m-tile fits no block on an SM")
+    blocks = 2 * -(-n // (rows * (TILE_WARPS // tile_warps)))
+    return TileConfig(rows, blocks, blocks_per_sm[rows], -(-blocks // (sms * blocks_per_sm[rows])))
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from tpgsr_tpu_torch.ops import _build
 
     lib = _build.load("bigru_seq")
-    lib.tpgsr_bigru_seq_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tpgsr_bigru_seq_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.tpgsr_bigru_seq_forward.restype = ctypes.c_int
-    lib.tpgsr_bigru_seq_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tpgsr_bigru_seq_occupancy.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
     lib.tpgsr_bigru_seq_occupancy.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_lib() -> ctypes.CDLL:
+    from tpgsr_tpu_torch.ops import _build
+
+    lib = _build.load("bigru_seq_bf16")
+    lib.tpgsr_bigru_seq_bf16_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.tpgsr_bigru_seq_bf16_forward.restype = ctypes.c_int
+    lib.tpgsr_bigru_seq_bf16_occupancy.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tpgsr_bigru_seq_bf16_occupancy.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_bf16_lib() -> ctypes.CDLL:
+    from tpgsr_tpu_torch.ops import _build
+
+    lib = _build.load("bigru_seq_bwd_bf16")
+    lib.tpgsr_bigru_seq_bf16_backward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.tpgsr_bigru_seq_bf16_backward.restype = ctypes.c_int
+    lib.tpgsr_bigru_seq_bf16_backward_occupancy.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)]
+    lib.tpgsr_bigru_seq_bf16_backward_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -89,9 +151,9 @@ def _bwd_lib() -> ctypes.CDLL:
     from tpgsr_tpu_torch.ops import _build
 
     lib = _build.load("bigru_seq_bwd")
-    lib.tpgsr_bigru_seq_backward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.tpgsr_bigru_seq_backward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.tpgsr_bigru_seq_backward.restype = ctypes.c_int
-    lib.tpgsr_bigru_seq_backward_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tpgsr_bigru_seq_backward_occupancy.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
     lib.tpgsr_bigru_seq_backward_occupancy.restype = ctypes.c_int
     return lib
 
@@ -105,32 +167,44 @@ def _bf16_flag(dtype: torch.dtype) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _device_limits(index: int, hidden: int, backward: bool, bf16: int) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
-    """(SMs, ((rpt, resident blocks an SM), ...)) of card ``index`` for the
-    forward kernel, or the backward's with ``backward``, in fp32 storage or
-    with ``bf16`` in bf16 (their registers and shared memory differ)."""
-    query = _bwd_lib().tpgsr_bigru_seq_backward_occupancy if backward else _lib().tpgsr_bigru_seq_occupancy
+    """(SMs, ((instantiation, resident blocks an SM), ...)) of card ``index``
+    for the forward kernel, or the backward's with ``backward``, in fp32
+    storage or with ``bf16`` in bf16 (their registers and shared memory
+    differ); an instantiation is a rows a thread (``RPTS``), or in bf16 a
+    rows an m-tile (``TILE_ROWS``; the backward's 8 only)."""
+    if bf16 and backward:  # one instantiation a hidden size, 8 rows an m-tile
+        lib = _bwd_bf16_lib().tpgsr_bigru_seq_bf16_backward_occupancy
+        query, kinds = (lambda rows, blocks: lib(hidden, blocks)), TILE_ROWS[:1]
+    elif bf16:
+        query, kinds = functools.partial(_bf16_lib().tpgsr_bigru_seq_bf16_occupancy, hidden), TILE_ROWS
+    else:
+        lib = _bwd_lib().tpgsr_bigru_seq_backward_occupancy if backward else _lib().tpgsr_bigru_seq_occupancy
+        query, kinds = functools.partial(lib, hidden), RPTS
     occupancy = []
     with torch.cuda.device(index):
-        for rpt in RPTS:
+        for kind in kinds:
             blocks = ctypes.c_int(0)
-            err = query(hidden, rpt, bf16, ctypes.byref(blocks))
+            err = query(kind, ctypes.byref(blocks))
             if err != 0:
                 raise RuntimeError(f"K1 occupancy query failed: cudaError {err}")
-            occupancy.append((rpt, blocks.value))
+            occupancy.append((kind, blocks.value))
     return torch.cuda.get_device_properties(index).multi_processor_count, tuple(occupancy)
 
 
 def config_for(n: int, hidden: int, device: torch.device, backward: bool = False,
-               dtype: torch.dtype = torch.float32) -> LaunchConfig:
+               dtype: torch.dtype = torch.float32) -> "LaunchConfig | TileConfig":
     """The launch configuration K1's forward (or, with ``backward``, its
-    backward) takes for ``n`` rows of storage type ``dtype`` on CUDA ``device``."""
+    backward) takes for ``n`` rows of storage type ``dtype`` on CUDA
+    ``device``: a ``TileConfig`` in bf16, a ``LaunchConfig`` in fp32."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     return _config(index, n, hidden, backward, _bf16_flag(dtype))
 
 
 @functools.lru_cache(maxsize=1024)
-def _config(index: int, n: int, hidden: int, backward: bool, bf16: int) -> LaunchConfig:
+def _config(index: int, n: int, hidden: int, backward: bool, bf16: int) -> "LaunchConfig | TileConfig":
     sms, occupancy = _device_limits(index, hidden, backward, bf16)
+    if bf16:
+        return tile_config(n, hidden, sms, dict(occupancy), backward=backward)
     return launch_config(n, hidden, sms, dict(occupancy))
 
 
@@ -174,12 +248,13 @@ def _kernel_weights(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) ->
 
 
 def _recurrence(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor,
-                config: Optional[LaunchConfig] = None) -> torch.Tensor:
-    """Run K1 on [N, T, 6H] projections (fp32 or bf16) with ``w_t`` [2, H,
-    3H] (W_hh transposed per direction) and ``b_hh`` [2, 3H] in fp32, holding
-    values of xp's dtype (``_kernel_weights``); returns [N, T, 2H] in xp's
-    dtype.  ``config`` overrides ``config_for`` (the tests use it to reach
-    every instantiation)."""
+                config: "Optional[LaunchConfig | TileConfig]" = None) -> torch.Tensor:
+    """Run K1 on [N, T, 6H] projections with ``w_t`` [2, H, 3H] (W_hh
+    transposed per direction) and ``b_hh`` [2, 3H] in fp32, holding values of
+    xp's dtype (``_kernel_weights``); returns [N, T, 2H] in xp's dtype: the
+    fp32 kernel for fp32, the tensor-core kernel for bf16.  ``config``
+    overrides ``config_for`` (the tests use it to reach every
+    instantiation)."""
     global LAUNCHES
     n, t, g6 = xp.shape
     h = g6 // 6
@@ -193,11 +268,16 @@ def _recurrence(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor,
         raise ValueError("xp must be 16-byte aligned (the kernel copies it 16 bytes a thread)")
     if config is None:
         config = config_for(n, h, xp.device, dtype=xp.dtype)
-    fn = _lib().tpgsr_bigru_seq_forward
+    if bf16 and (n + TILE_ROWS[-1]) * t * 6 * h >= 2**31:
+        raise ValueError(f"K1's bf16 forward indexes with 32-bit offsets: N={n}, T={t}, H={h} is too large")
+    if bf16:
+        fn, kind = _bf16_lib().tpgsr_bigru_seq_bf16_forward, config.rows
+    else:
+        fn, kind = _lib().tpgsr_bigru_seq_forward, config.rpt
     out = torch.empty(n, t, 2 * h, device=xp.device, dtype=xp.dtype)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
-        err = fn(xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), n, t, h, config.rpt, bf16, stream)
+        err = fn(xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), n, t, h, kind, stream)
     if err != 0:
         raise RuntimeError(f"K1 bigru_seq launch failed: cudaError {err}")
     LAUNCHES += 1
@@ -216,16 +296,16 @@ def _chunk_rows(t: int) -> int:
 
 
 def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, out: torch.Tensor,
-                     grad_out: torch.Tensor, config: Optional[LaunchConfig] = None
+                     grad_out: torch.Tensor, config: "Optional[LaunchConfig | TileConfig]" = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Run K1's backward kernel: ``xp`` [N, T, 6H], the forward's ``out`` and
-    ``grad_out`` [N, T, 2H], all fp32 or all bf16, with ``w_t`` [2, H, 3H]
-    and ``b_hh`` [2, 3H] in fp32 holding values of xp's dtype
-    (``_kernel_weights``) -> (dxp [N, T, 6H] in xp's dtype, and in
-    fp32 dhp [2, Np, T, 3H] and h_{t-1} [2, Np, T, H]), N padded with zero
-    rows to Np, a multiple of the GEMM's chunk of rows.  ``config`` overrides
-    ``config_for(..., backward=True)`` (the tests use it to reach every
-    instantiation)."""
+    """Run K1's backward kernel (fp32, or the tensor-core kernel in bf16):
+    ``xp`` [N, T, 6H], the forward's ``out`` and ``grad_out`` [N, T, 2H], all
+    fp32 or all bf16, with ``w_t`` [2, H, 3H] and ``b_hh`` [2, 3H] in fp32
+    holding values of xp's dtype (``_kernel_weights``) -> (dxp [N, T, 6H] in
+    xp's dtype, and in fp32 dhp [2, Np, T, 3H] and h_{t-1} [2, Np, T, H]), N
+    padded with zero rows to Np, a multiple of the GEMM's chunk of rows.
+    ``config`` overrides ``config_for(..., backward=True)`` (the tests use it
+    to reach every instantiation)."""
     global BACKWARD_LAUNCHES
     n, t, g6 = xp.shape
     h = g6 // 6
@@ -241,6 +321,8 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
             raise ValueError(f"{name} must be contiguous {xp.dtype} on {xp.device}")
         if tensor.data_ptr() % tensor.element_size():
             raise ValueError(f"{name} must be aligned to its element size")
+        if bf16 and tensor.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the bf16 kernel copies it 16 bytes a thread)")
     if out.data_ptr() % 4:
         raise ValueError("out must be 4-byte aligned (the kernel copies h_{t-1} from it 4 bytes at a time)")
     if config is None:
@@ -255,11 +337,17 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
     if n_pad > n:
         dhp[:, n:].zero_()
         h_prev[:, n:].zero_()
-    fn = _bwd_lib().tpgsr_bigru_seq_backward
+    if bf16 and config.rows != TILE_ROWS[0]:
+        raise ValueError(f"K1's bf16 backward runs {TILE_ROWS[0]} rows an m-tile, got {config.rows}")
+    args = [xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
+            dxp.data_ptr(), dhp.data_ptr(), h_prev.data_ptr(), n, n_pad, t, h]
+    if bf16:
+        fn = _bwd_bf16_lib().tpgsr_bigru_seq_bf16_backward
+    else:
+        fn = _bwd_lib().tpgsr_bigru_seq_backward
+        args.append(config.rpt)
     with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
-        err = fn(xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
-                 dxp.data_ptr(), dhp.data_ptr(), h_prev.data_ptr(), n, n_pad, t, h, config.rpt, bf16, stream)
+        err = fn(*args, torch.cuda.current_stream(xp.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K1 bigru_seq backward launch failed: cudaError {err}")
     BACKWARD_LAUNCHES += 1
@@ -307,6 +395,8 @@ class _BiGRUSeq(torch.autograd.Function):
     def backward(ctx, grad_out):
         xp, w_hh, b_hh, out = ctx.saved_tensors
         grad_out = grad_out.contiguous()
+        if grad_out.data_ptr() % 16:  # a view into a larger buffer: the kernels copy 16 bytes a thread
+            grad_out = grad_out.clone()
         if xp.device.type == "cpu":
             return rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)
         return recurrence_backward(xp, w_hh, b_hh, out, grad_out)

@@ -40,6 +40,22 @@ def rounded_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype).float()
 
 
+def bf16_split3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fp32 ``x`` as three bf16 terms, the largest first, each the rounding of
+    what the earlier ones leave: x = t1 + t2 + t3 exactly (8 + 8 + 8
+    significant bits, fp32's 24) for |x| >= 2^-110 and for zeros; below, the
+    last term's bits under bf16's least subnormal (2^-133) are lost, within
+    2^-134.  The plain version of how K1's bf16 kernels put an fp32 operand
+    (the forward's h, the backward's dhp) on the tensor cores: each term's
+    products with bf16 weights are exact in fp32."""
+    rest = x.float()
+    terms = []
+    for _ in range(3):
+        terms.append(rest.to(torch.bfloat16))
+        rest = rest - terms[-1].float()
+    return terms[0], terms[1], terms[2]
+
+
 def input_projection(x: torch.Tensor, fw: Params, bw: Params) -> torch.Tensor:
     """[N, T, C] -> [N, T, 6H] in x's dtype: both directions' input
     projections in one matmul (fw gates r,z,n then bw gates r,z,n), outside

@@ -12,8 +12,9 @@ under autocast, as the train step does), with TF32 off, and:
   image loss), the SR clip and Adam's step, and the whole step;
 * traces 5 train steps with ``torch.profiler`` and prints the device's busy
   share of the traced wall time, the kernels that take the most device time,
-  and K1's forward (``bigru_seq_kernel``) and backward
-  (``bigru_seq_backward``) kernels wherever they rank.
+  and K1's forward and backward kernels wherever they rank
+  (``bigru_seq_kernel`` and ``bigru_seq_backward`` in fp32,
+  ``bigru_seq_bf16_kernel`` and ``bigru_seq_bwd_bf16_kernel`` in bf16).
 
 The parts run the same modules as the step, so each part's own optimizer
 step and BatchNorm updates move the state: the times are what they measure,
@@ -39,7 +40,7 @@ from tpgsr_tpu_torch.train.state import clip_sr_grads
 from tpgsr_tpu_torch.train.step import COMPUTE_DTYPES, compute_context, crnn_width
 
 BATCH = 48
-K1_KERNELS = ("bigru_seq_kernel", "bigru_seq_backward")
+K1_KERNELS = ("bigru_seq_kernel", "bigru_seq_backward", "bigru_seq_bf16_kernel", "bigru_seq_bwd_bf16_kernel")
 
 
 def parts(state, step, batch, dev, dtype=torch.float32):
