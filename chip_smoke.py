@@ -49,8 +49,9 @@ package beside this script):
    ``compute_dtype: fp32``: one epoch with val and saves at 22 and 44, its
    files and scalar log, its first two iterations against a CPU ``TextSR``,
    ``--resume`` for a second epoch (step 88, global epoch 2's first batch),
-   then ``--go_test``, ``--test --rec crnn`` and ``--demo`` from the
-   checkpoint against the same commands on the CPU; the ``trainer`` line
+   then ``--go_test`` over the three splits, and ``--go_test`` and ``--test
+   --rec crnn`` over the smallest and ``--demo`` from the checkpoint against
+   the same commands on the CPU; the ``trainer`` line
    has the loop's images/s between the vals, the first iteration, a val, a
    save, ``--test``'s fps and K1's launches in the train window;
 11. the bf16 train step (TRAIN.compute_dtype 'bf16', the packaged YAML's
@@ -124,6 +125,21 @@ package beside this script):
    its metric dict against ``evaluate`` in-process (``{"zoo_last_cli":
    ...}``).  Phase 13(a) also measures ``srres``'s PReLU slopes' gradient
    gap with cuDNN off (a ``{"srres_prelu_gap": ...}`` line).
+17. the flags that choose the data, at full width: (a) phase 3's fp32
+   forward also at batch-1 native sweeps (N=12, T=300; N=300, T=48; ...),
+   each against the plain version and both recurrences against an fp64
+   one; (b) ``--syn --random_reso --go_test`` through ``cli.main`` over 384
+   words rendered at native sizes (heights 12-48, widths 24-320), each SR'd
+   at its own size behind the confidence gate of a sharpened CRNN: the
+   metric dict, images/s, ms an image and K1's launches (10 an image sent to
+   SR); the first 16 words card against CPU (the gate's confidences and
+   decisions, the metric dicts); (c) ``--random_reso --go_test`` over phase
+   9's easy split, its first 16 pairs card against CPU; (d) ``--syn`` and
+   ``--mixed`` over phase 9's train LMDBs and ``--ic15sr`` over a PGM tree
+   at 128x32 / 64x16, each through ``cli.main`` in fp32 and on the packaged
+   YAML (bf16), loading in the calling process: images/s over 10
+   iterations with the host's load, K1's launches, the val and the save,
+   ``--syn``'s first two fp32 iterations against the CPU.
 
 The third line from the end is ``{"phase_seconds": {...}}``, each phase's
 seconds; the line before the last is ``{"kernels": [...]}``: K1's forward and
@@ -131,7 +147,9 @@ backward in fp32 and in bf16 (``zoo_launches``: ``tsrn``'s in phase
 13(b); ``rec_eval_launches``: phase 14(b)'s; ``tl_simple_launches``:
 ``tsrn_tl_wmask``'s in phase 15(b); ``remat_launches``: phase 15(a)'s
 recomputed step; ``c2f_launches``, ``opt_launches``, ``sem_launches``: phase
-16(b)'s; ``seed_eval_launches``: its SEED-scored eval); the last is
+16(b)'s; ``seed_eval_launches``: its SEED-scored eval; ``random_reso_launches``:
+phase 17(b)'s; ``syn_launches``, ``mixed_launches``, ``ic15sr_launches``:
+17(d)'s); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -157,7 +175,8 @@ from tpgsr_tpu_torch import cli, entry
 from tpgsr_tpu_torch.charset import CTC_CHAR_TO_ID
 from tpgsr_tpu_torch.bench_k1 import device_ms, ptxas_report
 from tpgsr_tpu_torch.config import AttrDict, build_arg_parser, load_config, script_argv
-from tpgsr_tpu_torch.data.datasets import ConcatDataset, TextZoomDataset
+from tpgsr_tpu_torch.data.collate import CollateConfig, collate_syn_random_reso
+from tpgsr_tpu_torch.data.datasets import ConcatDataset, SingleImageLMDB, TextZoomDataset
 from tpgsr_tpu_torch.data.lmdb import write_lmdb
 from tpgsr_tpu_torch.data.loader import EpochBatchSampler
 from tpgsr_tpu_torch.ops import _build, gru_seq, rnn
@@ -166,8 +185,11 @@ from tpgsr_tpu_torch.ops.image import append_contour_mask_u8
 from tpgsr_tpu_torch.profile_eval import trace
 from tpgsr_tpu_torch.profile_zoo import ARCH_FLAGS, argv_of
 from tpgsr_tpu_torch.profile_zoo import mission as zoo_mission
+from tpgsr_tpu_torch.train import random_reso
 from tpgsr_tpu_torch.train import step as port_step
 from tpgsr_tpu_torch.train import trainer
+from tpgsr_tpu_torch.train.priors import parse_crnn_data
+from tpgsr_tpu_torch.train.trainer import load_crnn
 from tpgsr_tpu_torch.train.evaluate import evaluate
 from tpgsr_tpu_torch.train.step import EvalModels, make_eval_step, make_train_step, rec_decoder, recognizer_input
 
@@ -391,6 +413,11 @@ def phase_k1(dtype: torch.dtype = torch.float32):
         print(f"{tag} timing " + json.dumps(row), flush=True)
         shapes.append(row)
 
+    if dtype == torch.float32:
+        native = native_k1_cases()
+        shapes += native
+        max_err = max([max_err] + [r["max_abs_err"] for r in native])
+
     # every compiled instantiation, forced, on a ragged N at T = 13 and T = 3
     for h in gru_seq.SUPPORTED_HIDDEN:
         x, fw, bw = gru_case(100 + h, 3 * gru_seq.THREADS // h * 4 + 5, 13, 16, h)
@@ -409,6 +436,52 @@ def phase_k1(dtype: torch.dtype = torch.float32):
         print(f"{tag} H={h}: {[f[0] for f in instantiations(dtype)]} at N={x.shape[0]}, T=13 and T=3 agree (1e-5)",
               flush=True)
     return max_err, shapes
+
+
+# Phase 17's --random_reso runs the SR at batch 1 and each image's own size:
+# over W, T = the LR's width and N = its height; over H, T = its height and
+# N = its width (phase 17's words: heights 12-48, widths 24-320).  K1's fp32
+# forward at such shapes lies 1.9e-7 from an fp64 recurrence on the same
+# fp32 xp, the plain fp32 one 2.5e-7, the two 2.7e-7 apart (three seeds at
+# these shapes and at N=24..320, T=12..320, on an H100 80GB HBM3 at 700 W):
+# the recurrence contracts, and its rounding does not grow over 300 steps.
+# Held at 1e-6, about twice the two gaps summed.
+NATIVE_K1_CASES = (("native over W, 12x300", 12, 300), ("native over H, 300x48", 300, 48),
+                   ("native 17x83", 17, 83), ("native over W, 48x320", 48, 320),
+                   ("native over H, 320x48", 320, 48), ("native over W, 13x257", 13, 257))
+NATIVE_K1_ATOL = 1e-6
+
+
+def native_k1_cases():
+    """Phase 3's fp32 forward at batch-1 native sweeps (C=64, H=32): the
+    wrapper against the plain version at ``NATIVE_K1_ATOL``, and the
+    recurrence of each (kernel, plain fp32) against an fp64 one on the same
+    fp32 projection; device and plain times."""
+    rows = []
+    for i, (label, n, t) in enumerate(NATIVE_K1_CASES):
+        x, fw, bw = gru_case(200 + i, n, t, 64, 32)
+        with torch.no_grad():
+            got = gru_seq.bigru(x, fw, bw)
+            torch.cuda.synchronize()
+            ref = rnn.bigru(x, fw, bw)
+            err = float((got - ref).abs().max())
+            check(torch.isfinite(got).all().item() and err <= NATIVE_K1_ATOL,
+                  f"K1 {label}: max abs err {err:.3g} beyond {NATIVE_K1_ATOL}")
+            xp = rnn.input_projection(x, fw, bw).contiguous()
+            w_hh = torch.stack([fw["w_hh"], bw["w_hh"]]).contiguous()
+            b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
+            fp64 = rnn._recurrence(xp.double(), w_hh.double(), b_hh.double(), torch.float64)
+            kernel = gru_seq._recurrence(xp, *gru_seq._kernel_weights(xp, w_hh, b_hh))
+            plain = rnn.bigru_recurrence(xp, w_hh, b_hh)
+            row = {"label": label, "dtype": "fp32", "N": n, "T": t, "C": 64, "H": 32, "max_abs_err": err,
+                   "tol": NATIVE_K1_ATOL, "kernel_vs_fp64": float((kernel.double() - fp64).abs().max()),
+                   "plain_vs_fp64": float((plain.double() - fp64).abs().max()),
+                   **gru_seq.config_for(n, 32, x.device)._asdict(),
+                   "device_ms": device_ms(lambda: gru_seq.bigru(x, fw, bw)),
+                   "plain_ms": median_ms(lambda: rnn.bigru(x, fw, bw), 3, warmup=1)}
+        print("K1 native " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
 
 
 def instantiations(dtype: torch.dtype, backward: bool = False):
@@ -752,14 +825,17 @@ def _jpeg(img: Image.Image) -> bytes:
     return buf.getvalue()
 
 
+def random_words(rng, n: int):
+    """``n`` words of 3 to 10 letters and digits drawn from ``rng``."""
+    alphabet = np.array(list("0123456789abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    return ["".join(rng.choice(alphabet, rng.integers(3, 11))) for _ in range(n)]
+
+
 def make_textzoom_lmdb(path: str, n: int, seed: int) -> str:
     """An lmdbDataset_real-style LMDB of ``n`` pairs (HR 128x32, LR 64x16
     JPEGs) of seeded words of 3 to 10 letters and digits."""
-    rng = np.random.default_rng(seed)
-    alphabet = np.array(list("0123456789abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"))
     items = [(b"num-samples", str(n).encode())]
-    for i in range(1, n + 1):
-        word = "".join(rng.choice(alphabet, rng.integers(3, 11)))
+    for i, word in enumerate(random_words(np.random.default_rng(seed), n), 1):
         hr = render_word(word, (128, 32), seed=seed * 100_000 + i)
         items.append((b"label-%09d" % i, word.encode()))
         items.append((b"image_hr-%09d" % i, _jpeg(hr)))
@@ -972,6 +1048,9 @@ TRAINER_INTERVAL = TRAINER_EPOCH // 2
 TRAINER_FLAGS = ["--arch", "tsrn_tl_cascade", "--STN", "--mask", "--use_distill", "--gradient", "--sr_share",
                  "--stu_iter=1", "--vis_dir", "smoke"]
 DEMO_WORDS = ("scene", "Text", "zoom42", "prior")
+# phase 10's config with the loaders in the calling process, for the
+# eval-only runs from its checkpoint
+EVAL_CONFIG = "trainer_eval.yaml"
 SAVE_FILES = ("checkpoint_0.pth", "recognizer_0.pth", "opt_state.pth", "info.json")
 
 
@@ -982,9 +1061,11 @@ class TrainerProbe:
     and each val's and save's start and end (the card synchronized at both)
     with K1's counts there and the val's metric dicts."""
 
-    def __init__(self):
+    def __init__(self, marks=()):
         self.metrics, self.first_batch, self.first_step_end, self.events = [], None, None, []
         self.first_step_counts, self.compute_dtypes = None, []
+        # the card synchronized and the clock read at the end of these steps (1-based)
+        self.marks, self.mark_times, self.steps = tuple(marks), {}, 0
 
     @contextlib.contextmanager
     def installed(self):
@@ -996,6 +1077,10 @@ class TrainerProbe:
 
             def recorded(state, batch):
                 metrics = step(state, batch)
+                self.steps += 1
+                if self.steps in self.marks:
+                    torch.cuda.synchronize()
+                    self.mark_times[self.steps] = time.perf_counter()
                 if not self.metrics:
                     torch.cuda.synchronize()
                     self.first_step_end = time.perf_counter()
@@ -1060,9 +1145,10 @@ def phase_trainer(root: str, train_dirs, val_dirs, lmdb_train_ips: float):
        tests hold the port's second step to against JAX);
     2. ``--resume`` for one more epoch: the step reaches 44 and the first
        batch is global epoch 2's;
-    3. ``--go_test``, ``--test --rec crnn`` over the easy split and ``--demo``
-       over four PNGs, each from the checkpoint, against the same command on
-       the CPU;
+    3. ``--go_test`` over the three splits on the card, then ``--go_test``
+       and ``--test --rec crnn`` over the smallest split and ``--demo`` over
+       four PNGs, each from the checkpoint, against the same command on the
+       CPU;
     4. the ``trainer`` line: images/s between the first val and the end
        (synchronized wall time, val and save excluded), the first
        iteration, a val, a save and its bytes, ``--test``'s fps, K1's
@@ -1082,6 +1168,11 @@ def phase_trainer(root: str, train_dirs, val_dirs, lmdb_train_ips: float):
     config_path = f"{root}/trainer.yaml"
     with open(config_path, "w") as f:
         json.dump(cfg, f)  # JSON is YAML
+    # the eval-only runs from the checkpoint (here and in phase 14) load in
+    # the calling process: a loader worker's start costs a run several seconds
+    t.workers = 0
+    with open(f"{root}/{EVAL_CONFIG}", "w") as f:
+        json.dump(cfg, f)
     argv = TRAINER_FLAGS + ["--config", config_path]
     ckpt_dir = f"{root}/ckpt/smoke"
     print(f"trainer: wrote the config and {len(DEMO_WORDS)} demo images in {time.perf_counter() - t0:.1f} s",
@@ -1178,20 +1269,32 @@ def trainer_runs(argv, ckpt_dir, train_dirs, val_dirs, demo_dir, lmdb_train_ips:
     print(f"trainer resumed to step {state.step}; first batch is global epoch 2's", flush=True)
     del state
 
-    # 3. the eval-only modes from the checkpoint, card against CPU
-    eval_argv = argv + ["--resume", ckpt_dir]
+    # 3. the eval-only modes from the checkpoint: --go_test over the three
+    # splits on the card, then over the smallest split, --test over it and
+    # --demo on the card and on the CPU
+    eval_path = f"{os.path.dirname(argv[-1])}/{EVAL_CONFIG}"
+    eval_argv = argv[:-1] + [eval_path, "--resume", ckpt_dir]
+    smallest = val_dirs[int(np.argmin(VAL_PAIRS))]
+    small_cfg, small_path = load_config(eval_path), f"{os.path.dirname(argv[-1])}/trainer_smallest.yaml"
+    small_cfg.TRAIN.VAL.val_data_dir = [smallest]
+    with open(small_path, "w") as f:
+        json.dump(small_cfg, f)  # JSON is YAML
+    small_argv = argv[:-1] + [small_path, "--resume", ckpt_dir]
+    go = cli.main(eval_argv + ["--go_test", "--vis_dir", "go_all"])
+    check(list(go) == ["easy", "medium", "hard"], f"--go_test splits {list(go)}")
     modes = {}
     for dev in ("cuda", "cpu"):
-        go = cli.main(eval_argv + ["--go_test", "--vis_dir", f"go_{dev}"], device=dev)
-        test = cli.main(eval_argv + ["--test", "--rec", "crnn", "--test_data_dir", val_dirs[0]], device=dev)
+        small = cli.main(small_argv + ["--go_test", "--vis_dir", f"go_{dev}"], device=dev)
+        test = cli.main(eval_argv + ["--test", "--rec", "crnn", "--test_data_dir", smallest], device=dev)
         demo = cli.main(eval_argv + ["--demo", "--demo_dir", demo_dir], device=dev)
-        modes[dev] = (go, test, demo, sorted(os.listdir(f"demo/go_{dev}/1")))
-    (go, test, demo, vis), (cpu_go, cpu_test, cpu_demo, cpu_vis) = modes["cuda"], modes["cpu"]
-    check(list(go) == ["easy", "medium", "hard"], f"--go_test splits {list(go)}")
-    for name in go:
-        check_metric_dicts(go[name], cpu_go[name], f"--go_test {name}")
+        modes[dev] = (small, test, demo, sorted(os.listdir(f"demo/go_{dev}/1")))
+    (small, test, demo, vis), (cpu_small, cpu_test, cpu_demo, cpu_vis) = modes["cuda"], modes["cpu"]
+    name = trainer.split_name(smallest)
+    check(list(small) == list(cpu_small) == [name], f"--go_test over the smallest split: {list(small)}")
+    check_metric_dicts(small[name], go[name], f"--go_test {name} alone against the three splits' run")
+    check_metric_dicts(small[name], cpu_small[name], f"--go_test {name}")
     check_metric_dicts(test, cpu_test, "--test")
-    check(test["images"] == VAL_PAIRS[0] and test["fps"] > 0, f"--test: {test}")
+    check(test["images"] == min(VAL_PAIRS) and test["fps"] > 0, f"--test: {test}")
     check(demo == cpu_demo and len(demo) == len(DEMO_WORDS), f"--demo card {demo} vs CPU {cpu_demo}")
     check(vis and vis == cpu_vis, "--go_test visualizations differ")
     print(f"trainer modes: --go_test {json.dumps(go)}; --test {json.dumps(test)}; --demo {demo}; card equals CPU",
@@ -2060,7 +2163,7 @@ def rec_cli(root: str, val_dirs, kind: str):
     over phase 9's smallest val split, then ``evaluate`` in-process on the
     same weights and the loader's batches: the same metric dict."""
     split = val_dirs[int(np.argmin(VAL_PAIRS))]
-    config_path = f"{root}/trainer.yaml"
+    config_path = f"{root}/{EVAL_CONFIG}"
     argv = TRAINER_FLAGS + ["--config", config_path, "--resume", f"{root}/ckpt/smoke", "--test", "--rec",
                             kind.lower(), "--test_data_dir", split]
     cwd = os.getcwd()
@@ -2309,6 +2412,290 @@ def phase_last(root: str, train_dirs, val_dirs, crnn_ips: float):
     return launches
 
 
+# phase 17: the data flags --syn, --mixed and --ic15sr, and --random_reso
+RR_WORDS = 384
+RR_HEIGHTS = (12, 48)  # native LR heights and widths of the synthetic words, inclusive
+RR_WIDTHS = (24, 320)
+RR_CHECK_IMAGES = 16  # the first words, also run on the CPU
+RR_THRESHOLD = 0.85  # the cascade's confidence gate (train/random_reso.conf_threshold_of)
+# card against CPU, a confidence of the gate's CRNN (its output layer scaled
+# by 200, so a logit's noise by as much): 3.2e-6 apart at most on the first
+# 16 words (an H100 80GB HBM3 at 700 W); held at 1e-4, and decisions are
+# compared where the CPU's confidence lies further than that from the
+# threshold
+RR_CONF_ATOL = 1e-4
+RR_FLAGS = TRAINER_FLAGS[:-2]
+# the train flags' runs: 2 warm-up and ZOO_TRAIN_STEPS timed iterations at
+# least; the IC15 tree's train split holds just that many batches
+MODE_FLAGS = ("syn", "mixed", "ic15sr")
+IC15_TRAIN = (TRAIN_WARMUP + ZOO_TRAIN_STEPS) * BATCH
+IC15_TEST = 2 * BATCH
+
+
+def sharpened_crnn(path: str) -> str:
+    """A CRNN drawn from seed 7 with its convolutions scaled by 4 and its
+    output layer by 200 (tests/test_torch_random_reso.py's), saved as a
+    ``state_dict``: its confidences depend on the image and straddle the
+    gate's threshold, where a draw at torch's default ranges reads every
+    image alike (confidence 0.03)."""
+    model = load_crnn("", torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("cnn") and p.dim() == 4:
+                p.mul_(4.0)
+            elif name.startswith("rnn.1.embedding"):
+                p.mul_(200.0)
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def make_native_lmdb(path: str, words, sizes, seed: int) -> str:
+    """A single-image LMDB (``lmdbDataset``'s ``image-%09d`` keys) of
+    ``words`` rendered at ``sizes`` (width, height), JPEGs."""
+    items = [(b"num-samples", str(len(words)).encode())]
+    for i, (word, size) in enumerate(zip(words, sizes), 1):
+        items += [(b"label-%09d" % i, word.encode()),
+                  (b"image-%09d" % i, _jpeg(render_word(word, tuple(size), seed=seed * 100_000 + i)))]
+    write_lmdb(path, items)
+    return path
+
+
+def modes_config(root: str, name: str, train_dirs, val_dirs, crnn_path: str = "", compute_dtype: str = "fp32",
+                 iterations: int = 1) -> str:
+    """The packaged YAML at batch 48, one epoch, a val and a save at
+    ``iterations``, in ``compute_dtype``, the loaders in the calling process
+    (a worker's start costs each run several seconds); written to ``root``
+    and its path returned."""
+    cfg = load_config()
+    cfg.TRAIN.update(train_data_dir=list(train_dirs), batch_size=BATCH, epochs=1, saveInterval=iterations,
+                     displayInterval=iterations, workers=0, ckpt_dir=f"{root}/ckpt_modes", compute_dtype=compute_dtype)
+    cfg.TRAIN.VAL.update(val_data_dir=list(val_dirs), valInterval=iterations, crnn_pretrained=crnn_path)
+    path = f"{root}/modes_{name}.yaml"
+    with open(path, "w") as f:
+        json.dump(cfg, f)  # JSON is YAML
+    return path
+
+
+def random_reso_run(argv):
+    """``cli.main(argv)`` on the card under ``--random_reso --go_test``: its
+    {split: metric_dict}, the val's seconds (the card synchronized) and K1's
+    launches in it."""
+    probe = TrainerProbe()
+    gru_seq.LAUNCHES = gru_seq.BACKWARD_LAUNCHES = 0
+    with probe.installed():
+        md = cli.main(argv)
+    (val,) = [e for e in probe.events if e["name"] == "val"]
+    launches = [b - a for a, b in zip(val["counts0"], val["counts1"])]
+    check(launches[1] == 0, f"--random_reso: K1's backward launched {launches[1]} times")
+    return md, val["t1"] - val["t0"], launches[0]
+
+
+def gate_confidences(argv, config_path: str, lr_list, dev: str):
+    """The stage-0 student's confidence on each LR, through ``TextSR``'s own
+    weights on ``dev`` (the draw from TRAIN.manualSeed, the teacher from
+    ``crnn_pretrained``)."""
+    mission = trainer.TextSR(load_config(config_path), AttrDict(vars(build_arg_parser().parse_args(argv))), device=dev)
+    stu = mission.init_state().stu[0].eval()
+    return random_reso.cal_conf(lr_list, lambda x: stu(parse_crnn_data(x).permute(0, 3, 1, 2)), device=dev)
+
+
+def random_reso_phase(root: str, val_dirs):
+    """Phase 17 (b) and (c): ``--random_reso --go_test`` through ``cli.main``
+    with the flagship's flags, its gate's CRNN ``sharpened_crnn``.
+
+    (b) ``--syn``: 384 words at native sizes (heights 12-48, widths 24-320),
+    each image read at its own size on the card: the metric dict, images/s,
+    ms an image, K1's launches (10 an image sent to SR, none for a kept LR);
+    then the first 16 words (half relabelled with what the CPU's CRNN reads
+    on their HR, so that an accuracy is not 0) on the card and on the CPU:
+    the gate's confidences (``RR_CONF_ATOL``), its decisions where they
+    clear it, and the metric dicts (``check_metric_dicts``).  (c) TextZoom's
+    easy split, fixed-shape batches gated image by image, on the card
+    (images/s, K1's launches), and its first 16 pairs card against CPU (the
+    whole split on the CPU would take minutes: every image runs alone)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    words = random_words(rng, RR_WORDS)
+    sizes = [(int(rng.integers(RR_WIDTHS[0], RR_WIDTHS[1] + 1)), int(rng.integers(RR_HEIGHTS[0], RR_HEIGHTS[1] + 1)))
+             for _ in range(RR_WORDS)]
+    crnn_path = sharpened_crnn(f"{root}/crnn_sharp.pth")
+    first = make_native_lmdb(f"{root}/rr_first", words[:RR_CHECK_IMAGES], sizes[:RR_CHECK_IMAGES], seed=17)
+    items = [SingleImageLMDB(first, "all")[i] for i in range(RR_CHECK_IMAGES)]
+    batch = collate_syn_random_reso(items, CollateConfig(mask=True))
+    teacher = load_crnn(crnn_path, torch.Generator()).eval()
+    with torch.no_grad():
+        reads = [decode_crnn(teacher(parse_crnn_data(torch.from_numpy(hr)).permute(0, 3, 1, 2)))[0]
+                 for hr in batch["hr_list"]]
+    words[:RR_CHECK_IMAGES] = [r if i % 2 == 0 and r else w for i, (r, w) in enumerate(zip(reads, words))]
+    first = make_native_lmdb(f"{root}/rr_first", words[:RR_CHECK_IMAGES], sizes[:RR_CHECK_IMAGES], seed=17)
+    every = make_native_lmdb(f"{root}/rr_all", words, sizes, seed=17)
+    # the easy split's first pairs: phase 9 writes it from seed 10
+    easy_first = make_textzoom_lmdb(f"{root}/rr_easy_first", RR_CHECK_IMAGES, seed=10)
+    check([TextZoomDataset(easy_first)[i][2] for i in range(RR_CHECK_IMAGES)]
+          == [TextZoomDataset(val_dirs[0])[i][2] for i in range(RR_CHECK_IMAGES)], "the easy split's first words")
+    cfgs = {name: modes_config(root, f"rr_{name}", [d], [d], crnn_path)
+            for name, d in (("all", every), ("first", first), ("easy", val_dirs[0]), ("easy_first", easy_first))}
+    out = {"words": RR_WORDS, "heights": RR_HEIGHTS, "widths": RR_WIDTHS}
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        syn = RR_FLAGS + ["--syn", "--random_reso", "--go_test", "--vis_dir", "rr_syn"]
+        md, val_s, launches = random_reso_run(syn + ["--config", cfgs["all"]])
+        (m,) = md.values()
+        check(m["images"] == RR_WORDS and m["go_LR"] + m["go_SR"] == RR_WORDS and m["go_SR"] > 0,
+              f"--syn --random_reso: {m}")
+        check(np.isfinite(m["psnr_avg"]) and np.isfinite(m["ssim_avg"]), f"--syn --random_reso: {m}")
+        check(launches == 2 * N_SRB * m["go_SR"], f"--syn --random_reso: K1 launched {launches} times for "
+              f"{m['go_SR']} images sent to SR")
+        check(not torch.backends.cudnn.benchmark, "--random_reso turned cuDNN's autotuner on")
+        out["syn"] = {"metrics": m, "val_s": val_s, "images_per_s": RR_WORDS / val_s,
+                      "ms_per_image": 1e3 * val_s / RR_WORDS, "k1_launches": launches,
+                      "k1_launches_per_image": launches / RR_WORDS, "host": host_load()}
+        print(json.dumps({"random_reso_syn": out["syn"]}), flush=True)
+
+        first_md = {dev: cli.main(syn + ["--config", cfgs["first"]], device=dev) for dev in ("cuda", "cpu")}
+        (name,) = first_md["cpu"]
+        check_metric_dicts(first_md["cuda"][name], first_md["cpu"][name], "--syn --random_reso, first words")
+        lrs = collate_syn_random_reso(items, CollateConfig(mask=True))["lr_list"]
+        confs = {dev: gate_confidences(syn + ["--config", cfgs["first"]], cfgs["first"], lrs, dev)
+                 for dev in ("cuda", "cpu")}
+        conf_err = max(abs(a - b) for a, b in zip(confs["cuda"], confs["cpu"]))
+        check(conf_err <= RR_CONF_ATOL, f"gate confidences card against CPU: {conf_err:.3g}")
+        near = [i for i, c in enumerate(confs["cpu"]) if abs(c - RR_THRESHOLD) <= RR_CONF_ATOL]
+        decide = {dev: [c > RR_THRESHOLD and h > random_reso.MIN_HEIGHT for c, (w, h) in zip(confs[dev], sizes)]
+                  for dev in confs}
+        check(all(decide["cuda"][i] == decide["cpu"][i] for i in range(RR_CHECK_IMAGES) if i not in near),
+              f"gate decisions card {decide['cuda']} against CPU {decide['cpu']}")
+        out["first"] = {"metrics": first_md["cuda"][name], "cpu_metrics": first_md["cpu"][name],
+                        "confidence_max_abs_err": conf_err, "near_threshold": near,
+                        "kept_lr": sum(decide["cuda"])}
+        print(json.dumps({"random_reso_first": out["first"]}), flush=True)
+
+        easy = RR_FLAGS + ["--random_reso", "--go_test", "--vis_dir", "rr_easy"]
+        md, val_s, launches = random_reso_run(easy + ["--config", cfgs["easy"]])
+        (name,) = md
+        check(md[name]["images"] == VAL_PAIRS[0] and launches == 2 * N_SRB * md[name]["go_SR"],
+              f"--random_reso over the easy split: {md[name]}, K1 launched {launches} times")
+        first_md = {dev: cli.main(easy + ["--config", cfgs["easy_first"]], device=dev) for dev in ("cuda", "cpu")}
+        (first_name,) = first_md["cpu"]
+        check_metric_dicts(first_md["cuda"][first_name], first_md["cpu"][first_name],
+                           "--random_reso over the easy split's first pairs")
+        out["easy"] = {"metrics": md[name], "val_s": val_s, "images_per_s": VAL_PAIRS[0] / val_s,
+                       "k1_launches": launches, "first_metrics": first_md["cuda"][first_name]}
+        print(json.dumps({"random_reso_easy": out["easy"]}), flush=True)
+    finally:
+        os.chdir(cwd)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def make_ic15_tree(root: str, seed: int = 15) -> str:
+    """An IC15 TextSR tree at TextZoom's geometry: PGM pairs (HR 128x32, LR
+    its bicubic 64x16) of ``IC15_TRAIN`` train and ``IC15_TEST`` test words,
+    listed in ``<split>_GT.txt``."""
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", IC15_TRAIN), ("test", IC15_TEST)):
+        for d in ("HRx2", "LRx2"):
+            os.makedirs(f"{root}/{d}/{split}", exist_ok=True)
+        lines = []
+        for i, word in enumerate(random_words(rng, n)):
+            hr = render_word(word, (128, 32), seed=seed * 100_000 + i + (split == "test") * 50_000).convert("L")
+            hr.save(f"{root}/HRx2/{split}/{split}_{i}.pgm")
+            hr.resize((64, 16), Image.BICUBIC).save(f"{root}/LRx2/{split}/{split}_{i}.pgm")
+            lines.append(f'{split}_{i}, "{word}"')
+        with open(f"{root}/{split}_GT.txt", "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return root
+
+
+def mode_train(root: str, flag: str, train_dirs, val_dir: str, compute_dtype: str):
+    """(d) ``cli.main`` with the flagship's flags and ``--<flag>`` in
+    ``compute_dtype`` (the packaged YAML's bf16, or fp32): one epoch at
+    batch 48 with a val over ``val_dir`` and a save at its end; images/s over
+    ``ZOO_TRAIN_STEPS`` iterations after ``TRAIN_WARMUP`` (the card
+    synchronized at both ends), K1's launches, finite losses and the saved
+    files; for ``--syn`` in fp32 the first two iterations against a CPU
+    ``TextSR`` (phase 10's bounds)."""
+    if flag == "ic15sr":
+        iterations, n_val = IC15_TRAIN // BATCH, IC15_TEST
+    else:
+        iterations = len(ConcatDataset([TextZoomDataset(d) for d in train_dirs])) // BATCH
+        n_val = len(TextZoomDataset(val_dir))
+    name = f"{flag}_{compute_dtype}"
+    config_path = modes_config(root, name, train_dirs, [val_dir], compute_dtype=compute_dtype, iterations=iterations)
+    argv = RR_FLAGS + [f"--{flag}", "--vis_dir", f"mode_{name}", "--config", config_path]
+    probe = TrainerProbe(marks=(TRAIN_WARMUP, TRAIN_WARMUP + ZOO_TRAIN_STEPS))
+    gru_seq.LAUNCHES = gru_seq.BACKWARD_LAUNCHES = 0
+    load = host_load()
+    start = time.perf_counter()
+    with probe.installed():
+        state = cli.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - start
+    launches = (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES)
+    want = (2 * N_SRB * (iterations + -(-n_val // BATCH)), 2 * N_SRB * iterations)
+    check(state.step == iterations and probe.compute_dtypes == [compute_dtype], f"{name}: step {state.step}, "
+          f"compute dtypes {probe.compute_dtypes}")
+    check(launches == want, f"{name}: K1 launched {launches} times, expected {want}")
+    (val,) = [e for e in probe.events if e["name"] == "val"]
+    (md,) = val["out"].values()
+    check(md["images"] == n_val and np.isfinite(md["psnr_avg"]), f"{name}: val {md}")
+    files = set(os.listdir(f"{root}/ckpt_modes/mode_{name}"))
+    check(set(SAVE_FILES) <= files, f"{name}: checkpoint files {sorted(files)}")
+    card = [{k: float(v) for k, v in m.items()} for m in probe.metrics]
+    check(all(np.isfinite(v) for m in card for v in m.values()), f"{name}: non-finite losses {card}")
+    window_s = probe.mark_times[TRAIN_WARMUP + ZOO_TRAIN_STEPS] - probe.mark_times[TRAIN_WARMUP]
+    out = {"flag": flag, "compute_dtype": compute_dtype, "iterations": iterations, "run_s": run_s,
+           "images_per_s": BATCH * ZOO_TRAIN_STEPS / window_s, "window_s": window_s, "val": md,
+           "val_s": val["t1"] - val["t0"], "card_losses": card, "k1_launches": launches, "host": load,
+           "host_after": host_load()}
+    del state
+    if flag == "syn" and compute_dtype == "fp32":
+        cpu_cfg = load_config(config_path)
+        cpu_cfg.TRAIN.workers = 0
+        cpu = trainer.TextSR(cpu_cfg, AttrDict(vars(build_arg_parser().parse_args(argv))), device="cpu")
+        cpu_state = cpu.init_state()
+        cpu._build_steps()
+        loader = cpu.get_train_data()
+        loader.batch_sampler.epoch = 0
+        batches = iter(loader)
+        cpu_losses = [{k: float(v) for k, v in cpu._train_step(cpu_state, next(batches)).items()} for _ in range(2)]
+        for i, rtol in enumerate((1e-5, 1e-4)):
+            for k, v in cpu_losses[i].items():
+                check(abs(card[i][k] - v) <= rtol * abs(v),
+                      f"--syn iteration {i + 1} {k}: card {card[i][k]} vs CPU {v} (rtol {rtol})")
+        out["cpu_losses"] = cpu_losses
+    print(json.dumps({"mode_train": out}), flush=True)
+    return out
+
+
+def phase_modes(root: str, train_dirs, val_dirs):
+    """Phase 17: the flags that choose the data, at the flagship's full width
+    on the card.  (a) is phase 3's native K1 cases; (b), (c)
+    ``random_reso_phase``; (d) ``--syn`` and ``--mixed`` over phase 9's train
+    LMDBs (val over its smallest split) and ``--ic15sr`` over a PGM tree,
+    each in fp32 and on the packaged YAML (bf16), ``mode_train``.  Returns
+    K1's forward launches in (b), and each flag's (forward, backward) in fp32
+    and bf16."""
+    t0 = time.perf_counter()
+    out = {"random_reso": random_reso_phase(root, val_dirs)}
+    ic15 = make_ic15_tree(f"{root}/ic15")
+    smallest = val_dirs[int(np.argmin(VAL_PAIRS))]
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        for flag in MODE_FLAGS:
+            train, val = ([ic15], ic15) if flag == "ic15sr" else (train_dirs, smallest)
+            for dtype in ("fp32", "bf16"):
+                out[(flag, dtype)] = mode_train(root, flag, train, val, dtype)
+    finally:
+        os.chdir(cwd)
+    print(f"modes: phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {"random_reso": out["random_reso"]["syn"]["k1_launches"]}
+    launches.update({k: v["k1_launches"] for k, v in out.items() if isinstance(k, tuple)})
+    return launches
+
+
 def per_sr(rows, keys):
     """Each key summed over the two sweep rows at batch 48, times N_SRB: one
     SR forward (or backward) at batch 48; None where a row has none (a
@@ -2466,6 +2853,9 @@ def main() -> int:
         # 16. the last two archs, --tpg OPT and SEED
         newest = phase_last(root, train_dirs, val_dirs, serve_ips)
         lap("16 last archs, OPT, SEED")
+        # 17. --syn, --mixed, --ic15sr and --random_reso
+        modes = phase_modes(root, train_dirs, val_dirs)
+        lap("17 data flags, random_reso")
 
     kernels = [
         forward_entry(torch.float32, shapes, ptxas, launches, max_err, train_launches=train_launches,
@@ -2474,21 +2864,25 @@ def main() -> int:
                       rec_eval_launches=rec_launches, tl_simple_launches=rest["fp32"][0],
                       remat_launches=rest["remat"][0], c2f_launches=newest[("tsrn_c2f", "fp32")][0],
                       opt_launches=newest[("opt", "fp32")][0], sem_launches=newest[("sem_tsrn", "fp32")][0],
-                      seed_eval_launches=newest["seed_eval"]),
+                      seed_eval_launches=newest["seed_eval"], random_reso_launches=modes["random_reso"],
+                      **{f"{flag}_launches": modes[(flag, "fp32")][0] for flag in MODE_FLAGS}),
         backward_entry(torch.float32, bwd_shapes, bwd_ptxas, backward_launches, bwd_err,
                        lmdb_train_launches=lmdb_train["k1_backward_launches"],
                        trainer_launches=trainer_run["k1_backward_launches"], zoo_launches=zoo["fp32"][1],
                        tl_simple_launches=rest["fp32"][1], remat_launches=rest["remat"][1],
-                       c2f_launches=newest[("tsrn_c2f", "fp32")][1], opt_launches=newest[("opt", "fp32")][1]),
+                       c2f_launches=newest[("tsrn_c2f", "fp32")][1], opt_launches=newest[("opt", "fp32")][1],
+                       **{f"{flag}_launches": modes[(flag, "fp32")][1] for flag in MODE_FLAGS}),
         forward_entry(torch.bfloat16, bf16_shapes, ptxas, bf16_launches, bf16_err,
                       train_images_per_s=bf16_train["bf16_images_per_s"],
                       packaged_yaml_launches=packaged["k1_launches"], zoo_launches=zoo["bf16"][0],
                       tl_simple_launches=rest["bf16"][0], c2f_launches=newest[("tsrn_c2f", "bf16")][0],
-                      opt_launches=newest[("opt", "bf16")][0]),
+                      opt_launches=newest[("opt", "bf16")][0],
+                      **{f"{flag}_launches": modes[(flag, "bf16")][0] for flag in MODE_FLAGS}),
         backward_entry(torch.bfloat16, bf16_bwd_shapes, bwd_ptxas, bf16_backward_launches, bf16_bwd_err,
                        packaged_yaml_launches=packaged["k1_backward_launches"], zoo_launches=zoo["bf16"][1],
                        tl_simple_launches=rest["bf16"][1], c2f_launches=newest[("tsrn_c2f", "bf16")][1],
-                       opt_launches=newest[("opt", "bf16")][1]),
+                       opt_launches=newest[("opt", "bf16")][1],
+                       **{f"{flag}_launches": modes[(flag, "bf16")][1] for flag in MODE_FLAGS}),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")

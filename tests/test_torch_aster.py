@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from tests.torch_recognizers import greedy_margins, jax_aster, nchw, numpy_tree, port_aster
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 from tpgsr_tpu.interop.torch_import import import_aster
 from tpgsr_tpu.models.aster import decode_aster_ids as jax_decode_aster_ids
 from tpgsr_tpu.ops.resize import interpolate_bilinear as jax_interpolate_bilinear

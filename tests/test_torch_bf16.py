@@ -27,6 +27,7 @@ import torch
 from tests.fixtures import make_textzoom_lmdb
 from tests.test_torch_kernels import bf16_ulp, gru_params, torch_params
 from tests.test_torch_train import B, H, PRE_BN_BIAS, W, _crnn_sd, _port_state, _rel, _sr_sd
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 from tpgsr_tpu.charset import CTC_NUM_CLASSES
 from tpgsr_tpu.config import default_args, load_config
 from tpgsr_tpu.interop.torch_import import restore_reference_checkpoint

@@ -23,6 +23,7 @@ import yaml
 from flax.core import unfreeze
 
 from tests.fixtures import make_textzoom_lmdb, render_word
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 from tpgsr_tpu import config as jax_config
 from tpgsr_tpu.train.trainer import TextSR as JaxTextSR
 from tpgsr_tpu_torch import cli, config
@@ -82,10 +83,10 @@ def _fp32_config():
     ({"test_model": "SEED"}, {}, None),
     ({"demo": True, "test_model": "ASTER"}, {}, "queue 1 item 8"),  # the JAX demo() decodes by CTC
     ({"go_test": True, "test_model": "SEED"}, {}, None),
-    ({"syn": True}, {}, "queue 1 item 9"),
-    ({"mixed": True}, {}, "queue 1 item 9"),
-    ({"ic15sr": True}, {}, "queue 1 item 9"),
-    ({"random_reso": True}, {}, "queue 1 item 9"),
+    ({"syn": True}, {}, None),
+    ({"mixed": True}, {}, None),
+    ({"ic15sr": True}, {}, None),
+    ({"random_reso": True}, {}, None),
     ({}, {"n_devices": 2}, "queue 1 item 10"),
 ], ids=["tsrn_c2f", "sem_tsrn", "tpg", "test_model", "demo_aster", "go_test_seed", "syn", "mixed",
         "ic15sr", "random_reso", "n_devices"])
@@ -93,8 +94,9 @@ def test_what_is_not_ported_raises_naming_its_item(args_over, train_over, item):
     """Each raises ``NotImplementedError`` naming its ``ROADMAP.md`` item when
     ``TextSR`` is built, before anything runs.  The cases ported since
     (``item`` None: the last two archs, ``--tpg OPT`` and SEED as the eval
-    recognizer, for val and ``--go_test``) build ``TextSR``, its state and
-    steps instead, with the model, teacher or recognizer they name."""
+    recognizer, for val and ``--go_test``; the data flags, whose datasets
+    and collates the next test holds) build ``TextSR``, its state and steps
+    instead, with the model, teacher or recognizer they name."""
     from tpgsr_tpu_torch.models.opt_tpg import OPTModel
     from tpgsr_tpu_torch.models.seed import SEEDModelBuilder
     from tpgsr_tpu_torch.models.tsrn import SEM_TSRN, TSRN_C2F
@@ -113,6 +115,36 @@ def test_what_is_not_ported_raises_naming_its_item(args_over, train_over, item):
     assert want is None or isinstance(state.sr[0], want)
     assert isinstance(state.teacher, OPTModel) == (args["tpg"] == "OPT")
     assert isinstance(mission._eval_recognizer(), SEEDModelBuilder) == (args["test_model"] == "SEED")
+
+
+@pytest.mark.parametrize("flag", ["syn", "mixed", "ic15sr", "random_reso"])
+def test_each_data_flag_passes_check_ported_and_picks_the_jax_dataset_and_collate(tmp_path, flag):
+    """``--syn``, ``--mixed``, ``--ic15sr`` and ``--random_reso`` (queue 1 item
+    9, which raised before) build ``TextSR`` with the flagship's flags, and
+    its train and val loaders read the dataset class and collate that the
+    JAX ``TextSR`` picks (``_dataset_cls``, ``_collate``); ``--syn
+    --random_reso`` under ``--go_test`` too.  Their batches equal JAX's
+    (tests/test_torch_data_modes.py)."""
+    from tests.torch_modes import make_ic15_tree, make_syn_lmdb
+
+    d = {"syn": lambda p: make_syn_lmdb(p, [(100, 32), (57, 20)]), "ic15sr": make_ic15_tree}.get(
+        flag, lambda p: make_textzoom_lmdb(p, 2))(str(tmp_path / "d"))
+    runs = [{flag: True}]
+    if flag == "syn":
+        runs.append({"syn": True, "random_reso": True, "go_test": True})
+    for flags in runs:
+        args = config.default_args(arch="tsrn_tl_cascade", STN=True, mask=True, use_distill=True, gradient=True,
+                                   sr_share=True, stu_iter=1, **flags)
+        trainer.check_ported(_fp32_config(), args, torch.device("cpu"))
+        cfg = _fp32_config()
+        cfg.TRAIN.update(train_data_dir=[d], workers=0, batch_size=2)
+        cfg.TRAIN.VAL.val_data_dir = [d]
+        mission = trainer.TextSR(cfg, args, device="cpu")
+        jax_mission = JaxTextSR(jax_config.load_config(), jax_config.default_args(**args))
+        for train, loader in ((True, mission.get_train_data()), (False, mission.get_val_data()[0])):
+            want_ds = jax_mission._dataset_cls(test=not train)(d, voc_type="all", max_len=100, test=not train)
+            assert type(loader.dataset).__name__ == type(want_ds).__name__, (flags, train)
+            assert loader.collate_fn.args[0].func.__name__ == jax_mission._collate(train).func.__name__, (flags, train)
 
 
 def test_the_flagship_runs_with_an_fp32_yaml_only():

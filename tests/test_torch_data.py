@@ -20,6 +20,7 @@ from tests.fixtures import WORDS, _jpeg, make_textzoom_lmdb, render_word
 from tests.test_torch_eval import _port_models
 from tests.test_torch_train import (LOSS_RTOL, MOMENT_RTOL, PRE_BN_BIAS, STATS_RTOL, _crnn_sd, _port_state, _rel,
                                     _sr_sd)
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 from tpgsr_tpu.charset import CTC_NUM_CLASSES
 from tpgsr_tpu.config import default_args, load_config
 from tpgsr_tpu.data import collate as jax_collate

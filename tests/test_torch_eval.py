@@ -14,6 +14,8 @@ import pytest
 import torch
 from flax.core import unfreeze
 
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
+
 from tpgsr_tpu.charset import CTC_NUM_CLASSES
 from tpgsr_tpu.config import default_args, load_config
 from tpgsr_tpu.models.crnn import CRNN as JaxCRNN

@@ -13,6 +13,7 @@ import torch
 from tpgsr_tpu.ops.pallas_gru import _bigru_pallas_impl
 from tpgsr_tpu_torch.ops import gru_seq, rnn
 from tests.test_torch_kernels import gru_params, torch_params
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 
 H100_SMS = 132
 

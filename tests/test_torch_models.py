@@ -13,6 +13,8 @@ import pytest
 import torch
 from flax.core import unfreeze
 
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
+
 from tpgsr_tpu.interop import torch_import as ti
 from tpgsr_tpu.models import crnn as jax_crnn
 from tpgsr_tpu.models import layers as jax_layers

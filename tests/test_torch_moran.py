@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from tests.torch_recognizers import greedy_margins, jax_moran, nchw, numpy_tree, port_moran
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 from tpgsr_tpu.interop.torch_import import import_moran
 from tpgsr_tpu.models.moran import ASRN as JaxASRN
 from tpgsr_tpu.models.moran import MORN as JaxMORN

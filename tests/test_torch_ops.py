@@ -20,6 +20,7 @@ from tpgsr_tpu_torch import charset
 from tpgsr_tpu_torch.ops import ctc, image, resize, rnn
 from tpgsr_tpu_torch.train import priors
 from tests.test_torch_kernels import GRU_CASES, gru_params, torch_params
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -33,6 +33,7 @@ from tests.fixtures import make_textzoom_lmdb
 from tests.test_torch_cli import FLAGS, PSNR_SSIM_RTOL, _in_dir
 from tests.test_torch_eval import _port_models, _setup
 from tests.torch_recognizers import greedy_margins, jax_aster, jax_moran, port_aster, port_moran
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 from tpgsr_tpu import config as jax_config
 from tpgsr_tpu.interop import torch_import as ti
 from tpgsr_tpu.models.aster import decode_aster_ids as jax_decode_aster_ids

@@ -19,6 +19,7 @@ import torch
 from flax.core import unfreeze
 
 from tests.test_torch_zoo_train import PRE_BN_BIAS
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 from tpgsr_tpu.charset import CTC_NUM_CLASSES
 from tpgsr_tpu.config import default_args, load_config
 from tpgsr_tpu.interop.torch_import import import_crnn, import_sr_checkpoint

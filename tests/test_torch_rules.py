@@ -7,12 +7,14 @@ from pathlib import Path
 import pytest
 import torch
 
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
+
 from tpgsr_tpu_torch import device as port_device
 from tpgsr_tpu_torch import cli, entry, profile_zoo
 from tpgsr_tpu_torch.config import default_args, load_config, tpg_opt
 from tpgsr_tpu_torch.data.loader import make_loader
 from tpgsr_tpu_torch.models.registry import NOT_PORTED, PORTED_ARCHS
-from tpgsr_tpu_torch.train import trainer
+from tpgsr_tpu_torch.train import random_reso, trainer
 from tpgsr_tpu_torch.train.step import make_eval_step, make_train_step
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -58,6 +60,18 @@ def test_port_imports_no_jax():
     lambda: cli.main(["--arch", "tsrn_tl_cascade", "--tpg", "OPT", "--go_test", "--test_model", "SEED"]),
     lambda: cli.main(["--arch", "tsrn_c2f", "--STN", "--mask"]),
     lambda: cli.main(["--arch", "sem_tsrn", "--mask"]),
+    lambda: trainer.train_loader(["no-such-lmdb"], data="syn"),
+    lambda: trainer.train_loader(["no-such-lmdb"], data="mixed"),
+    lambda: trainer.train_loader(["no-such-tree"], data="ic15sr"),
+    lambda: trainer.val_loaders(["no-such-lmdb"], data="syn", random_reso=True),
+    lambda: trainer.val_loaders(["no-such-lmdb"], random_reso=True),
+    lambda: random_reso.cal_conf([], None),
+    lambda: random_reso.eval_random_reso([], None, None),
+    lambda: random_reso.evaluate_random_reso_loader([], [], [], None, None),
+    lambda: trainer.TextSR(load_config(), default_args(arch="tsrn_tl_cascade", syn=True, random_reso=True,
+                                                       go_test=True)),
+    lambda: cli.main(["--arch", "tsrn_tl_cascade", "--mixed"]),
+    lambda: cli.main(["--arch", "tsrn_tl_cascade", "--ic15sr", "--random_reso"]),
     lambda: port_device.resolve_device(),
     lambda: port_device.resolve_device("cuda:0"),
 ])

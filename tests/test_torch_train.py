@@ -39,6 +39,7 @@ from tpgsr_tpu_torch.train.state import clip_sr_grads, create_train_state
 from tpgsr_tpu_torch.models.layers import init_torch_defaults_
 from tpgsr_tpu_torch.train.step import EvalModels, _as_image, make_eval_step, make_train_step
 from tests.test_torch_kernels import GRU_CASES, gru_params, torch_params
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -21,6 +21,7 @@ from flax.core import unfreeze
 
 from tests.fixtures import make_textzoom_lmdb
 from tests.test_torch_train import LOSS_RTOL
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 from tpgsr_tpu import config as jax_config
 from tpgsr_tpu.interop.torch_import import restore_reference_checkpoint
 from tpgsr_tpu.parallel import shard_params

@@ -32,6 +32,7 @@ from PIL import Image
 from tests.fixtures import make_textzoom_lmdb
 from tests.test_torch_aster import FEATURE_ATOL, MARGIN, SCORE_ATOL, _sequence_score
 from tests.torch_recognizers import nchw, numpy_tree, seed_variables
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 from tpgsr_tpu.charset import AsterInfo as JaxAsterInfo
 from tpgsr_tpu.data import collate as jax_collate
 from tpgsr_tpu.data import datasets as jax_datasets

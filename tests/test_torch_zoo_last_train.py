@@ -29,6 +29,7 @@ from flax.core import unfreeze
 
 from tests.test_torch_bf16 import LOSS_FLOOR, REL_FLOOR
 from tests.test_torch_zoo_train import PRE_BN_BIAS, _rel
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 from tpgsr_tpu.config import default_args, load_config
 from tpgsr_tpu.interop.torch_import import import_opt, import_sr_checkpoint
 from tpgsr_tpu.models.opt_tpg import OPTModel as JaxOPTModel

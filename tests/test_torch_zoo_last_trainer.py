@@ -33,6 +33,7 @@ from tests.test_torch_train import LOSS_RTOL
 from tests.test_torch_trainer import LATE_LOSS_RTOL, PSNR_SSIM_RTOL, VAL_RTOL
 from tests.test_torch_zoo_last_train import OPT_LOSS_RTOL
 from tests.torch_recognizers import seed_variables
+from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 from tpgsr_tpu import config as jax_config
 from tpgsr_tpu.charset import AsterInfo as JaxAsterInfo
 from tpgsr_tpu.models.aster import decode_aster_ids as jax_decode_aster_ids

@@ -16,7 +16,17 @@ tpgsr_tpu/data/collate.py: ``CollateConfig`` :35, ``_xformed`` :66,
   size (tpgsr_tpu/data/collate.py:248-264);
 * ``collate_w2v_real`` is ``alignCollateW2V_real`` (:1414-1444, sem_tsrn's):
   ``w2v``, zero word vectors of width 300, the original's FastText being
-  disabled (tpgsr_tpu/data/collate.py:267-275).
+  disabled (tpgsr_tpu/data/collate.py:267-275);
+* ``collate_syn`` is ``alignCollate_syn`` (:901-992, ``--syn``; JAX :167):
+  HR the single image resized, LR its bicubic downsample resized, float32
+  with the mask channel whatever the wire says, and no CTC labels;
+* ``collate_syn_random_reso`` is ``alignCollate_syn_random_reso``
+  (:996-1089, ``--syn --random_reso``; JAX :193): no resize, ``hr_list``
+  and ``lr_list`` of [1, H, W, C] arrays at each image's native size (the
+  HR its bicubic x2), for the per-image evaluator (train/random_reso.py);
+* ``collate_real_wtl_withcrop`` is ``alignCollate_realWTL_withcrop``
+  (:1327-1411; JAX :210): the dash-spread one-hot prior of
+  ``_dash_padded_onehot`` plus uniform(-0.1, 0.1) noise from ``rng``.
 
 Batches are dicts of numpy arrays and the ``labels`` list, as the JAX
 package's: NHWC images ``hr`` [B, H, W, C] and ``lr`` [B, H/s, W/s, C],
@@ -27,13 +37,13 @@ package's: NHWC images ``hr`` [B, H, W, C] and ``lr`` [B, H/s, W/s, C],
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 from PIL import Image
 
 from tpgsr_tpu_torch.charset import CTC_CHAR_TO_ID, CTC_NUM_CLASSES
-from tpgsr_tpu_torch.data.transforms import resize_normalize, resize_normalize_keep_ratio
+from tpgsr_tpu_torch.data.transforms import normalize, pil_downsample, resize_normalize, resize_normalize_keep_ratio
 
 
 @dataclass(frozen=True)
@@ -174,4 +184,67 @@ def collate_w2v_real(batch, cfg: CollateConfig) -> Dict:
     return {"hr": hr, "lr": lr, "labels": labels, "w2v": np.zeros((len(labels), 300), np.float32)}
 
 
-COLLATES.update({"c2f_real": collate_c2f_real, "W2V_real": collate_w2v_real})
+def collate_syn(batch, cfg: CollateConfig) -> Dict:
+    """Items (img, ..., label): ``hr`` the image ``resize_normalize``d to
+    (imgW, imgH), ``lr`` its PIL bicubic downsample by the scale, resized to
+    the LR size; float32 [B, H, W, 3 (+1)] in [0, 1] on any wire."""
+    lr_size = (cfg.imgW // cfg.down_sample_scale, cfg.imgH // cfg.down_sample_scale)
+    hrs, lrs, labels = [], [], []
+    for item in batch:
+        img, label = item[0], item[-1]
+        hrs.append(resize_normalize(img, (cfg.imgW, cfg.imgH), cfg.mask))
+        lrs.append(resize_normalize(pil_downsample(img, cfg.down_sample_scale), lr_size, cfg.mask))
+        labels.append(label)
+    return {"hr": np.stack(hrs), "lr": np.stack(lrs), "labels": labels}
+
+
+def collate_syn_random_reso(batch, cfg: CollateConfig) -> Dict:
+    """Items (img, ..., label): each image at its own size, unstacked.
+    ``lr_list`` holds the image, ``hr_list`` its PIL bicubic resize to twice
+    its width and height, each [1, H, W, 3 (+1)] float32 in [0, 1]."""
+    hrs, lrs, labels = [], [], []
+    for item in batch:
+        img, label = item[0], item[-1] if isinstance(item[-1], str) else item[2]
+        up = img.resize((img.size[0] * 2, img.size[1] * 2), Image.BICUBIC)
+        hrs.append(normalize(up, cfg.mask)[None])
+        lrs.append(normalize(img, cfg.mask)[None])
+        labels.append(label)
+    return {"hr_list": hrs, "lr_list": lrs, "labels": labels}
+
+
+def _dash_padded_onehot(word: str, prior_len: int) -> np.ndarray:
+    """[prior_len, 37] one-hot of ``word`` spread toward ``prior_len``
+    characters (dataset.py:1360-1393): lowercased, 'e' at index 2 of a word
+    longer than 4 (the reference's quirk), runs of '-' (the blank) between
+    the characters of a word shorter than ``prior_len``, a longer one cut."""
+    word = word.lower()
+    if len(word) > 4:
+        word = word[:2] + "e" + word[3:]
+    if 1 < len(word) < prior_len:
+        padding = (prior_len - len(word)) // max(len(word) - 1, 1)
+        word = word[0] + "".join("-" * padding + ch for ch in word[1:])
+    elif len(word) >= prior_len:
+        word = word[:prior_len]
+    ids = [CTC_CHAR_TO_ID[ch] for ch in word if ch in CTC_CHAR_TO_ID]
+    vec = np.zeros((prior_len, CTC_NUM_CLASSES), np.float32)
+    if ids:
+        vec[np.arange(len(ids)), ids] = 1.0
+    return vec
+
+
+def collate_real_wtl_withcrop(batch, cfg: CollateConfig, rng: Optional[np.random.Generator] = None) -> Dict:
+    """``collate_real`` plus ``label_vecs`` [B, 1, prior_len, 37]: each word's
+    ``_dash_padded_onehot`` plus uniform(-0.1, 0.1) noise drawn from ``rng``
+    (``np.random.default_rng(0)`` unless given).  The reference's crop
+    intervals reach ``resize_normalize_random_crop``, which crops nothing."""
+    rng = rng or np.random.default_rng(0)
+    hr, lr, labels = _stack_pairs(batch, cfg)
+    label_vecs = np.zeros((len(labels), 1, cfg.prior_len, CTC_NUM_CLASSES), np.float32)
+    for i, word in enumerate(labels):
+        label_vecs[i, 0] = _dash_padded_onehot(word, cfg.prior_len)
+    label_vecs += (rng.random(label_vecs.shape).astype(np.float32) - 0.5) * 0.2
+    return {"hr": hr, "lr": lr, "labels": labels, "label_vecs": label_vecs}
+
+
+COLLATES.update({"c2f_real": collate_c2f_real, "W2V_real": collate_w2v_real, "syn": collate_syn,
+                 "syn_random_reso": collate_syn_random_reso, "realWTL_withcrop": collate_real_wtl_withcrop})

@@ -60,6 +60,16 @@ def pil_downsample(img: Image.Image, factor: int) -> Image.Image:
     return img.resize((img.size[0] // factor, img.size[1] // factor), Image.BICUBIC)
 
 
+def resize_normalize_random_crop(img: Image.Image, size: Tuple[int, int], mask: bool = False,
+                                 interval=None) -> np.ndarray:
+    """Reference ``resizeNormalizeRandomCrop`` (dataset.py:656-688), which is
+    ``resize_normalize`` on every path: its crop branch needs ``w >= 32``
+    and no ``interval``, and there it crops nothing (the reference's
+    ``if w < 32 or not interval is None``, kept as the JAX package keeps it,
+    tpgsr_tpu/data/transforms.py:74-92)."""
+    return resize_normalize(img, size, mask)
+
+
 def resize_normalize_keep_ratio(img: Image.Image, size: Tuple[int, int],
                                 mask: bool = False) -> Tuple[np.ndarray, np.ndarray]:
     """Reference ``resizeNormalizeKeepRatio`` (dataset.py:689-763): resize to

@@ -16,9 +16,16 @@ val over the splits of TRAIN.VAL.val_data_dir at ``valInterval`` with the
 best-checkpoint policy, a save at ``saveInterval``, global epochs and
 iterations from the restored step.  ``--go_test`` runs val with
 visualizations, ``--test`` times eval over TEST.test_data_dir, ``--demo``
-reads the images of ``--demo_dir``.  Val, ``--go_test`` and ``--test`` score
-the images with the recognizer of ``--test_model`` (``--rec`` for
-``--test``): the teacher CRNN, or ASTER, MORAN or SEED (``eval_recognizer``).
+reads the images of ``--demo_dir``.  The data flags pick the datasets of
+train and val (``make_dataset``): ``--syn`` single-image LMDBs read through
+``collate_syn``, ``--mixed`` TextZoom pairs whose LR is the HR half the
+time, ``--ic15sr`` IC15's PGM folders; ``--random_reso`` scores val image by
+image at native size behind the confidence gate (train/random_reso.py),
+over ``collate_syn_random_reso``'s lists with ``--syn`` (an eval-only mode:
+``--go_test``) or over the val collate's float32 batches.  Val,
+``--go_test`` and ``--test`` score the images with the recognizer of
+``--test_model`` (``--rec`` for ``--test``): the teacher CRNN, or ASTER,
+MORAN or SEED (``eval_recognizer``).
 ``--tpg OPT`` makes clova's None-ResNet-None-CTC the teacher and the students
 (``load_opt``); a CRNN of its own then scores the images.
 What is not ported raises
@@ -41,7 +48,7 @@ from PIL import Image
 from tpgsr_tpu_torch.charset import CTC_NUM_CLASSES, AsterInfo
 from tpgsr_tpu_torch.config import AttrDict, apply_arg_overrides, registry_dicts
 from tpgsr_tpu_torch.data.collate import COLLATES, CollateConfig
-from tpgsr_tpu_torch.data.datasets import ConcatDataset, TextZoomDataset
+from tpgsr_tpu_torch.data.datasets import ConcatDataset, IC15TextSRDataset, MixedLMDB, SingleImageLMDB, TextZoomDataset
 from tpgsr_tpu_torch.data.loader import Loader, make_loader
 from tpgsr_tpu_torch.data.transforms import resize_normalize
 from tpgsr_tpu_torch.device import DeviceLike, resolve_device
@@ -56,6 +63,8 @@ from tpgsr_tpu_torch.ops.gru_seq import SUPPORTED_HIDDEN
 from tpgsr_tpu_torch.train import checkpoint as ckpt
 from tpgsr_tpu_torch.train.evaluate import evaluate
 from tpgsr_tpu_torch.train.logging import ScalarLogger
+from tpgsr_tpu_torch.train.priors import parse_crnn_data
+from tpgsr_tpu_torch.train.random_reso import conf_threshold_of, evaluate_random_reso_loader
 from tpgsr_tpu_torch.train.state import TrainState, create_train_state
 from tpgsr_tpu_torch.train.step import REC_KINDS, EvalModels, make_eval_step, make_train_step, rec_decoder, torch_dtype
 
@@ -63,9 +72,39 @@ from tpgsr_tpu_torch.train.step import REC_KINDS, EvalModels, make_eval_step, ma
 REC_MAP = {"aster": "ASTER", "moran": "MORAN", "crnn": "CRNN"}
 
 
-def collate_kind(arch: str, train: bool) -> str:
+# the data flags that pick the datasets, in the order the JAX package tests
+# them (tpgsr_tpu/train/trainer.py:240-256); none of them: TextZoom pairs
+DATA_MODES = ("syn", "mixed", "ic15sr")
+
+
+def data_mode(args: Mapping) -> str:
+    """'syn', 'mixed' or 'ic15sr', the first of those flags that ``args``
+    sets, else 'textzoom'."""
+    return next((m for m in DATA_MODES if args.get(m)), "textzoom")
+
+
+def make_dataset(root: str, mode: str = "textzoom", test: bool = False, *, voc_type: str = "all",
+                 max_len: int = 100, cache_images: bool = True):
+    """The dataset of a train or val directory under a data mode
+    (interfaces/base.py:39-235; tpgsr_tpu/train/trainer.py:240-299):
+    TextZoom pairs, ``SingleImageLMDB`` for 'syn' (which takes no ``test``),
+    ``MixedLMDB`` for 'mixed' (no HR-as-LR under ``test``) or
+    ``IC15TextSRDataset`` for 'ic15sr' (its ``test`` or ``train`` split).
+    The decode cache is the LMDB pairs' alone."""
+    if mode == "syn":
+        return SingleImageLMDB(root, voc_type=voc_type, max_len=max_len)
+    if mode == "ic15sr":
+        return IC15TextSRDataset(root, voc_type=voc_type, max_len=max_len, test=test)
+    cls = {"mixed": MixedLMDB, "textzoom": TextZoomDataset}[mode]
+    return cls(root, voc_type=voc_type, max_len=max_len, test=test, cache_images=cache_images)
+
+
+def collate_kind(arch: str, train: bool, syn: bool = False, random_reso: bool = False) -> str:
     """The collate an arch trains or validates with (reference
-    interfaces/base.py:51-214; tpgsr_tpu/train/trainer.py:233-236)."""
+    interfaces/base.py:51-214; tpgsr_tpu/train/trainer.py:222-236):
+    ``collate_syn`` under ``syn``, ``collate_syn_random_reso`` under both."""
+    if syn:
+        return "syn_random_reso" if random_reso else "syn"
     if arch in ABLATION_SET or arch in TL_SIMPLE:
         return "realWTLAMask" if train else "realWTL"
     return {"tsrn_c2f": "c2f_real", "sem_tsrn": "W2V_real"}.get(arch, "real")
@@ -73,32 +112,43 @@ def collate_kind(arch: str, train: bool) -> str:
 
 def make_collate(arch: str, train: bool, mask: bool = False, *, height: int = 32, width: int = 128,
                  down_sample_scale: int = 2, keep_ratio: bool = False, wire_uint8: bool = True,
-                 device_mask: bool = True) -> Callable:
-    """The TextZoom collate for ``arch``, picklable for loader workers.
+                 device_mask: bool = True, syn: bool = False, random_reso: bool = False) -> Callable:
+    """The collate for ``arch`` (``collate_kind``), picklable for loader
+    workers.
 
     ``wire_uint8`` ships images before the divide by 255; with it and
     ``mask``, ``device_mask`` ships RGB and the steps append the mask on the
-    device."""
+    device.  A ``random_reso`` val collate ships float32 with the mask
+    channel whatever they say: its evaluator reads each image on its own
+    (tpgsr_tpu/train/trainer.py:222-226)."""
+    if random_reso and not train:
+        wire_uint8 = device_mask = False
     cfg = CollateConfig(imgH=int(height), imgW=int(width), down_sample_scale=int(down_sample_scale),
                         mask=bool(mask), keep_ratio=bool(keep_ratio),
                         wire_dtype="uint8" if wire_uint8 else "float32", device_mask=bool(device_mask))
-    return functools.partial(COLLATES[collate_kind(arch, train)], cfg=cfg)
+    return functools.partial(COLLATES[collate_kind(arch, train, syn, random_reso)], cfg=cfg)
 
 
 def train_loader(train_data_dir: Sequence[str], arch: str = "tsrn_tl_cascade", mask: bool = False, *,
                  batch_size: int = 512, height: int = 32, width: int = 128, down_sample_scale: int = 2,
                  keep_ratio: bool = False, wire_uint8: bool = True, device_mask: bool = True,
                  cache_images: bool = True, workers: int = 1, manualSeed: int = 1234, voc_type: str = "all",
-                 max_len: int = 100, device: DeviceLike = None) -> Loader:
-    """The train loader over the TextZoom LMDBs of ``train_data_dir``
-    (concatenated), shuffled from ``manualSeed`` each epoch, the short last
-    batch dropped; pinned for the card unless ``device`` is the CPU."""
+                 max_len: int = 100, data: str = "textzoom", random_reso: bool = False,
+                 device: DeviceLike = None) -> Loader:
+    """The train loader over the directories of ``train_data_dir``
+    (concatenated), read as ``data`` says (``make_dataset``: TextZoom LMDBs
+    unless 'syn', 'mixed' or 'ic15sr'), shuffled from ``manualSeed`` each
+    epoch, the short last batch dropped; pinned for the card unless
+    ``device`` is the CPU.  A 'mixed' dataset draws its HR-as-LR coin in
+    the process that reads it: with ``workers`` > 1 each worker draws from
+    its own copy."""
     dev = resolve_device(device)
-    sets = [TextZoomDataset(d, voc_type=voc_type, max_len=max_len, cache_images=cache_images)
+    sets = [make_dataset(d, data, voc_type=voc_type, max_len=max_len, cache_images=cache_images)
             for d in train_data_dir]
     ds = sets[0] if len(sets) == 1 else ConcatDataset(sets)
     collate = make_collate(arch, True, mask, height=height, width=width, down_sample_scale=down_sample_scale,
-                           keep_ratio=keep_ratio, wire_uint8=wire_uint8, device_mask=device_mask)
+                           keep_ratio=keep_ratio, wire_uint8=wire_uint8, device_mask=device_mask,
+                           syn=data == "syn", random_reso=random_reso)
     return make_loader(ds, int(batch_size), collate, shuffle=True, drop_last=True, seed=int(manualSeed),
                        workers=int(workers), device=dev)
 
@@ -107,14 +157,17 @@ def val_loaders(val_data_dir: Sequence[str], arch: str = "tsrn_tl_cascade", mask
                 batch_size: int = 512, height: int = 32, width: int = 128, down_sample_scale: int = 2,
                 keep_ratio: bool = False, wire_uint8: bool = True, device_mask: bool = True,
                 cache_images: bool = True, workers: int = 1, voc_type: str = "all", max_len: int = 100,
-                device: DeviceLike = None) -> List[Loader]:
+                data: str = "textzoom", random_reso: bool = False, device: DeviceLike = None) -> List[Loader]:
     """One loader per val split, in order, unshuffled, the last batch kept
-    short; pinned for the card unless ``device`` is the CPU."""
+    short, each split read as ``data`` says (``make_dataset``, ``test``);
+    pinned for the card unless ``device`` is the CPU.  Under
+    ``random_reso`` the batches are float32 with the mask channel, or with
+    'syn' lists of images at their own sizes (``make_collate``)."""
     dev = resolve_device(device)
     collate = make_collate(arch, False, mask, height=height, width=width, down_sample_scale=down_sample_scale,
-                           keep_ratio=keep_ratio, wire_uint8=wire_uint8, device_mask=device_mask)
-    return [make_loader(TextZoomDataset(d, voc_type=voc_type, max_len=max_len, test=True,
-                                        cache_images=cache_images),
+                           keep_ratio=keep_ratio, wire_uint8=wire_uint8, device_mask=device_mask,
+                           syn=data == "syn", random_reso=random_reso)
+    return [make_loader(make_dataset(d, data, True, voc_type=voc_type, max_len=max_len, cache_images=cache_images),
                         int(batch_size), collate, shuffle=False, drop_last=False, workers=int(workers),
                         device=dev)
             for d in val_data_dir]
@@ -260,9 +313,15 @@ def check_ported(config: AttrDict, args: Mapping, device: torch.device) -> None:
     if args.get("demo") and kind != "CRNN":
         # the JAX package's demo() decodes any recognizer's output by CTC
         missing(f"--demo with --test_model {kind}", "queue 1 item 8")
-    for flag in ("syn", "mixed", "ic15sr", "random_reso"):
-        if args.get(flag):
-            missing(f"--{flag}", "queue 1 item 9")
+    if args.get("random_reso"):
+        # the JAX package's two refusals (tpgsr_tpu/train/trainer.py:508-515,
+        # :666-667), raised here before anything runs: the variable-resolution
+        # lists feed no train step and no fixed-shape eval step, and val runs
+        # the CRNN alone
+        if args.get("syn") and not (args.get("go_test") or args.get("demo")):
+            raise ValueError("--random_reso with --syn is eval-only; run with --go_test")
+        if not (args.get("test") or args.get("demo")) and str(args.get("test_model") or "CRNN") != "CRNN":
+            raise ValueError("--random_reso eval supports --test_model=CRNN only")
     hidden = int(args.get("hd_u", 32))
     # only the TSRN family runs K1; the other backbones read no --hd_u
     if device.type == "cuda" and args["arch"].startswith("tsrn") and hidden not in SUPPORTED_HIDDEN:
@@ -314,7 +373,8 @@ class TextSR:
         return dict(batch_size=int(t.batch_size), height=int(t.height), width=int(t.width),
                     down_sample_scale=self.scale_factor, keep_ratio=bool(t.get("keep_ratio", False)),
                     cache_images=bool(t.get("cache_images", True)), workers=int(t.get("workers", 1)),
-                    voc_type=t.voc_type, max_len=int(t.max_len), device=self.device)
+                    voc_type=t.voc_type, max_len=int(t.max_len), data=data_mode(self.args),
+                    random_reso=bool(self.args.get("random_reso")), device=self.device)
 
     def get_train_data(self) -> Loader:
         t = self.config.TRAIN
@@ -465,13 +525,46 @@ class TextSR:
         mds = {}
         for d, loader in zip(t.VAL.val_data_dir, val_data):
             name = split_name(d)
-            md = evaluate(self._eval_step, models, loader, decoder=self._decoder(), **kw)
+            if self.args.get("random_reso"):
+                md = self._run_val_random_reso(models, loader)
+            else:
+                md = evaluate(self._eval_step, models, loader, decoder=self._decoder(), **kw)
             print(f"  [val {name}] acc={md['accuracy']:.4f} (lr={md['accuracy_lr']:.4f} "
                   f"hr={md['accuracy_hr']:.4f}) psnr={md['psnr_avg']:.2f} ssim={md['ssim_avg']:.4f}", flush=True)
             for k in ("psnr_avg", "ssim_avg", "accuracy"):
                 logger.add_scalar(f"eval/{k}_{name}", md[k], iters)
             mds[name] = md
         return mds
+
+    def _run_val_random_reso(self, models: EvalModels, loader: Loader) -> Dict[str, float]:
+        """One split's ``--random_reso`` val (tpgsr_tpu/train/trainer.py:654-710):
+        for a prior arch its students give the gate and the priors and its
+        teacher reads SR, LR and HR; for a plain arch the eval CRNN does all
+        three.  The CRNNs read ``parse_crnn_data`` at width 100, whatever
+        TRAIN.width; CTC decodes their logits."""
+        in_ch = check_arch(self.arch).in_channels
+        sr_share, tpg_share = bool(self.args.get("sr_share")), bool(self.args.get("tpg_share"))
+
+        def reads(model: torch.nn.Module) -> Callable:
+            return lambda x: model(parse_crnn_data(x).permute(0, 3, 1, 2))
+
+        def sr_apply(model: torch.nn.Module) -> Callable:
+            def run(lr: torch.Tensor, prior: torch.Tensor) -> torch.Tensor:
+                lr_in = lr[..., :in_ch].permute(0, 3, 1, 2)
+                out = model(lr_in, prior.permute(0, 3, 1, 2)) if self.is_tl else model(lr_in)
+                return (out[0] if isinstance(out, tuple) else out).permute(0, 2, 3, 1)
+            return run
+
+        if self.is_tl:
+            rec = reads(models.teacher)
+            stu = [reads(models.stu[0 if tpg_share else i]) for i in range(self.stu_iter)]
+        else:
+            rec = reads(models.rec)
+            stu = [rec] * self.stu_iter
+        return evaluate_random_reso_loader(
+            loader, stu, [sr_apply(models.sr[0 if sr_share else i]) for i in range(self.stu_iter)], rec,
+            decode_crnn, stu_iter=self.stu_iter, conf_threshold=conf_threshold_of(self.arch), is_tl=self.is_tl,
+            device=self.device)
 
     # ------------------------------------------------------------------ test
     def test(self) -> Dict[str, float]:
