@@ -40,15 +40,14 @@ package beside this script):
    train steps at batch 48 from ``train_loader`` after 2 warm-up steps,
    K1's launches counted; (d) ``evaluate`` over the three ``val_loaders``,
    a second pass timed, K1's launches counted, then the same batches
-   preloaded, for the twin of the same shapes.  (b) and (c) also run the
-   same dataset and collate through torch's default wire (tensors from the
-   workers, pinned by the ``DataLoader``) for comparison;
+   preloaded, for the twin of the same shapes;
 10. the trainer and the CLI: ``tpgsr_tpu_torch.cli.main`` in-process over
    phase 9's TextZoom and two more train LMDBs (an epoch of 44 batches of
    48), in the same temporary directory, from a config with
    ``compute_dtype: fp32``: one epoch with val and saves at 22 and 44, its
    files and scalar log, its first two iterations against a CPU ``TextSR``,
-   ``--resume`` for a second epoch (step 88, global epoch 2's first batch),
+   ``--resume`` for a second epoch, loading in the calling process (step 88,
+   global epoch 2's first batch),
    then ``--go_test`` over the three splits, and ``--go_test`` and ``--test
    --rec crnn`` over the smallest and ``--demo`` from the checkpoint against
    the same commands on the CPU; the ``trainer`` line
@@ -90,9 +89,9 @@ package beside this script):
    share; (c) ``cli.main`` with ``--test --rec aster`` and ``--rec moran``
    from phase 10's checkpoint over the smallest val split, its fps, and its
    metric dict against ``evaluate`` in-process; a ``{"rec_eval": ...}``
-   line each; then each of phase 13's seven scripts through ``cli.main``
-   with ``--test`` from its fp32 checkpoint, ASTER and MORAN in turn (a
-   ``{"rec_eval_zoo_cli": ...}`` line).
+   line each; then two of phase 13's plain archs' scripts through
+   ``cli.main`` with ``--test`` from its fp32 checkpoint, ``srcnn`` with ASTER
+   and ``tsrn`` with MORAN (a ``{"rec_eval_zoo_cli": ...}`` line).
 15. the rest of the single-model zoo (``tsrn_tl_wmask``, ``tsrn_tl``,
    ``textzoom_net``, ``vdsr``, ``vdsr_tl``, ``edsr``, ``lapsrn``,
    ``esrgan``, ``esrgan_tl``, ``bicubic``), each with the flags it reads of
@@ -140,6 +139,27 @@ package beside this script):
    YAML (bf16), loading in the calling process: images/s over 10
    iterations with the host's load, K1's launches, the val and the save,
    ``--syn``'s first two fp32 iterations against the CPU.
+18. data parallelism (``tpgsr_tpu_torch.parallel``) on the card: (a) two
+   ranks sharing the card over gloo (``parallel.spawn(2, ...,
+   device="cuda:0", backend="gloo")``) and one process run the flagship's
+   fp32 step at global batch 48 (24 rows a rank, BatchNorm over the global
+   batch, the gradients averaged) for 22 steps from the same weights and
+   batches, the last 5 timed; one process runs them twice.  The first step
+   at phase 7's bounds (K1 10 + 10 a rank); after the last, two ranks no
+   farther from one process than twice one process from itself (the
+   drift); ``evaluate`` over 4 val batches (the last of 29 rows) against
+   the one-process metric dict; one bf16 step at phase 11's bounds of one
+   process's.  (b) In the same group ``TextSR`` with TRAIN.n_devices 2
+   through ``cli.run_rank`` (the CLI's per-rank function): phase 12's run
+   (the packaged YAML, bf16, 22 iterations over phase 9's TextZoom, a val
+   and a save) on two ranks: rank 0 alone writes, the checkpoint's keys
+   and first losses are phase 12's, the val's metric dicts those of
+   ``--go_test`` on rank 0's saved weights, the saved parameters no farther
+   from phase 12's than twice phase 12's command run again in one process;
+   (c) one NCCL rank: three steps and an all-reduce.  A ``{"ddp": ...}``
+   line with both images/s (two ranks sharing one card: not a scaling
+   figure), each rank's K1 launches, the drifts with the vals beside them,
+   and the card's name and power limit.
 
 The third line from the end is ``{"phase_seconds": {...}}``, each phase's
 seconds; the line before the last is ``{"kernels": [...]}``: K1's forward and
@@ -149,14 +169,14 @@ backward in fp32 and in bf16 (``zoo_launches``: ``tsrn``'s in phase
 recomputed step; ``c2f_launches``, ``opt_launches``, ``sem_launches``: phase
 16(b)'s; ``seed_eval_launches``: its SEED-scored eval; ``random_reso_launches``:
 phase 17(b)'s; ``syn_launches``, ``mixed_launches``, ``ic15sr_launches``:
-17(d)'s); the last is
+17(d)'s; ``ddp_launches``: each rank's in phase 18, the fp32 entries (a)'s
+step, the bf16 ones (b)'s training); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import functools
 import io
 import json
 import os
@@ -171,14 +191,13 @@ import numpy as np
 import torch
 from PIL import Image, ImageDraw
 
-from tpgsr_tpu_torch import cli, entry
+from tpgsr_tpu_torch import cli, entry, parallel
 from tpgsr_tpu_torch.charset import CTC_CHAR_TO_ID
 from tpgsr_tpu_torch.bench_k1 import device_ms, ptxas_report
 from tpgsr_tpu_torch.config import AttrDict, build_arg_parser, load_config, script_argv
 from tpgsr_tpu_torch.data.collate import CollateConfig, collate_syn_random_reso
 from tpgsr_tpu_torch.data.datasets import ConcatDataset, SingleImageLMDB, TextZoomDataset
 from tpgsr_tpu_torch.data.lmdb import write_lmdb
-from tpgsr_tpu_torch.data.loader import EpochBatchSampler
 from tpgsr_tpu_torch.ops import _build, gru_seq, rnn
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
 from tpgsr_tpu_torch.ops.image import append_contour_mask_u8
@@ -189,6 +208,7 @@ from tpgsr_tpu_torch.train import random_reso
 from tpgsr_tpu_torch.train import step as port_step
 from tpgsr_tpu_torch.train import trainer
 from tpgsr_tpu_torch.train.priors import parse_crnn_data
+from tpgsr_tpu_torch.train.state import LR as TRAIN_LR
 from tpgsr_tpu_torch.train.trainer import load_crnn
 from tpgsr_tpu_torch.train.evaluate import evaluate
 from tpgsr_tpu_torch.train.step import EvalModels, make_eval_step, make_train_step, rec_decoder, recognizer_input
@@ -886,23 +906,6 @@ def phase_data_card_vs_cpu(train_dirs, val_dirs):
     return card
 
 
-def tensor_collate(collate, items):
-    """The port's collate with its arrays as tensors: what torch's default
-    wire sends from a worker (through shared memory), for comparison."""
-    return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in collate(items).items()}
-
-
-def tensor_wire_loader(train_dirs):
-    """The train loader's dataset, batches and collate in a plain
-    ``DataLoader`` that ships tensors and pins them in its own thread."""
-    ds = ConcatDataset([TextZoomDataset(d, voc_type="all", cache_images=True) for d in train_dirs])
-    collate = functools.partial(tensor_collate, trainer.make_collate("tsrn_tl_cascade", True, mask=True))
-    return torch.utils.data.DataLoader(
-        ds, batch_sampler=EpochBatchSampler(len(ds), BATCH, True, True, 1234), collate_fn=collate, num_workers=1,
-        pin_memory=True, multiprocessing_context="forkserver", persistent_workers=True,
-        generator=torch.Generator().manual_seed(1234))
-
-
 def port_loader(train_dirs):
     return trainer.train_loader(train_dirs, "tsrn_tl_cascade", mask=True, **loader_kw(BATCH, "cuda"))
 
@@ -1024,16 +1027,11 @@ def phase_data(root: str, serve_ips: float, train_ips: float):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_data_card_vs_cpu(train_dirs, val_dirs)
     loader = phase_loader_only("port", port_loader(train_dirs))
-    tensor_wire = phase_loader_only("torch tensors", tensor_wire_loader(train_dirs))
     train = phase_lmdb_train("port", port_loader(train_dirs))
     ev = phase_lmdb_eval(val_dirs)
-    tensor_wire_train = phase_lmdb_train("torch tensors", tensor_wire_loader(train_dirs))
     summary = {"loader_epoch1_pairs_per_s": loader["epoch1_pairs_per_s"],
                "loader_epoch2_pairs_per_s": loader["epoch2_pairs_per_s"],
-               "tensor_wire_epoch1_pairs_per_s": tensor_wire["epoch1_pairs_per_s"],
-               "tensor_wire_epoch2_pairs_per_s": tensor_wire["epoch2_pairs_per_s"],
                "lmdb_train_images_per_s": train["images_per_s"], "phase8_train_images_per_s": train_ips,
-               "tensor_wire_train_images_per_s": tensor_wire_train["images_per_s"],
                "lmdb_eval_images_per_s": ev["images_per_s"],
                "lmdb_eval_preloaded_images_per_s": ev["preloaded_images_per_s"], "phase5_eval_images_per_s": serve_ips}
     print("data " + json.dumps(summary), flush=True)
@@ -1143,8 +1141,8 @@ def phase_trainer(root: str, train_dirs, val_dirs, lmdb_train_ips: float):
        iterations' losses against a CPU ``TextSR`` from the same seed and
        batches (1e-5, then 1e-4: one Adam update apart, the bound the CPU
        tests hold the port's second step to against JAX);
-    2. ``--resume`` for one more epoch: the step reaches 44 and the first
-       batch is global epoch 2's;
+    2. ``--resume`` for one more epoch, the loaders in the calling process:
+       the step reaches 44 and the first batch is global epoch 2's;
     3. ``--go_test`` over the three splits on the card, then ``--go_test``
        and ``--test --rec crnn`` over the smallest split and ``--demo`` over
        four PNGs, each from the checkpoint, against the same command on the
@@ -1254,10 +1252,13 @@ def trainer_runs(argv, ckpt_dir, train_dirs, val_dirs, demo_dir, lmdb_train_ips:
     out["card_losses"], out["cpu_losses"] = card, cpu_losses
     print(f"trainer card vs CPU: iterations 1-2 losses card {card} CPU {cpu_losses}", flush=True)
 
-    # 2. resume for one more epoch
+    # 2. resume for one more epoch, loading in the calling process (the
+    # batches are the sampler's either way; a loader worker's start costs
+    # seconds, four of them here)
+    eval_path = f"{os.path.dirname(argv[-1])}/{EVAL_CONFIG}"
     probe = TrainerProbe()
     with probe.installed():
-        state = cli.main(argv + ["--resume", ckpt_dir])
+        state = cli.main(argv[:-1] + [eval_path, "--resume", ckpt_dir])
     check(state.step == 2 * TRAINER_EPOCH, f"resumed trainer at step {state.step}")
     with open(f"{ckpt_dir}/info.json") as f:
         check(json.load(f)["step"] == 2 * TRAINER_EPOCH, "info.json after the resume")
@@ -1272,7 +1273,6 @@ def trainer_runs(argv, ckpt_dir, train_dirs, val_dirs, demo_dir, lmdb_train_ips:
     # 3. the eval-only modes from the checkpoint: --go_test over the three
     # splits on the card, then over the smallest split, --test over it and
     # --demo on the card and on the CPU
-    eval_path = f"{os.path.dirname(argv[-1])}/{EVAL_CONFIG}"
     eval_argv = argv[:-1] + [eval_path, "--resume", ckpt_dir]
     smallest = val_dirs[int(np.argmin(VAL_PAIRS))]
     small_cfg, small_path = load_config(eval_path), f"{os.path.dirname(argv[-1])}/trainer_smallest.yaml"
@@ -1515,7 +1515,8 @@ def phase_packaged_yaml(root: str, train_dirs, val_dirs):
            "first_iteration_s": probe.first_step_end - start, "run_s": run_s, "val_s": val["t1"] - val["t0"],
            "k1_launches": window[0], "k1_backward_launches": window[1], "card_losses": card, "cpu_losses": cpu_losses}
     print(json.dumps({"packaged_yaml": out}), flush=True)
-    return out
+    # what phase 18(b) holds the same run on two ranks to
+    return {**out, "val": val["out"], "ckpt_dir": ckpt_dir}
 
 
 # phase 13: the SR zoo of the repo's other train scripts, with each script's
@@ -2187,18 +2188,23 @@ def rec_cli(root: str, val_dirs, kind: str):
     return {"split_images": md["images"], "fps": md["fps"], "metrics": md}
 
 
+# phase 14(c)'s zoo scripts, one a recognizer: plain archs (the flagship, a
+# cascade, is scored by both in rec_cli)
+REC_ZOO_SCRIPTS = (("train_SRCNN.sh", "ASTER"), ("train_TSRN.sh", "MORAN"))
+
+
 def rec_zoo_cli(root: str, val_dirs):
-    """(c) for the zoo: ``cli.main`` with each of the seven scripts' flags and
-    ``--test --rec aster`` or ``--rec moran`` in turn (each recognizer on a
-    plain and on a cascade arch), from its fp32 checkpoint of phase 13(c),
-    over the smallest val split: the images all read, finite metrics, fps."""
+    """(c) for the zoo: ``cli.main`` with a plain arch's script's flags and
+    ``--test --rec aster``, and another's with ``--rec moran``
+    (``REC_ZOO_SCRIPTS``; the cascade is the flagship's ``rec_cli``), from its
+    fp32 checkpoint of phase 13(c), over the smallest val split: the images
+    all read, finite metrics, fps."""
     split = val_dirs[int(np.argmin(VAL_PAIRS))]
     rows = []
     cwd = os.getcwd()
     os.chdir(root)
     try:
-        for i, script in enumerate(ZOO_SCRIPTS):
-            kind = REC_KINDS[i % len(REC_KINDS)]
+        for script, kind in REC_ZOO_SCRIPTS:
             name = f"{script[len('train_'):-len('.sh')]}_fp32"
             argv = zoo_argv(script) + ["--vis_dir", f"zoo_{name}", "--config", f"{root}/zoo_{name}.yaml", "--resume",
                                        f"{root}/ckpt_zoo/zoo_{name}", "--test", "--rec", kind.lower(),
@@ -2696,6 +2702,406 @@ def phase_modes(root: str, train_dirs, val_dirs):
     return launches
 
 
+# phase 18: data parallelism on the card.  Two ranks share the one card
+# through gloo (the one-card mode; NCCL takes one card a rank), then one
+# NCCL rank alone
+DDP_WORLD = 2
+DDP_VAL_SIZES = (BATCH, BATCH, BATCH, 29)  # 4 val batches, the last short (and odd: the ranks pad it)
+DDP_STEPS = 22  # (a)'s fp32 run: as many steps as phase 12's run has iterations
+DDP_TIMED_STEPS = 5  # its last steps, timed
+DDP_TIMEOUT_S = 600
+DDP_MOMENT_TOL = {"sr": 5e-3, "stu": 3e-2}  # phase 7's gradient bounds: Adam's first moment is 0.5 g
+# Over many steps two ranks may drift from one process at most this many
+# times as far as one process drifts from itself from the same weights and
+# batches.  From random weights the first updates carry a rounding apart
+# (Adam's first step is lr times the gradient's sign), and one process
+# never repeats itself bit for bit: the STN's grid_sample backward adds
+# with atomics.  Measured on the H100 after 22 steps, relative to the
+# run's own change: one process from itself 0.70 (fp32, (a)) and 0.58
+# (bf16, phase 12's command), two ranks from one process 0.67 and 0.71.
+DDP_DRIFT_FACTOR = 2.0
+
+
+def _ddp_counts(*counts):
+    """Every rank's ``counts`` (ints), gathered over the group's CPU
+    transport: [rank][i]."""
+    mine = torch.tensor(counts, dtype=torch.int64)
+    parts = [torch.empty_like(mine) for _ in range(parallel.rank_and_world()[1])]
+    torch.distributed.all_gather(parts, mine)
+    return [p.tolist() for p in parts]
+
+
+def _snapshot(state):
+    """A copy of a train state's models and Adam's moments on the host."""
+    models = {"sr": state.sr[0], "stu": state.stu[0]}
+    return {"sd": {kind: {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+                   for kind, m in models.items()},
+            "moments": {f"{kind}.{name}": [state.optimizer.state[p][k].detach().cpu().clone()
+                                           for k in ("exp_avg", "exp_avg_sq")]
+                        for kind, m in models.items() for name, p in m.named_parameters()}}
+
+
+def _flat_params(tensors):
+    """Parameters as one fp32 vector on the host."""
+    return torch.cat([t.detach().float().reshape(-1).cpu() for t in tensors])
+
+
+def _state_params(state):
+    return _flat_params(p for m in (state.sr[0], state.stu[0]) for p in m.parameters())
+
+
+def _sd_params(sds):
+    """The entries of state_dicts but the BatchNorm statistics, as one
+    vector: the parameters and the constant buffers."""
+    return _flat_params(v for sd in sds for k, v in sd.items()
+                        if not ("running" in k or k.endswith("num_batches_tracked")))
+
+
+def _saved_params(ckpt_dir: str):
+    """``_sd_params`` of a save's SR model and student."""
+    sds = [torch.load(f"{ckpt_dir}/{name}", map_location="cpu", weights_only=True)
+           for name in ("checkpoint_0.pth", "recognizer_0.pth")]
+    return _sd_params(sd.get("state_dict_G", sd) for sd in sds)
+
+
+def _psnr_ssim(md):
+    return {k: md[k] for k in ("psnr_avg", "ssim_avg")}
+
+
+def _rank_rows(batch):
+    rank, world = parallel.rank_and_world()
+    return {k: parallel.local_rows(v, rank, world) for k, v in batch.items()}
+
+
+def ddp_fp32_run(batch, trajectory, val_batches, device):
+    """The flagship's fp32 run of phase 18(a) from seed 0, on this rank's
+    rows (a process alone: every row): one step on ``batch`` (K1 counted,
+    then the state's snapshot), a step on each of ``trajectory`` (the last
+    DDP_TIMED_STEPS timed, the ranks at a barrier around them), then
+    ``evaluate`` of the trained models over ``val_batches``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state, step = entry.flagship_train(device=device, seed=0)
+    parallel.replicate([*state.sr, *state.stu], [state.teacher], state.optimizer)
+    gru_seq.LAUNCHES = gru_seq.BACKWARD_LAUNCHES = 0
+    metrics = {k: float(v) for k, v in step(state, _rank_rows(batch)).items()}
+    torch.cuda.synchronize()
+    out = {"metrics": metrics, "step_counts": (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES), **_snapshot(state)}
+    losses = []
+    for i, b in enumerate(trajectory):
+        if i == len(trajectory) - DDP_TIMED_STEPS:
+            torch.cuda.synchronize()
+            parallel.barrier()
+            t0 = time.perf_counter()
+        losses.append(step(state, _rank_rows(b))["loss_total"].detach())
+    torch.cuda.synchronize()
+    parallel.barrier()
+    out["timed_s"] = time.perf_counter() - t0
+    out["losses"] = [metrics["loss_total"], *(float(v) for v in losses)]
+    out["params"] = _state_params(state)
+    models = EvalModels(sr=state.sr, stu=state.stu, teacher=state.teacher)
+    out["trained_eval"] = evaluate(make_eval_step(entry.FLAGSHIP_ARGS, entry.TRAIN_WIDTH, device=device), models,
+                                   val_batches)
+    return out
+
+
+def ddp_bf16_moments(batch, device):
+    """Adam's moments after one bf16 flagship step from seed 0 on this
+    rank's rows of ``batch``."""
+    state, step = entry.flagship_train(device=device, seed=0, compute_dtype="bf16")
+    parallel.replicate([*state.sr, *state.stu], [state.teacher], state.optimizer)
+    step(state, _rank_rows(batch))
+    return _snapshot(state)["moments"]
+
+
+def ddp_step_rank(batch, trajectory, val_batches, device=None):
+    """Phase 18(a) on one rank: the fp32 run (``ddp_fp32_run``), ``evaluate``
+    of the seeded models over ``val_batches`` (K1 counted), one bf16 step."""
+    run = ddp_fp32_run(batch, trajectory, val_batches, device)
+    models, eval_step = entry.flagship(device=device, seed=0)
+    gru_seq.LAUNCHES = 0
+    md = evaluate(eval_step, models, val_batches)
+    eval_launches = gru_seq.LAUNCHES
+    del models
+    return {**run, "eval": md, "bf16_moments": ddp_bf16_moments(batch, device),
+            "counts": _ddp_counts(*run["step_counts"], eval_launches)}
+
+
+def ddp_cli_rank(argv, root: str, device=None):
+    """Phase 18(b) on one rank: ``cli.run_rank(argv)`` (``TextSR`` with
+    TRAIN.n_devices 2) in ``<root>/rank<r>``, a ``TrainerProbe`` installed;
+    rank 0's state, first losses and vals, every rank's K1 counts before the
+    val and after it, and the files each rank wrote."""
+    rank = parallel.rank_and_world()[0]
+    work = f"{root}/rank{rank}"
+    os.makedirs(work, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        probe = TrainerProbe()
+        gru_seq.LAUNCHES = gru_seq.BACKWARD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with probe.installed():
+            state = cli.run_rank(argv, device=device)
+        run_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    (val,) = [e for e in probe.events if e["name"] == "val"]
+    files = sorted(os.path.relpath(os.path.join(d, f), work) for d, _, fs in os.walk(work) for f in fs)
+    return {"state": state, "first_losses": {k: float(v) for k, v in probe.metrics[0].items()}, "vals": val["out"],
+            "compute_dtypes": probe.compute_dtypes, "run_s": run_s,
+            "window_s": val["t0"] - probe.first_step_end, "first_iteration_s": probe.first_step_end - t0,
+            "counts": _ddp_counts(*val["counts0"], *val["counts1"], len(files)), "files": files}
+
+
+def ddp_rank(batch, trajectory, val_batches, argv, root: str, device=None):
+    """Phase 18 (a) and (b) on one rank of one group."""
+    return {"step": ddp_step_rank(batch, trajectory, val_batches, device=device),
+            "cli": ddp_cli_rank(argv, root, device=device)}
+
+
+def check_ddp_step(got, want):
+    """Phase 18(a)'s first fp32 step on two ranks against one process, at
+    phase 7's bounds: the losses at rtol 1e-5; per model, Adam's first
+    moment (relative L2 over every parameter but the pre-BN biases) at phase
+    7's gradient bound, its second at twice that; every parameter within 2.5
+    lr (Adam's reach after one step); the BatchNorm statistics at rtol
+    1e-4, atol 1e-5."""
+    errs = {}
+    for k, v in want["metrics"].items():
+        check(np.isfinite(got["metrics"][k]) and abs(got["metrics"][k] - v) <= 1e-5 * abs(v),
+              f"ddp train {k}: two ranks {got['metrics'][k]} vs one process {v}")
+    for kind, tol in DDP_MOMENT_TOL.items():
+        keys = [k for k in want["moments"] if k.startswith(kind + ".") and not PRE_BN_BIAS.search(k.split(".", 1)[1])]
+        for j, bound in ((0, tol), (1, 2 * tol)):
+            err = grad_rel({k: got["moments"][k][j] for k in keys}, {k: want["moments"][k][j] for k in keys}, keys)
+            check(err <= bound, f"ddp train {kind}: Adam moment {j + 1} rel err {err:.3g} > {bound}")
+            errs[f"{kind}_moment{j + 1}"] = err
+        sd, ref = got["sd"][kind], want["sd"][kind]
+        check(list(sd) == list(ref), f"ddp train {kind}: state_dict keys")
+        for k in ref:
+            if "running" in k:
+                check(torch.allclose(sd[k], ref[k], rtol=1e-4, atol=1e-5), f"ddp train {kind}.{k}: BN statistic")
+            elif not k.endswith("num_batches_tracked"):
+                reach = float((sd[k] - ref[k]).abs().max())
+                check(reach <= 2.5 * TRAIN_LR, f"ddp train {kind}.{k}: {reach:.3g} from the one-process step")
+    return errs
+
+
+def check_ddp_bf16(two, one, fp32):
+    """Phase 18(a)'s bf16 step on two ranks against one process, at phase
+    11's bounds (the card's bf16 step against the CPU's): per model, the
+    pre-BN biases apart, Adam's first moment (a multiple of the clipped
+    gradient) of two ranks lies at most 2 E + 1e-2 (relative L2) from one
+    process's bf16, where E is one process's bf16 from its fp32, with a
+    cosine to fp32 at least half of one process's bf16."""
+    out = {}
+    for kind in ("sr", "stu"):
+        keys = [k for k in fp32 if k.startswith(kind + ".") and not PRE_BN_BIAS.search(k.split(".", 1)[1])]
+        g2, g1, g32 = ({k: m[k][0] for k in keys} for m in (two, one, fp32))
+        e_two, e_one = grad_rel(g2, g1, keys), grad_rel(g1, g32, keys)
+        cos_two, cos_one = grad_cos(g2, g32, keys), grad_cos(g1, g32, keys)
+        check(e_two <= 2 * e_one + 1e-2, f"ddp bf16 {kind}: two ranks' first moment {e_two:.3g} from one process's, "
+              f"whose bf16 lies {e_one:.3g} from its fp32")
+        check(cos_two >= cos_one / 2, f"ddp bf16 {kind}: cosine {cos_two:.3g} to fp32, one process's {cos_one:.3g}")
+        out[kind] = {"rel_err_vs_one_process": e_two, "one_process_rel_err_vs_fp32": e_one, "cos_vs_fp32": cos_two,
+                     "one_process_cos_vs_fp32": cos_one}
+    return out
+
+
+def check_drift(two, again, ref, base, what: str):
+    """``two`` (parameters) no farther from ``ref`` than DDP_DRIFT_FACTOR
+    times ``again``, ``ref``'s command run once more in one process; both
+    distances also relative to ``ref``'s change from ``base``."""
+    d_two, d_again = float((two - ref).norm()), float((again - ref).norm())
+    check(bool(torch.isfinite(two).all()), f"{what}: a parameter is not finite")
+    check(d_two <= DDP_DRIFT_FACTOR * d_again, f"{what}: two ranks {d_two:.4g} from one process, which lies "
+          f"{d_again:.4g} from itself run again (factor {DDP_DRIFT_FACTOR})")
+    change = float((ref - base).norm())
+    return {"two_ranks": d_two / change, "one_process_again": d_again / change}
+
+
+def ddp_config(root: str, train_dirs, val_dirs, n_devices: int) -> str:
+    """Phase 12's config (the packaged YAML, bf16, batch 48, one epoch of
+    phase 9's TextZoom with a val and a save at its end) with
+    TRAIN.n_devices ``n_devices``, the loaders in each rank's process and
+    the checkpoints under the working directory."""
+    cfg = load_config()
+    iterations = TRAIN_PAIRS // BATCH
+    cfg.TRAIN.update(train_data_dir=list(train_dirs), batch_size=BATCH, epochs=1, saveInterval=iterations,
+                     displayInterval=iterations // 2, workers=0, ckpt_dir="ckpt", n_devices=n_devices)
+    cfg.TRAIN.VAL.update(val_data_dir=list(val_dirs), valInterval=iterations)
+    path = f"{root}/ddp{n_devices}.yaml"
+    with open(path, "w") as f:
+        json.dump(cfg, f)  # JSON is YAML
+    return path
+
+
+def ddp_nccl(root: str):
+    """(c) One rank over NCCL on the card (``init_process_group("nccl")``,
+    world 1): three flagship fp32 steps and an all-reduce."""
+    parallel.init(0, 1, f"file://{root}/nccl_store", torch.device("cuda", 0))
+    try:
+        check(torch.distributed.get_backend() == "nccl", f"backend {torch.distributed.get_backend()}")
+        rng = np.random.default_rng(183)
+        state, step = entry.flagship_train(device="cuda", seed=0)
+        losses = [float(step(state, synthetic_batch(rng, BATCH, labels=False))["loss_total"]) for _ in range(3)]
+        check(all(np.isfinite(v) for v in losses), f"NCCL rank: losses {losses}")
+        t = torch.arange(4, dtype=torch.float32, device="cuda")
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        check(torch.equal(t.cpu(), torch.arange(4, dtype=torch.float32)), f"NCCL all_reduce gave {t}")
+        parallel.barrier()
+    finally:
+        parallel.shutdown()
+    return {"backend": "nccl", "world": 1, "losses": losses}
+
+
+def _in_dir(path: str, fn, *args):
+    """``fn(*args)`` with ``path`` (made) as the working directory."""
+    os.makedirs(path, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        return fn(*args)
+    finally:
+        os.chdir(cwd)
+
+
+def phase_ddp(root: str, train_dirs, val_dirs, packaged, smi: str):
+    """Phase 18: data parallelism on the card.
+
+    (a) Two gloo ranks on the one card (24 rows each) and one process run
+    the flagship's fp32 step at global batch 48 from seed 0 for DDP_STEPS
+    steps over the same batches, the last DDP_TIMED_STEPS timed; one
+    process runs them twice.  The first step is held at phase 7's bounds,
+    with K1's launches a rank (10 + 10); after the last, two ranks lie no
+    farther from one process than DDP_DRIFT_FACTOR times one process from
+    itself; ``evaluate`` of the seeded models over 4 val batches (the last
+    of 29 rows) gives the one-process metric dict; one bf16 step on two
+    ranks is held to one process's at phase 11's bounds.
+
+    (b) In the same group ``TextSR`` with TRAIN.n_devices 2 through the
+    CLI's per-rank function (``cli.run_rank``): phase 12's run
+    (``packaged``: the packaged YAML, bf16, 22 iterations over phase 9's
+    TextZoom, a val and a save) on two ranks.  Rank 0 alone writes; the
+    checkpoint's keys are phase 12's; the first losses at phase 11's bf16
+    bounds of phase 12's; the val's metric dicts those of a one-process
+    ``--go_test`` on rank 0's saved weights (phase 4's rtol 1e-4); the
+    saved parameters no farther from phase 12's than DDP_DRIFT_FACTOR times
+    the same command run again in one process.
+
+    (c) One NCCL rank.  Returns K1's launches for the kernels line."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(18)
+    batch = synthetic_batch(rng, BATCH, labels=False)
+    val_batches = [synthetic_batch(rng, n) for n in DDP_VAL_SIZES]
+    trajectory = [synthetic_batch(rng, BATCH, labels=False) for _ in range(DDP_STEPS - 1)]
+    config_path = ddp_config(root, train_dirs, val_dirs, DDP_WORLD)
+    argv = TRAINER_FLAGS[:-1] + ["ddp", "--config", config_path]
+    s0 = time.perf_counter()
+    got = parallel.spawn(DDP_WORLD, ddp_rank, batch, trajectory, val_batches, argv, f"{root}/ddp", device="cuda:0",
+                         backend="gloo", timeout=DDP_TIMEOUT_S)
+    group_s = time.perf_counter() - s0
+
+    # (a) against one process on the card, run twice
+    one = ddp_fp32_run(batch, trajectory, val_batches, "cuda")
+    again = ddp_fp32_run(batch, trajectory, val_batches, "cuda")
+    models, eval_step = entry.flagship(device="cuda", seed=0)
+    want_md = evaluate(eval_step, models, val_batches)
+    del models
+    base = _state_params(entry.flagship_train(device="cpu", seed=0)[0])
+    one_bf16 = ddp_bf16_moments(batch, "cuda")
+    a = got["step"]
+    errs = check_ddp_step(a, one)
+    bf16_errs = check_ddp_bf16(a["bf16_moments"], one_bf16, one["moments"])
+    check(all(np.isfinite(v) for v in a["losses"]), f"ddp train: losses {a['losses']}")
+    drift = check_drift(a["params"], again["params"], one["params"], base, f"ddp train after {DDP_STEPS} steps")
+    check_metric_dicts(a["eval"], want_md, "ddp evaluate over two ranks")
+    check(a["eval"]["images"] == sum(DDP_VAL_SIZES), f"ddp evaluate read {a['eval']['images']} images")
+    n_val = len(DDP_VAL_SIZES)
+    for r, (fwd, bwd, ev) in enumerate(a["counts"]):
+        check((fwd, bwd, ev) == (2 * N_SRB, 2 * N_SRB, 2 * N_SRB * n_val),
+              f"ddp rank {r}: K1 launched {fwd} + {bwd} in the step and {ev} in evaluate, expected "
+              f"{2 * N_SRB} + {2 * N_SRB} and {2 * N_SRB * n_val}")
+
+    # (b) against phase 12's one-process run of the same command, and that
+    # command run again in one process
+    b = got["cli"]
+    iterations = packaged["iterations"]
+    rank0 = f"{root}/ddp/rank0"
+    check(b["compute_dtypes"] == ["bf16"], f"ddp TextSR stepped in {b['compute_dtypes']}")
+    check(b["state"].step == iterations, f"ddp TextSR at step {b['state'].step}, expected {iterations}")
+    n_val_batches = sum(-(-n // BATCH) for n in VAL_PAIRS)
+    for r, (f0, b0, f1, b1, n_files) in enumerate(b["counts"]):
+        want_counts = (2 * N_SRB * iterations, 2 * N_SRB * iterations, 2 * N_SRB * n_val_batches)
+        check((f0, b0, f1 - f0) == want_counts, f"ddp TextSR rank {r}: K1 {f0} + {b0} in training and {f1 - f0} in "
+              f"the val, expected {want_counts}")
+        check((n_files == 0) == (r != 0), f"ddp TextSR rank {r} wrote {n_files} files")
+    saved = sorted(f for f in b["files"] if f.startswith("ckpt/"))
+    check(saved == sorted(f"ckpt/ddp/{name}" for name in SAVE_FILES), f"ddp TextSR rank 0 saved {saved}")
+    check(any(f.startswith("tensorboard/ddp/") for f in b["files"]), "ddp TextSR rank 0 wrote no scalar log")
+    for name, model in (("checkpoint_0.pth", b["state"].sr[0]), ("recognizer_0.pth", b["state"].stu[0])):
+        sd2, sd1 = (torch.load(f"{d}/{name}", map_location="cpu", weights_only=True)
+                    for d in (f"{rank0}/ckpt/ddp", packaged["ckpt_dir"]))
+        sd2, sd1 = (d.get("state_dict_G", d) for d in (sd2, sd1))
+        check(list(sd2) == list(sd1), f"ddp TextSR {name}: keys differ from phase 12's")
+        mine = model.state_dict()
+        for k in sd1:
+            check(torch.equal(sd2[k], mine[k]), f"ddp TextSR {name}.{k}: the file is not rank 0's state")
+    for k, v in packaged["card_losses"].items():
+        check(abs(b["first_losses"][k] - v) <= BF16_LOSS_RTOL[k] * abs(v),
+              f"ddp TextSR iteration 1 {k}: two ranks {b['first_losses'][k]} vs phase 12's {v}")
+    one_path = ddp_config(root, train_dirs, val_dirs, 1)
+    probe = TrainerProbe()
+
+    def run_again():
+        with probe.installed():
+            return cli.main(TRAINER_FLAGS[:-1] + ["ddp_again", "--config", one_path])
+
+    again_state = _in_dir(f"{root}/ddp_one", run_again)
+    check(again_state.step == iterations, f"phase 12's command again: step {again_state.step}")
+    (again_val,) = [e["out"] for e in probe.events if e["name"] == "val"]
+    first = trainer.TextSR(load_config(one_path), AttrDict(vars(build_arg_parser().parse_args(argv))),
+                           device="cpu").init_state()
+    cli_drift = check_drift(_saved_params(f"{rank0}/ckpt/ddp"), _saved_params(f"{root}/ddp_one/ckpt/ddp_again"),
+                            _saved_params(packaged["ckpt_dir"]),
+                            _sd_params(m.state_dict() for m in (first.sr[0], first.stu[0])),
+                            f"ddp TextSR after {iterations} iterations")
+    del first
+    go = _in_dir(f"{root}/ddp_one", cli.main, TRAINER_FLAGS[:-1] + ["ddp_go", "--config", one_path, "--go_test",
+                                                                     "--resume", f"{rank0}/ckpt/ddp"])
+    check(list(b["vals"]) == list(go) == list(packaged["val"]), f"ddp TextSR val splits {list(b['vals'])}")
+    for split in go:
+        check_metric_dicts(b["vals"][split], go[split], f"ddp TextSR val {split} against one process's --go_test")
+
+    # (c) NCCL
+    nccl = ddp_nccl(root)
+    out = {"card": smi, "batch": BATCH, "world": DDP_WORLD, "mode": "two gloo ranks on one card",
+           "one_process_images_per_s": BATCH * DDP_TIMED_STEPS / one["timed_s"],
+           "two_ranks_one_card_images_per_s": BATCH * DDP_TIMED_STEPS / a["timed_s"],
+           "note": "two ranks sharing one card: the collectives' and the card's sharing cost, not a scaling figure",
+           "step_k1_launches_per_rank": [c[:2] for c in a["counts"]],
+           "eval_k1_launches_per_rank": [c[2] for c in a["counts"]], "step_errs": errs, "bf16_step": bf16_errs,
+           "fp32_drift": {"steps": DDP_STEPS, "param_rel_to_change": drift,
+                          "loss_rel_two_ranks": [abs(x - y) / abs(y) for x, y in zip(a["losses"], one["losses"])],
+                          "loss_rel_again": [abs(x - y) / abs(y) for x, y in zip(again["losses"], one["losses"])],
+                          "val": {"one_process": _psnr_ssim(one["trained_eval"]),
+                                  "again": _psnr_ssim(again["trained_eval"]),
+                                  "two_ranks": _psnr_ssim(a["trained_eval"])}},
+           "cli_k1_launches_per_rank": [{"train": c[:2], "val": c[2] - c[0]} for c in b["counts"]],
+           "cli_run_s": b["run_s"], "cli_window_s": b["window_s"], "cli_iterations": iterations,
+           "cli_images_per_s": BATCH * (iterations - 1) / b["window_s"],
+           "one_process_cli_images_per_s": packaged["images_per_s"],
+           "cli_bf16_drift": {"param_rel_to_change": cli_drift,
+                              "val": {s: {"phase_12": _psnr_ssim(packaged["val"][s]), "again": _psnr_ssim(again_val[s]),
+                                          "two_ranks": _psnr_ssim(b["vals"][s])} for s in go}},
+           "nccl": nccl, "group_s": group_s, "s": time.perf_counter() - t0}
+    print(json.dumps({"ddp": out}), flush=True)
+    return {"fp32": [c[0] for c in a["counts"]], "fp32_backward": [c[1] for c in a["counts"]],
+            "bf16": [c[0] for c in b["counts"]], "bf16_backward": [c[1] for c in b["counts"]]}
+
+
 def per_sr(rows, keys):
     """Each key summed over the two sweep rows at batch 48, times N_SRB: one
     SR forward (or backward) at batch 48; None where a row has none (a
@@ -2856,6 +3262,9 @@ def main() -> int:
         # 17. --syn, --mixed, --ic15sr and --random_reso
         modes = phase_modes(root, train_dirs, val_dirs)
         lap("17 data flags, random_reso")
+        # 18. data parallelism: two gloo ranks on the card, one NCCL rank
+        ddp = phase_ddp(root, train_dirs, val_dirs, packaged, smi.splitlines()[0])
+        lap("18 data parallelism")
 
     kernels = [
         forward_entry(torch.float32, shapes, ptxas, launches, max_err, train_launches=train_launches,
@@ -2865,27 +3274,31 @@ def main() -> int:
                       remat_launches=rest["remat"][0], c2f_launches=newest[("tsrn_c2f", "fp32")][0],
                       opt_launches=newest[("opt", "fp32")][0], sem_launches=newest[("sem_tsrn", "fp32")][0],
                       seed_eval_launches=newest["seed_eval"], random_reso_launches=modes["random_reso"],
+                      ddp_launches=ddp["fp32"],
                       **{f"{flag}_launches": modes[(flag, "fp32")][0] for flag in MODE_FLAGS}),
         backward_entry(torch.float32, bwd_shapes, bwd_ptxas, backward_launches, bwd_err,
                        lmdb_train_launches=lmdb_train["k1_backward_launches"],
                        trainer_launches=trainer_run["k1_backward_launches"], zoo_launches=zoo["fp32"][1],
                        tl_simple_launches=rest["fp32"][1], remat_launches=rest["remat"][1],
                        c2f_launches=newest[("tsrn_c2f", "fp32")][1], opt_launches=newest[("opt", "fp32")][1],
+                       ddp_launches=ddp["fp32_backward"],
                        **{f"{flag}_launches": modes[(flag, "fp32")][1] for flag in MODE_FLAGS}),
         forward_entry(torch.bfloat16, bf16_shapes, ptxas, bf16_launches, bf16_err,
                       train_images_per_s=bf16_train["bf16_images_per_s"],
                       packaged_yaml_launches=packaged["k1_launches"], zoo_launches=zoo["bf16"][0],
                       tl_simple_launches=rest["bf16"][0], c2f_launches=newest[("tsrn_c2f", "bf16")][0],
-                      opt_launches=newest[("opt", "bf16")][0],
+                      opt_launches=newest[("opt", "bf16")][0], ddp_launches=ddp["bf16"],
                       **{f"{flag}_launches": modes[(flag, "bf16")][0] for flag in MODE_FLAGS}),
         backward_entry(torch.bfloat16, bf16_bwd_shapes, bwd_ptxas, bf16_backward_launches, bf16_bwd_err,
                        packaged_yaml_launches=packaged["k1_backward_launches"], zoo_launches=zoo["bf16"][1],
                        tl_simple_launches=rest["bf16"][1], c2f_launches=newest[("tsrn_c2f", "bf16")][1],
-                       opt_launches=newest[("opt", "bf16")][1],
+                       opt_launches=newest[("opt", "bf16")][1], ddp_launches=ddp["bf16_backward"],
                        **{f"{flag}_launches": modes[(flag, "bf16")][1] for flag in MODE_FLAGS}),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
+        check(len(k["ddp_launches"]) == DDP_WORLD and min(k["ddp_launches"]) > 0,
+              f"{k['name']} was not launched on every rank of phase 18")
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

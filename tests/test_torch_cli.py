@@ -87,7 +87,7 @@ def _fp32_config():
     ({"mixed": True}, {}, None),
     ({"ic15sr": True}, {}, None),
     ({"random_reso": True}, {}, None),
-    ({}, {"n_devices": 2}, "queue 1 item 10"),
+    ({}, {"n_devices": 2}, None),  # data parallelism: cli.main starts the ranks, TextSR is one of them
 ], ids=["tsrn_c2f", "sem_tsrn", "tpg", "test_model", "demo_aster", "go_test_seed", "syn", "mixed",
         "ic15sr", "random_reso", "n_devices"])
 def test_what_is_not_ported_raises_naming_its_item(args_over, train_over, item):
@@ -96,7 +96,9 @@ def test_what_is_not_ported_raises_naming_its_item(args_over, train_over, item):
     (``item`` None: the last two archs, ``--tpg OPT`` and SEED as the eval
     recognizer, for val and ``--go_test``; the data flags, whose datasets
     and collates the next test holds) build ``TextSR``, its state and steps
-    instead, with the model, teacher or recognizer they name."""
+    instead, with the model, teacher or recognizer they name; TRAIN.n_devices
+    2 (queue 1 item 10, which raised before) builds them in this process, one
+    rank of the two that ``cli.main`` starts (tests/test_torch_parallel_trainer.py)."""
     from tpgsr_tpu_torch.models.opt_tpg import OPTModel
     from tpgsr_tpu_torch.models.seed import SEEDModelBuilder
     from tpgsr_tpu_torch.models.tsrn import SEM_TSRN, TSRN_C2F

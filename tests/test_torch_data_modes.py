@@ -245,3 +245,29 @@ def test_loaders_of_each_flag_match_jax(roots, flags, dirs):
     if flags.get("random_reso"):
         key = "lr_list" if flags.get("syn") else "lr"
         assert val[key][0].dtype == np.float32 and val[key][0].shape[-1] == 4
+
+
+def test_mixed_loader_with_two_workers_matches_jax_over_two_epochs(roots):
+    """At ``TRAIN.workers`` 2 the port's ``--mixed`` train loader (two
+    ``MixedLMDB`` parts concatenated) gives the JAX ``TextSR``'s
+    ``DataLoader(num_workers=2)`` batches, HR-as-LR coin included, over two
+    epochs: batch i read by worker i % 2, each worker's copy reseeded every
+    epoch with seed + epoch * 100003 + worker."""
+    cfgs = []
+    for pkg in (config, jax_config):
+        cfg = pkg.load_config()
+        t = cfg.TRAIN
+        t.train_data_dir, t.VAL.val_data_dir = [roots["tz"], roots["tz"]], [roots["tz"]]
+        t.batch_size, t.workers = 4, 2
+        cfgs.append(cfg)
+    args = dict(arch="tsrn_tl_cascade", STN=True, mask=True, use_distill=True, gradient=True, sr_share=True,
+                stu_iter=1, mixed=True)
+    port = trainer.TextSR(cfgs[0], config.default_args(**args), device="cpu").get_train_data()
+    ref = JaxTextSR(cfgs[1], jax_config.default_args(**args)).get_train_data()
+    try:
+        for _ in range(2):
+            got, want = [_as_numpy(b) for b in port], list(ref)
+            assert len(got) == len(want) == 6
+            _same(got, want)
+    finally:
+        ref.shutdown()

@@ -10,7 +10,7 @@ import torch
 from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 
 from tpgsr_tpu_torch import device as port_device
-from tpgsr_tpu_torch import cli, entry, profile_zoo
+from tpgsr_tpu_torch import cli, entry, parallel, profile_zoo
 from tpgsr_tpu_torch.config import default_args, load_config, tpg_opt
 from tpgsr_tpu_torch.data.loader import make_loader
 from tpgsr_tpu_torch.models.registry import NOT_PORTED, PORTED_ARCHS
@@ -32,6 +32,7 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "tpgsr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {"mesh.py", "batchnorm.py"} <= {f.name for f in files if f.parent.name == "parallel"}
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
 
@@ -74,6 +75,12 @@ def test_port_imports_no_jax():
     lambda: cli.main(["--arch", "tsrn_tl_cascade", "--ic15sr", "--random_reso"]),
     lambda: port_device.resolve_device(),
     lambda: port_device.resolve_device("cuda:0"),
+    lambda: parallel.spawn(2, len),
+    lambda: parallel.n_ranks(0),
+    lambda: parallel.rank_device(),
+    lambda: parallel.join_env(),
+    lambda: cli.run(["--arch", "tsrn_tl_cascade"]),
+    lambda: cli.run_rank(["--arch", "tsrn_tl_cascade"]),
 ])
 def test_entry_points_default_to_the_card(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

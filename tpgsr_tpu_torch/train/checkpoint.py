@@ -16,7 +16,10 @@ Files, with the JAX package's names and rules for when each is written:
   ``converge``.
 
 The ``state_dict`` keys are the original's, so the JAX package's
-``restore_reference_checkpoint`` reads these files unchanged.
+``restore_reference_checkpoint`` reads these files unchanged.  In a
+data-parallel run rank 0 alone writes them (every rank holds the same
+state; tpgsr_tpu/train/checkpoint.py:93) and the other ranks wait at a
+barrier until it has, so that a ``--resume`` reads whole files.
 ``load_recognizer_state_dict`` reads the original's pretrained recognizer
 files (``aster_demo.pth.tar``, ``moran_demo.pth``).
 """
@@ -30,6 +33,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from tpgsr_tpu_torch.parallel import barrier, is_primary
 from tpgsr_tpu_torch.train.state import TrainState
 
 INFO_KEYS = ("arch", "iters", "epochs", "batch_size", "voc_type", "up_scale_factor")
@@ -44,7 +48,15 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, info: Dict[str, Any], is_b
     """Write the periodic files, and the best ones when ``is_best``.
 
     ``info`` is the trainer's dict: ``INFO_KEYS`` plus ``best_history_res``
-    and ``best_model_info``."""
+    and ``best_model_info``.  Rank 0 writes; every rank returns after it
+    has."""
+    if is_primary():
+        _write(ckpt_dir, state, info, is_best, converge_list)
+    barrier()
+
+
+def _write(ckpt_dir: str, state: TrainState, info: Dict[str, Any], is_best: bool,
+           converge_list: Optional[list]) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     converge = list(converge_list or [])
     for i, sr in enumerate(state.sr):

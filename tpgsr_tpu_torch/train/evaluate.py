@@ -8,6 +8,14 @@ a plain mean over batches; accuracy is an exact match after
 i+1 has been queued on the card, so host-side decoding overlaps device work.
 With ``vis_dir`` the first batch is also saved as LR|SR|HR grids
 (``utils.visualize``; reference interfaces/base.py:488-544).
+
+In a process group of several ranks (tpgsr_tpu/train/evaluate.py:57-135)
+every rank reads the whole batch, pads it to a multiple of the world by
+its last row, runs the eval step on its contiguous slice and gathers the
+per-sample outputs (the SR images only for the visualized batch); the
+padded rows are dropped.  Every rank then decodes and scores the whole
+batch, so each gets the metric dict of one process, and rank 0 alone
+writes the visualizations.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch
 
 from tpgsr_tpu_torch.charset import str_filt
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
+from tpgsr_tpu_torch.parallel import gather_rows, local_rows, rank_and_world
 from tpgsr_tpu_torch.train.step import EvalModels, EvalStep
 from tpgsr_tpu_torch.utils import visualize
 
@@ -40,6 +49,8 @@ def evaluate(eval_step: EvalStep, models: EvalModels, batches: Iterable[Mapping]
     ``n_vis`` samples go to ``./demo/<vis_dir>/1/`` and the ones SR fixed to
     ``./display/<vis_dir>/``."""
     models.eval()
+    rank, world = rank_and_world()
+    crnn = models.rec_kind == "CRNN"
     totals = {"c": 0, "c_lr": 0, "c_hr": 0, "n": 0}
     stage_correct: Dict[int, int] = {}
     psnr_batches, ssim_batches = [], []
@@ -51,7 +62,7 @@ def evaluate(eval_step: EvalStep, models: EvalModels, batches: Iterable[Mapping]
         ssim_batches.append(float(outs["ssim"].mean()))
         totals["n"] += len(labels)
         preds = {k: decoder(v) for k, v in outs.items() if k.startswith("logits_")}
-        if vis_dir and bi == 0:
+        if vis_dir and bi == 0 and rank == 0:
             lr, sr, hr = _numpy(batch["lr"]), _numpy(sr), _numpy(batch["hr"])
             visualize.tripple_display(lr, sr, hr, preds["logits_lr"], preds["logits_sr"], labels, index=1,
                                       vis_dir=vis_dir, n_vis=n_vis)
@@ -69,7 +80,13 @@ def evaluate(eval_step: EvalStep, models: EvalModels, batches: Iterable[Mapping]
     for bi, batch in enumerate(batches):
         if max_batches and bi >= max_batches:
             break
-        sr, outs = eval_step(models, batch)
+        # this rank's slice; the per-sample outputs gathered along their
+        # batch axis (1 for a CRNN's [T, B, C] logits, else 0)
+        n = len(batch["labels"])
+        sr, outs = eval_step(models, {k: local_rows(batch[k], rank, world) for k in ("hr", "lr")})
+        outs = {k: gather_rows(v, n, 1 if crnn and k.startswith("logits_") else 0) for k, v in outs.items()}
+        if vis_dir and bi == 0:
+            sr = gather_rows(sr, n)
         if pending is not None:
             process(*pending)
         pending = (bi, batch, sr, outs)
@@ -88,3 +105,4 @@ def evaluate(eval_step: EvalStep, models: EvalModels, batches: Iterable[Mapping]
     for i, c in stage_correct.items():
         metrics[f"accuracy_stage{i}"] = c / n
     return metrics
+

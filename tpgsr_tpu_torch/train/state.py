@@ -80,3 +80,15 @@ def clip_sr_grads(sr: Sequence[nn.Module]) -> None:
         scale = torch.clamp(SR_CLIP_NORM / (norm + 1e-6), max=1.0)
         for g in grads:
             g.mul_(scale)
+
+
+def state_on(state: TrainState, device) -> TrainState:
+    """A copy of ``state`` on ``device``: the models copied, Adam rebuilt over
+    the copies' parameters with the same settings and state."""
+    sr = [copy.deepcopy(m).to(device) for m in state.sr]
+    stu = [copy.deepcopy(m).to(device) for m in state.stu]
+    teacher = None if state.teacher is None else copy.deepcopy(state.teacher).to(device)
+    params = [p for m in (*sr, *stu) for p in m.parameters()]
+    optimizer = type(state.optimizer)([{"params": params}], **state.optimizer.defaults)
+    optimizer.load_state_dict(state.optimizer.state_dict())
+    return TrainState(sr=sr, stu=stu, teacher=teacher, optimizer=optimizer, step=state.step)

@@ -58,6 +58,7 @@ from tpgsr_tpu_torch.models.seed import SEEDModelBuilder, parse_seed_data
 from tpgsr_tpu_torch.ops.ctc import ctc_loss, decode_crnn
 from tpgsr_tpu_torch.ops.image import append_contour_mask_u8, ssim
 from tpgsr_tpu_torch.ops.resize import interpolate_bicubic
+from tpgsr_tpu_torch.parallel import average_gradients, plain_batchnorms, rank_and_world, reduce_metrics
 from tpgsr_tpu_torch.train.priors import logits_to_prior, parse_crnn_data, prior_dropout_first_quarter
 from tpgsr_tpu_torch.train.state import TrainState, clip_sr_grads
 
@@ -326,6 +327,17 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
     tensors on the device: ``loss_img_{i}`` (the stages of a prior arch),
     ``loss_img``, ``loss_distill``, ``loss_total``.
 
+    Data parallel (the step made in a process group of W ranks,
+    ``parallel``): each rank's batch is its contiguous slice of the global
+    batch, and the step computes what the JAX step computes over the
+    global batch on its data mesh.  The trainable models' BatchNorm must be
+    global (``parallel.replicate``; a plain one raises), the prior dropout
+    zeroes the global batch's first quarter, and between the backward and
+    the clip every trainable gradient becomes its mean over the ranks (the
+    sum for ``lapsrn``, whose Charbonnier loss sums over the batch), so the
+    clip sees the global gradient; the metrics are the global batch's
+    (the ranks' mean, or sum).
+
     A cascade of several stages recomputes each SR stage in its backward
     (``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``,
     step.py:190-193): that changes memory, not results.  The recompute
@@ -358,6 +370,8 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
     want_mask = bool(args.get("mask", False))
     cw = crnn_width(int(width))
     dtype = torch_dtype(compute_dtype)
+    rank, world = rank_and_world()
+    batch_mean = spec.crit != "charbonnier"  # else the loss sums over the batch
 
     def run(model: nn.Module, *inputs: torch.Tensor) -> torch.Tensor:
         with compute_context(dev.type, dtype):
@@ -387,7 +401,8 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
                 loss_distill = loss_distill + semantic_loss(torch.softmax(logits, -1), target) * 100.0
             prior = logits_to_prior(logits)
             if cascade_arch:
-                prior = prior_dropout_first_quarter(prior)
+                b = prior.shape[0]
+                prior = prior_dropout_first_quarter(prior, rank * b, world * b)
             sr_out = _nhwc(run_sr(state.sr[0 if sr_share else i], _nchw(lr[..., :in_ch]), _nchw(prior.to(dtype))))
             loss_each = image_term(sr_out, hr)
             loss_img = loss_img + loss_each
@@ -398,6 +413,10 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
         return loss_img, loss_distill
 
     def train_step(state: TrainState, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        plain = plain_batchnorms([*state.sr, *state.stu]) if world > 1 else []
+        if plain:
+            raise RuntimeError(f"a data-parallel train step needs global BatchNorm (parallel.replicate): "
+                               f"{plain[:3]} normalize one rank's rows")
         wire = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True) for k in wire_keys if k in batch}
         hr, lr = _as_image(wire["hr"], dev, want_mask, dtype), _as_image(wire["lr"], dev, want_mask, dtype)
         for m in (*state.sr, *state.stu):
@@ -424,10 +443,11 @@ def make_train_step(args: Mapping, width: int = 128, device: DeviceLike = None,
             loss = loss + loss_aux
         if spec.trainable:
             loss.backward()
+        average_gradients((p for m in (*state.sr, *state.stu) for p in m.parameters()), average=batch_mean)
         clip_sr_grads(state.sr)
         state.optimizer.step()
         state.step += 1
         metrics.update(loss_img=loss_img.detach(), loss_distill=loss_distill.detach(), loss_total=loss.detach())
-        return metrics
+        return reduce_metrics(metrics, average=batch_mean)
 
     return train_step

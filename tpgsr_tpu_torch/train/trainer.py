@@ -28,6 +28,13 @@ over ``collate_syn_random_reso``'s lists with ``--syn`` (an eval-only mode:
 MORAN or SEED (``eval_recognizer``).
 ``--tpg OPT`` makes clova's None-ResNet-None-CTC the teacher and the students
 (``load_opt``); a CRNN of its own then scores the images.
+In a process group of several ranks (``parallel``; ``cli.main`` starts
+one for TRAIN.n_devices above 1, or joins torchrun's) each rank runs this
+loop on its card: the train loader reads the rank's slice of every global
+batch, the state is rank 0's with BatchNorm over the global batch
+(``parallel.replicate``), the step averages the gradients, val and
+``--test`` evaluate sharded and agree on every rank, and rank 0 alone
+writes checkpoints, scalars and visualizations and prints.
 What is not ported raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item (``check_ported``);
 ``dispatch_chain``, ``eval_tile`` and ``wire_uint8`` are read by nothing:
@@ -60,6 +67,7 @@ from tpgsr_tpu_torch.models.seed import SEEDModelBuilder
 from tpgsr_tpu_torch.models.registry import ABLATION_SET, TL_SIMPLE, build_model, check_arch
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
 from tpgsr_tpu_torch.ops.gru_seq import SUPPORTED_HIDDEN
+from tpgsr_tpu_torch.parallel import rank_and_world, rank_device, replicate
 from tpgsr_tpu_torch.train import checkpoint as ckpt
 from tpgsr_tpu_torch.train.evaluate import evaluate
 from tpgsr_tpu_torch.train.logging import ScalarLogger
@@ -134,14 +142,16 @@ def train_loader(train_data_dir: Sequence[str], arch: str = "tsrn_tl_cascade", m
                  keep_ratio: bool = False, wire_uint8: bool = True, device_mask: bool = True,
                  cache_images: bool = True, workers: int = 1, manualSeed: int = 1234, voc_type: str = "all",
                  max_len: int = 100, data: str = "textzoom", random_reso: bool = False,
-                 device: DeviceLike = None) -> Loader:
+                 device: DeviceLike = None, shard_index: int = 0, shard_count: int = 1) -> Loader:
     """The train loader over the directories of ``train_data_dir``
     (concatenated), read as ``data`` says (``make_dataset``: TextZoom LMDBs
     unless 'syn', 'mixed' or 'ic15sr'), shuffled from ``manualSeed`` each
     epoch, the short last batch dropped; pinned for the card unless
-    ``device`` is the CPU.  A 'mixed' dataset draws its HR-as-LR coin in
-    the process that reads it: with ``workers`` > 1 each worker draws from
-    its own copy."""
+    ``device`` is the CPU; rank ``shard_index`` of ``shard_count`` reads its
+    slice of each global batch of ``batch_size``.  A 'mixed' dataset draws
+    its HR-as-LR coin in the process that reads it: with ``workers`` > 1
+    each worker draws from its copy, reseeded every epoch as the JAX
+    loader's workers reseed theirs (``data.loader``)."""
     dev = resolve_device(device)
     sets = [make_dataset(d, data, voc_type=voc_type, max_len=max_len, cache_images=cache_images)
             for d in train_data_dir]
@@ -150,7 +160,7 @@ def train_loader(train_data_dir: Sequence[str], arch: str = "tsrn_tl_cascade", m
                            keep_ratio=keep_ratio, wire_uint8=wire_uint8, device_mask=device_mask,
                            syn=data == "syn", random_reso=random_reso)
     return make_loader(ds, int(batch_size), collate, shuffle=True, drop_last=True, seed=int(manualSeed),
-                       workers=int(workers), device=dev)
+                       workers=int(workers), device=dev, shard_index=shard_index, shard_count=shard_count)
 
 
 def val_loaders(val_data_dir: Sequence[str], arch: str = "tsrn_tl_cascade", mask: bool = False, *,
@@ -303,8 +313,6 @@ def check_ported(config: AttrDict, args: Mapping, device: torch.device) -> None:
 
     check_arch(args["arch"])
     torch_dtype(t.get("compute_dtype", "fp32"))  # raises ValueError for a value that is neither fp32 nor bf16
-    if int(t.get("n_devices", 0) or 0) > 1:
-        missing(f"TRAIN.n_devices {t.n_devices}: data parallelism over several cards", "queue 1 item 10")
     if args.get("tpg", "CRNN") not in ("CRNN", "OPT"):
         raise ValueError(f"unknown --tpg {args['tpg']!r}")
     kind = eval_rec_kind(args)
@@ -337,11 +345,16 @@ class TextSR:
     process, cuBLAS's and cuDNN's, in both precisions: the fp32 parts (fp32
     steps, and in bf16 the losses, BatchNorm, K1's state, the clip, Adam and
     eval) stay IEEE fp32.  ``opt_TPG`` is the ``--tpg OPT`` generator's
-    options (``config.tpg_opt``, which the CLI passes)."""
+    options (``config.tpg_opt``, which the CLI passes).  In a process group
+    it is one rank: on ``cuda:<local rank>`` where ``device`` names no card,
+    and ``train()``/``test()`` need the group's size to be TRAIN.n_devices
+    where that is above 0."""
 
     def __init__(self, config: AttrDict, args: AttrDict, opt_TPG: Optional[AttrDict] = None,
                  device: DeviceLike = None):
-        self.device = resolve_device(device)
+        self.device = rank_device(device)
+        self.rank, self.world = rank_and_world()
+        self.primary = self.rank == 0
         self.config = apply_arg_overrides(config, args)
         self.args = args
         self.opt_TPG = opt_TPG
@@ -379,13 +392,22 @@ class TextSR:
     def get_train_data(self) -> Loader:
         t = self.config.TRAIN
         return train_loader(t.train_data_dir, self.arch, bool(self.args.get("mask")),
-                            manualSeed=int(t.get("manualSeed", 1234)), **self._loader_kw())
+                            manualSeed=int(t.get("manualSeed", 1234)), shard_index=self.rank,
+                            shard_count=self.world, **self._loader_kw())
 
     def get_val_data(self, dirs: Optional[Sequence[str]] = None) -> List[Loader]:
         dirs = self.config.TRAIN.VAL.val_data_dir if dirs is None else dirs
         return val_loaders(dirs, self.arch, bool(self.args.get("mask")), **self._loader_kw())
 
     # ----------------------------------------------------------------- state
+    def _check_world(self) -> None:
+        """TRAIN.n_devices above 0 must be the group's size (``cli.main``
+        starts that many ranks)."""
+        n = int(self.config.TRAIN.get("n_devices", 0) or 0)
+        if n > 0 and n != self.world:
+            raise ValueError(f"TRAIN.n_devices {n} trains on {n} ranks, but this process is one of {self.world}: "
+                             "start it through cli.main, torchrun or parallel.spawn")
+
     def _eval_only(self) -> bool:
         return bool(self.args.get("go_test") or self.args.get("test") or self.args.get("demo"))
 
@@ -418,7 +440,10 @@ class TextSR:
         """SR models drawn from TRAIN.manualSeed (then a prior arch's
         teacher, CRNN or OPT, when it is not loaded), students copied from the teacher, Adam; then
         ``--resume`` (or TRAIN.resume): the periodic files, Adam and the
-        step, or for an eval-only run the best files alone."""
+        step, or for an eval-only run the best files alone.  In a group of
+        several ranks every rank then holds rank 0's state, the SR models'
+        and students' BatchNorm over the global batch
+        (``parallel.replicate``)."""
         t = self.config.TRAIN
         gen = torch.Generator().manual_seed(int(t.get("manualSeed", 1234)))
         a, cfg = registry_dicts(self.config, self.args)
@@ -428,6 +453,7 @@ class TextSR:
         resume = self.args.get("resume") or t.get("resume")
         if resume:
             ckpt.restore_checkpoint(resume, state, prefer_best=self._eval_only())
+        replicate([*state.sr, *state.stu], [state.teacher], state.optimizer)
         self._state = state
         return state
 
@@ -448,6 +474,7 @@ class TextSR:
         """The train loop (tpgsr_tpu/train/trainer.py:506-642); with
         ``--go_test``, one val over the splits with visualizations, and its
         {split: metric_dict}.  Returns the state otherwise."""
+        self._check_world()
         val_data = self.get_val_data()
         state = self._state if self._state is not None else self.init_state()
         go_test = bool(self.args.get("go_test"))
@@ -503,7 +530,7 @@ class TextSR:
                 if iters % 5 == 0:
                     log_scalars({k: float(v) for k, v in metrics.items()}, iters)
                 times.append(time.time() - t0)
-                if iters % display == 0:
+                if iters % display == 0 and self.primary:
                     display_line({k: float(v) for k, v in metrics.items()}, epoch, iters)
                 val_and_save(iters, epoch)
 
@@ -529,8 +556,9 @@ class TextSR:
                 md = self._run_val_random_reso(models, loader)
             else:
                 md = evaluate(self._eval_step, models, loader, decoder=self._decoder(), **kw)
-            print(f"  [val {name}] acc={md['accuracy']:.4f} (lr={md['accuracy_lr']:.4f} "
-                  f"hr={md['accuracy_hr']:.4f}) psnr={md['psnr_avg']:.2f} ssim={md['ssim_avg']:.4f}", flush=True)
+            if self.primary:
+                print(f"  [val {name}] acc={md['accuracy']:.4f} (lr={md['accuracy_lr']:.4f} "
+                      f"hr={md['accuracy_hr']:.4f}) psnr={md['psnr_avg']:.2f} ssim={md['ssim_avg']:.4f}", flush=True)
             for k in ("psnr_avg", "ssim_avg", "accuracy"):
                 logger.add_scalar(f"eval/{k}_{name}", md[k], iters)
             mds[name] = md
@@ -572,6 +600,7 @@ class TextSR:
         package does (the reference feeds HR, super_resolution.py:1381), read
         by the recognizer of ``--rec`` (super_resolution.py:1360-1370): one
         warm batch, then a timed pass; its metric dict with ``fps``."""
+        self._check_world()
         (loader,) = self.get_val_data([self.config.TEST.test_data_dir])
         state = self._state if self._state is not None else self.init_state()
         self.args["test_model"] = eval_rec_kind(self.args)
@@ -582,7 +611,8 @@ class TextSR:
         t0 = time.time()
         md = evaluate(self._eval_step, models, loader, decoder=decoder)
         md["fps"] = md["images"] / (time.time() - t0)
-        print({k: round(v, 4) if isinstance(v, float) else v for k, v in md.items()}, flush=True)
+        if self.primary:
+            print({k: round(v, 4) if isinstance(v, float) else v for k, v in md.items()}, flush=True)
         return md
 
     # ------------------------------------------------------------------ demo
