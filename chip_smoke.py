@@ -13,8 +13,8 @@ package beside this script):
    (csrc/bigru_seq.cu, csrc/bigru_seq_bwd.cu) or bf16 on the tensor cores
    (csrc/bigru_seq_bf16.cu, csrc/bigru_seq_bwd_bf16.cu), spills;
 3. K1 (the BiGRU recurrence) against its plain PyTorch version on the card,
-   in fp32 and in bf16, at the flagship's two sweep shapes (in bf16 also at
-   batch 512), at edge cases and at every compiled instantiation (hidden
+   in fp32 and in bf16, at the flagship's two sweep shapes at batch 48 and
+   at the packaged YAML's 512, at edge cases and at every compiled instantiation (hidden
    size x rows a thread in fp32, x rows an m-tile in bf16), with times
    beside the plain version, ``nn.GRU`` (in the same dtype) and the card's
    bound, and the launch configuration of each timed shape;
@@ -22,8 +22,8 @@ package beside this script):
 5. serving: ``evaluate`` over 4 batches of 48 at full width, with K1's
    launches counted on that run alone;
 6. K1's backward kernel (with the GEMM for dW_hh) against the plain BPTT on
-   the card, in fp32 and in bf16, at the flagship's two sweeps (in bf16 also
-   at batch 512), edge cases and every compiled instantiation, with times
+   the card, in fp32 and in bf16, at the flagship's two sweeps at batch 48
+   and 512, edge cases and every compiled instantiation, with times
    beside the plain version, ``nn.GRU`` forward + backward and the card's
    bound, and the launch configuration of each case;
 7. one flagship train step on the card against the same step on the CPU,
@@ -62,9 +62,9 @@ package beside this script):
    phase 8's fp32 images/s beside them;
 12. the packaged YAML unchanged (bf16) through ``cli.main`` over phase 9's
    TextZoom, TF32 on first: 22 iterations with a val and a save at the
-   end, the first iteration's losses against a CPU ``TextSR``, the val's
-   metric dicts against the fp32 eval step on the saved weights, and the
-   loop's images/s between the first iteration and the val.
+   end, finite first-iteration losses, the val's metric dicts against the
+   fp32 eval step on the saved weights, and the loop's images/s between the
+   first iteration and the val.
 13. the SR zoo of the repo's other train scripts (``train_TSRN.sh``,
    ``train_SRCNN.sh``, ``train_TPGSR-SRCNN.sh``, ``train_SRResNet.sh``,
    ``train_TPGSR-SRResNet.sh``, ``train_RDN.sh``, ``train_TPGSR-RDN.sh``),
@@ -73,10 +73,10 @@ package beside this script):
    weights and batch; (b) 10 train steps after 2 warm-up steps in fp32 and
    in bf16 (images/s, peak memory, K1's launches: 10 + 10 a step for
    ``tsrn``, none for the others), then ``evaluate`` over 4 batches; a
-   ``{"zoo": ...}`` line each; (c) ``cli.main`` with each script's flags,
-   on the packaged YAML (bf16) and with ``compute_dtype: fp32``, over phase
-   9's TextZoom (22 iterations, a val and a save), then ``--go_test`` from
-   the checkpoint against the val; a ``{"zoo_cli": ...}`` line each.
+   ``{"zoo": ...}`` line each; (c) ``cli.main`` with each script's flags
+   and the packaged YAML in fp32 (``compute_dtype: fp32``), over phase 9's
+   TextZoom (22 iterations, a val and a save), then ``--go_test`` from the
+   checkpoint against the val; a ``{"zoo_cli": ...}`` line each.
 
 14. ASTER and MORAN as the eval recognizer: (a) the flagship's eval step
    at batch 8 with each (and ``srcnn``'s with ASTER), card against CPU
@@ -160,6 +160,29 @@ package beside this script):
    line with both images/s (two ranks sharing one card: not a scaling
    figure), each rank's K1 launches, the drifts with the vals beside them,
    and the card's name and power limit.
+19. the dataset writers of ``data.create_lmdb``, the acceptance run and the
+   packaged YAML's batch 512: (a) three splits of words rendered with PIL at phase 9's val sizes
+   (HR 24-48 pixels high) written by ``data.create_lmdb.create_paired_dataset``,
+   40 more pairs appended to the last by ``append_paired_dataset``
+   (``append_lmdb``), every pair read back through ``TextZoomDataset`` as it
+   was written and the first commit's snapshot by its meta slot; (b)
+   ``python -m tpgsr_tpu_torch.accept_real --recognizers crnn,aster,moran``
+   in-process over those splits at batch 48 with files in the original's
+   layout written from seeded weights (``crnn.pth``, ``aster_demo.pth.tar``,
+   ``moran_demo.pth``, a generator ``model_best_0.pth``), a third of the
+   words relabelled with what each recognizer reads on their HR: every file
+   ``[ok]``, each pass's images/s and K1's launches, each accuracy recounted
+   by ``utils.metrics.accuracy`` from the decoded strings, every
+   recognizer's HR accuracy above 0, and against the same passes over the
+   first split on the CPU, the decoded SR, LR and HR strings one for one
+   (ASTER's beam may differ only at the CPU's near ties) and the metric
+   dicts; (c) the
+   flagship's fp32 eval at batch 512, flat and in tiles of 64: SR at 2e-6
+   and every output at 2e-5 apart, images/s and peak memory of each; (d)
+   ``cli.main`` with no flags (``tsrn_tl_wmask``) on the packaged YAML at
+   its batch 512 in bf16 for 20 iterations, a val over 528 pairs (flat: the YAML's
+   ``eval_tile`` is 0) and a save: images/s, peak memory, K1's launches.  Phases 3 and 6 hold K1's
+   fp32 kernels at batch 512's sweeps too.
 
 The third line from the end is ``{"phase_seconds": {...}}``, each phase's
 seconds; the line before the last is ``{"kernels": [...]}``: K1's forward and
@@ -170,7 +193,9 @@ recomputed step; ``c2f_launches``, ``opt_launches``, ``sem_launches``: phase
 16(b)'s; ``seed_eval_launches``: its SEED-scored eval; ``random_reso_launches``:
 phase 17(b)'s; ``syn_launches``, ``mixed_launches``, ``ic15sr_launches``:
 17(d)'s; ``ddp_launches``: each rank's in phase 18, the fp32 entries (a)'s
-step, the bf16 ones (b)'s training); the last is
+step, the bf16 ones (b)'s training; ``accept_launches``: phase 19(b)'s;
+``b512_launches``: phase 19(c)'s and (d)'s val's in fp32, (d)'s training's
+in bf16); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -189,16 +214,20 @@ import time
 
 import numpy as np
 import torch
-from PIL import Image, ImageDraw
+from PIL import Image
 
-from tpgsr_tpu_torch import cli, entry, parallel
-from tpgsr_tpu_torch.charset import CTC_CHAR_TO_ID
+from tpgsr_tpu_torch import accept_real, cli, entry, parallel
+from tpgsr_tpu_torch.charset import AsterInfo, encode_ctc_padded, str_filt
 from tpgsr_tpu_torch.bench_k1 import device_ms, ptxas_report
-from tpgsr_tpu_torch.config import AttrDict, build_arg_parser, load_config, script_argv
+from tpgsr_tpu_torch.config import AttrDict, build_arg_parser, load_config, registry_dicts, script_argv
 from tpgsr_tpu_torch.data.collate import CollateConfig, collate_syn_random_reso
+from tpgsr_tpu_torch.data.create_lmdb import append_paired_dataset, create_paired_dataset, render_word
 from tpgsr_tpu_torch.data.datasets import ConcatDataset, SingleImageLMDB, TextZoomDataset
-from tpgsr_tpu_torch.data.lmdb import write_lmdb
-from tpgsr_tpu_torch.ops import _build, gru_seq, rnn
+from tpgsr_tpu_torch.data.lmdb import LMDBReader, write_lmdb
+from tpgsr_tpu_torch.models import aster, moran
+from tpgsr_tpu_torch.models.layers import init_torch_defaults_
+from tpgsr_tpu_torch.models.registry import build_model
+from tpgsr_tpu_torch.ops import _build, gru_seq, rnn, tiling
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
 from tpgsr_tpu_torch.ops.image import append_contour_mask_u8
 from tpgsr_tpu_torch.profile_eval import trace
@@ -212,6 +241,7 @@ from tpgsr_tpu_torch.train.state import LR as TRAIN_LR
 from tpgsr_tpu_torch.train.trainer import load_crnn
 from tpgsr_tpu_torch.train.evaluate import evaluate
 from tpgsr_tpu_torch.train.step import EvalModels, make_eval_step, make_train_step, rec_decoder, recognizer_input
+from tpgsr_tpu_torch.utils import metrics
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside the tensor
 # cores and dense bf16 on them; the comparisons run with TF32 off.
@@ -221,6 +251,7 @@ PEAK_BF16_FLOP_PER_S = 989e12
 DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
 BATCH = 48
+BIG_BATCH = 512  # the packaged YAML's TRAIN.batch_size
 SERVE_BATCHES = 4
 TRAIN_STEPS = 20
 # timed train steps an arch in phases 13, 15 and 16 (the flagship's phases 8
@@ -370,13 +401,13 @@ def phase_k1(dtype: torch.dtype = torch.float32):
     # the kernel's and cuBLAS's differently ordered sums compound over 64
     # dependent steps, so 2e-5 there.  bf16 outputs within one bf16 ulp of
     # the plain version's plus the same atol (``agrees``).
-    # the first ``timed`` cases are timed: the flagship's sweeps, in bf16 also
-    # at batch 512
+    # the first four cases are timed: the flagship's sweeps at batch 48 and at
+    # the packaged YAML's 512
     cases = [
         ("sweep over W, B=48", BATCH * 16, 64, 64, 32, 2e-5),
         ("sweep over H, B=48", BATCH * 64, 16, 64, 32, 1e-5),
-        *([("sweep over W, B=512", 512 * 16, 64, 64, 32, 2e-5), ("sweep over H, B=512", 512 * 64, 16, 64, 32, 1e-5)]
-          if dtype == torch.bfloat16 else []),
+        ("sweep over W, B=512", BIG_BATCH * 16, 64, 64, 32, 2e-5),
+        ("sweep over H, B=512", BIG_BATCH * 64, 16, 64, 32, 1e-5),
         ("ragged N", 771, 64, 64, 32, 2e-5),
         ("T=1", 37, 1, 64, 32, 1e-5),
         ("H=8", 100, 20, 16, 8, 1e-5),
@@ -386,7 +417,7 @@ def phase_k1(dtype: torch.dtype = torch.float32):
         ("T=3 < S", 37, 3, 64, 32, 1e-5),
         ("T=13, not a multiple of S", 45, 13, 64, 32, 1e-5),
     ]
-    timed = 4 if dtype == torch.bfloat16 else 2
+    timed = 4
     stages = gru_seq.BF16_RING_STAGES if dtype == torch.bfloat16 else gru_seq.RING_STAGES
     max_err, shapes = 0.0, []
     for i, (label, n, t, c, h, tol) in enumerate(cases):
@@ -639,20 +670,20 @@ def phase_k1_backward(dtype: torch.dtype = torch.float32):
     # (label, N, T, C, H).  dxp at 2e-5, 5e-5 at T = 64 (a reverse chain of 64
     # dependent steps compounds differently ordered fp32 sums); in bf16,
     # within one bf16 ulp of the plain version's plus the same atol
-    # the first ``timed`` cases are timed: the flagship's sweeps, in bf16 also
-    # at batch 512
+    # the first four cases are timed: the flagship's sweeps at batch 48 and at
+    # the packaged YAML's 512
     cases = [
         ("sweep over W, B=48", BATCH * 16, 64, 64, 32),
         ("sweep over H, B=48", BATCH * 64, 16, 64, 32),
-        *([("sweep over W, B=512", 512 * 16, 64, 64, 32), ("sweep over H, B=512", 512 * 64, 16, 64, 32)]
-          if dtype == torch.bfloat16 else []),
+        ("sweep over W, B=512", BIG_BATCH * 16, 64, 64, 32),
+        ("sweep over H, B=512", BIG_BATCH * 64, 16, 64, 32),
         ("ragged N", 771, 64, 64, 32),
         ("T=1", 37, 1, 64, 32),
         ("T=3", 37, 3, 64, 32),
         ("H=8", 100, 20, 16, 8),
         ("H=16", 100, 20, 32, 16),
     ]
-    timed = 4 if dtype == torch.bfloat16 else 2
+    timed = 4
     max_err, shapes = 0.0, []
     for i, (label, n, t, c, h) in enumerate(cases):
         x, fw, bw, xp, w_hh, b_hh, out, grad_out = backward_case(200 + i, n, t, c, h, dtype)
@@ -825,18 +856,6 @@ def phase_train(compute_dtype: str = "fp32"):
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     print("train " + json.dumps(train), flush=True)
     return launches, backward_launches, train
-
-
-# the word renderer of tests/fixtures.py: text on a dark background, noise
-def render_word(word: str, size, seed: int = 0) -> Image.Image:
-    rng = np.random.default_rng(seed)
-    bg = rng.integers(0, 80, 3)
-    img = Image.new("RGB", size, tuple(int(c) for c in bg))
-    d = ImageDraw.Draw(img)
-    d.text((2, 2), word, fill=(int(200 + rng.integers(0, 55)),) * 3)
-    arr = np.asarray(img, np.float32)
-    noise = rng.normal(0, 8, arr.shape)
-    return Image.fromarray(np.clip(arr + noise, 0, 255).astype(np.uint8))
 
 
 def _jpeg(img: Image.Image) -> bytes:
@@ -1328,12 +1347,9 @@ CTC_LABEL_LEN = 15  # collate_real_wtl_amask's max_label_len
 def with_ctc_labels(batch):
     """``batch`` with its words encoded as ``--use_label``'s keys, as
     collate_real_wtl_amask encodes them (every synthetic word has a label)."""
-    words = batch["labels"]
-    ids = [[CTC_CHAR_TO_ID[ch] for ch in w] for w in words]
-    return {"hr": batch["hr"], "lr": batch["lr"],
-            "ctc_labels": np.array([x + [0] * (CTC_LABEL_LEN - len(x)) for x in ids], np.int32),
-            "ctc_lengths": np.array([len(x) for x in ids], np.int32),
-            "weighted_tics": np.ones(len(words), np.float32)}
+    ctc_labels, ctc_lengths = encode_ctc_padded(batch["labels"], CTC_LABEL_LEN)
+    return {"hr": batch["hr"], "lr": batch["lr"], "ctc_labels": ctc_labels, "ctc_lengths": ctc_lengths,
+            "weighted_tics": np.ones(len(ctc_lengths), np.float32)}
 
 
 def bf16_step_runs(args, batch):
@@ -1438,10 +1454,10 @@ def phase_packaged_yaml(root: str, train_dirs, val_dirs):
     """Phase 12: the packaged YAML as it is (compute_dtype 'bf16') through
     ``cli.main`` in ``root`` over phase 9's TextZoom (22 batches of 48), TF32
     on first: the entry point turns it off; a val and a save at iteration
-    22; the first iteration's losses against a CPU ``TextSR`` on the same
-    YAML at ``BF16_LOSS_RTOL``; the val's metric dicts equal the fp32 eval
-    step's on the saved weights (PSNR and SSIM at 1e-4); the loop's images/s
-    and K1's launches between the end of the first iteration and the val."""
+    22; finite first-iteration losses (phase 11(a) holds the bf16 step to
+    the CPU's); the val's metric dicts equal the fp32 eval step's on the
+    saved weights (PSNR and SSIM at 1e-4); the loop's images/s and K1's
+    launches between the end of the first iteration and the val."""
     cfg = load_config()
     check(cfg.TRAIN.compute_dtype == "bf16", f"the packaged YAML says compute_dtype {cfg.TRAIN.compute_dtype}")
     iterations = TRAIN_PAIRS // BATCH
@@ -1480,22 +1496,8 @@ def phase_packaged_yaml(root: str, train_dirs, val_dirs):
         want = 2 * N_SRB * (iterations - 1)
         check(window == [want, want], f"packaged YAML: K1 launched {window} times in the window, expected {want}")
         card = {k: float(v) for k, v in probe.metrics[0].items()}
+        check(all(np.isfinite(v) for v in card.values()), f"packaged YAML iteration 1: losses {card}")
         del state
-
-        # the first iteration on the CPU, from the same seed and batch
-        args = AttrDict(vars(build_arg_parser().parse_args(argv)))
-        cpu_cfg = load_config(config_path)
-        cpu_cfg.TRAIN.workers = 0
-        cpu = trainer.TextSR(cpu_cfg, args, device="cpu")
-        cpu_state = cpu.init_state()
-        cpu._build_steps()
-        loader = cpu.get_train_data()
-        loader.batch_sampler.epoch = 0
-        cpu_losses = {k: float(v) for k, v in cpu._train_step(cpu_state, next(iter(loader))).items()}
-        del loader, cpu, cpu_state
-        for k, v in cpu_losses.items():
-            check(np.isfinite(card[k]) and abs(card[k] - v) <= BF16_LOSS_RTOL[k] * abs(v),
-                  f"packaged YAML iteration 1 {k}: card {card[k]} vs CPU {v} (rtol {BF16_LOSS_RTOL[k]})")
 
         # the val against the fp32 eval step on the saved weights
         mission = trainer.TextSR(load_config(config_path), AttrDict(vars(build_arg_parser().parse_args(
@@ -1513,7 +1515,7 @@ def phase_packaged_yaml(root: str, train_dirs, val_dirs):
     out = {"compute_dtype": "bf16", "batch": BATCH, "iterations": iterations, "window_iterations": iterations - 1,
            "window_s": window_s, "images_per_s": BATCH * (iterations - 1) / window_s,
            "first_iteration_s": probe.first_step_end - start, "run_s": run_s, "val_s": val["t1"] - val["t0"],
-           "k1_launches": window[0], "k1_backward_launches": window[1], "card_losses": card, "cpu_losses": cpu_losses}
+           "k1_launches": window[0], "k1_backward_launches": window[1], "card_losses": card}
     print(json.dumps({"packaged_yaml": out}), flush=True)
     # what phase 18(b) holds the same run on two ranks to
     return {**out, "val": val["out"], "ckpt_dir": ckpt_dir}
@@ -1704,16 +1706,13 @@ def zoo_eval(argv, batches):
 
 
 def zoo_cli(root: str, script: str, train_dirs, val_dirs, compute_dtype: str):
-    """(c) ``cli.main`` with ``script``'s flags and the packaged YAML (bf16),
-    or the same with ``compute_dtype: fp32``, over phase 9's TextZoom (the
-    first of its train LMDBs in bf16), TF32 on first: one epoch of 22
-    iterations (11 in bf16) with a val and a save at its end,
+    """(c) ``cli.main`` with ``script``'s flags and the packaged YAML with
+    ``compute_dtype`` in place of its bf16, over phase 9's TextZoom, TF32 on
+    first: one epoch of 22 iterations with a val and a save at its end,
     then ``--go_test`` from that checkpoint, whose metric dicts equal the
     val's (the same weights, PSNR and SSIM at 1e-4); K1's launches over both
     runs."""
     name = f"{script[len('train_'):-len('.sh')]}_{compute_dtype}"
-    if compute_dtype == "bf16":  # the first train LMDB only: half the depth of the fp32 run
-        train_dirs = train_dirs[:1]
     iterations = len(ConcatDataset([TextZoomDataset(d) for d in train_dirs])) // BATCH
     cfg = load_config()
     check(cfg.TRAIN.compute_dtype == "bf16", f"the packaged YAML says compute_dtype {cfg.TRAIN.compute_dtype}")
@@ -1777,7 +1776,8 @@ def host_load():
 def phase_zoo(root: str, train_dirs, val_dirs):
     """Phase 13: for each of the seven scripts, (a) card against CPU, (b) fp32
     and bf16 training and eval on the card, (c) the script through the CLI
-    on the packaged YAML (bf16) and in fp32.
+    in fp32 (phases 12, 15(c) and 19(d) run the CLI on the packaged YAML's
+    bf16).
     Returns ``tsrn``'s K1 launches in (b): fp32 and bf16, each (forward,
     backward)."""
     t0 = time.perf_counter()
@@ -1816,14 +1816,13 @@ def phase_zoo(root: str, train_dirs, val_dirs):
         print(json.dumps({"zoo": out}), flush=True)
     n_val = sum(-(-n // BATCH) for n in VAL_PAIRS)
     for script in ZOO_SCRIPTS:
-        for dtype in ("bf16", "fp32"):
-            cli_out = zoo_cli(root, script, train_dirs, val_dirs, dtype)
-            iters = cli_out["iterations"]
-            k1 = script == "train_TSRN.sh"
-            want = (2 * N_SRB * (iters + 2 * n_val) if k1 else 0, 2 * N_SRB * iters if k1 else 0)
-            got = (cli_out["k1_launches"], cli_out["k1_backward_launches"])
-            check(got == want, f"{script} ({dtype}) through the CLI: K1 launched {got} times, expected {want}")
-            print(json.dumps({"zoo_cli": cli_out}), flush=True)
+        cli_out = zoo_cli(root, script, train_dirs, val_dirs, "fp32")
+        iters = cli_out["iterations"]
+        k1 = script == "train_TSRN.sh"
+        want = (2 * N_SRB * (iters + 2 * n_val) if k1 else 0, 2 * N_SRB * iters if k1 else 0)
+        got = (cli_out["k1_launches"], cli_out["k1_backward_launches"])
+        check(got == want, f"{script} (fp32) through the CLI: K1 launched {got} times, expected {want}")
+        print(json.dumps({"zoo_cli": cli_out}), flush=True)
     print(f"zoo: phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
@@ -1834,7 +1833,6 @@ def phase_zoo(root: str, train_dirs, val_dirs):
 ZOO_REST_SRB = {"tsrn_tl_wmask": N_SRB, "tsrn_tl": N_SRB, "textzoom_net": 6}
 REMAT_FLAGS = ["--arch", "tsrn_tl_cascade", "--STN", "--mask", "--use_distill", "--gradient", "--stu_iter=2"]
 SRRESNET3_SCRIPT = "train_TPGSR-SRResNet.sh"  # --stu_iter=3 --sr_share
-BIG_BATCH = 512  # the packaged YAML's TRAIN.batch_size
 
 
 def remat_big_batch(rng):
@@ -3102,6 +3100,406 @@ def phase_ddp(root: str, train_dirs, val_dirs, packaged, smi: str):
             "bf16": [c[0] for c in b["counts"]], "bf16_backward": [c[1] for c in b["counts"]]}
 
 
+# phase 19: the dataset writers, the acceptance run and the packaged YAML's
+# batch 512.  (a)'s splits: phase 9's val sizes, HR 24 to 48 pixels high and
+# 3 to 5 times as wide; a second commit of 40 pairs appended to the last
+ACCEPT_HEIGHTS = (24, 48)
+ACCEPT_APPEND = 40
+ACCEPT_RECS = ("CRNN", "ASTER", "MORAN")  # (b)'s recognizers, in the order of --recognizers
+ACCEPT_NOISE_ROWS = 16  # rows on which (b) measures ASTER's chain noise, card against CPU
+# tests/test_train.py::test_eval_step_tiled_equivalence's bounds: SR, then every output.
+# The per-sample MSE is held in the SR's units (divided by 255^2): on its
+# 255^2 scale an fp32 MSE near 1e4 has an ulp of ~1e-3, and the tiles' SR,
+# 3.4e-7 from the flat one's on the H100 (cuDNN picks its algorithms by
+# batch), moves it by a few ulps (3.9e-3)
+TILED_SR_ATOL, TILED_OUT_ATOL = 2e-6, 2e-5
+TILED_UNITS = {"mse": 255.0 ** 2}
+B512_EVAL_REPEATS = 5  # timed evals of a batch of 512, after a warm one
+B512_CLI_EPOCHS = 10  # (d): 2 iterations an epoch over phase 9's 1,056 train pairs; 19 timed
+
+
+def _jpeg_decoded(img: Image.Image) -> np.ndarray:
+    """What a reader decodes of ``img`` as ``data.create_lmdb`` writes it (JPEG, 95)."""
+    buf = io.BytesIO()
+    img.convert("RGB").save(buf, "JPEG", quality=95)
+    return np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+
+
+def accept_words(rng, n: int, seed: int):
+    """``n`` rendered words: (HR images, words)."""
+    words = random_words(rng, n)
+    heights = rng.integers(ACCEPT_HEIGHTS[0], ACCEPT_HEIGHTS[1] + 1, n)
+    widths = (heights * rng.uniform(3.0, 5.0, n)).astype(int)
+    images = [render_word(w, (int(x), int(h)), seed=seed + j) for j, (w, x, h) in enumerate(zip(words, widths, heights))]
+    return images, words
+
+
+def hr_reads(recs, hr, dev: str):
+    """What each recognizer of ``recs`` ({kind: module}) reads on each HR
+    image as the eval step sees it: the pairs written to a scratch split,
+    read back through a val loader (JPEG, then 32x128), turned into the
+    recognizer's input (``recognizer_input``) and decoded (``rec_decoder``).
+    Returns {kind: [reads]}."""
+    voc = load_config().TRAIN.voc_type
+    with tempfile.TemporaryDirectory(prefix="reads-") as tmp:
+        create_paired_dataset(tmp, hr, ["x"] * len(hr))
+        (loader,) = trainer.val_loaders([tmp], "tsrn_tl_cascade", mask=True, **loader_kw(BATCH, dev, workers=0))
+        reads = {kind: [] for kind in recs}
+        with torch.no_grad():
+            for batch in loader:
+                hr_t = batch["hr"].to(dev).float() / 255.0
+                for kind, rec in recs.items():
+                    out = rec(recognizer_input(kind, hr_t))
+                    reads[kind] += rec_decoder(kind, voc)(out[0] if kind == "MORAN" else out)
+    return reads
+
+
+def accept_splits(root: str, files, dev: str = "cuda"):
+    """(a) easy/medium/hard under ``root`` by ``create_paired_dataset`` (LR
+    bicubic at half size), 40 more pairs appended to the last as a second
+    commit; word j relabelled with what recognizer j mod 3 (the CRNN, ASTER,
+    MORAN of ``files``) reads on its HR on ``dev``, lowercased to what
+    accuracy compares, where that is not empty, so that no recognizer's HR
+    accuracy is 0 by construction.  Each split read back through
+    ``TextZoomDataset``: every HR, LR and label is what was written; the
+    last split's first commit still reads by its meta slot.  Returns the
+    split directories and the relabelled words of each recognizer."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    cfg = load_config()
+    cfg.TRAIN.VAL.update(crnn_pretrained=files["crnn"], rec_pretrained=files["aster"], moran_pretrained=files["moran"])
+    recs = {kind: trainer.eval_recognizer(kind, cfg, device=dev) for kind in ACCEPT_RECS}
+    parts = [accept_words(rng, n, seed=19_000 + 1_000 * i) for i, n in enumerate(VAL_PAIRS)]
+    parts.append(accept_words(rng, ACCEPT_APPEND, seed=19_900))
+    relabelled = {kind: 0 for kind in ACCEPT_RECS}
+    for hr, words in parts:
+        reads = hr_reads(recs, hr, dev)
+        for j in range(len(words)):
+            kind = ACCEPT_RECS[j % len(ACCEPT_RECS)]
+            read = str_filt(reads[kind][j], "lower")
+            if read:
+                words[j] = read
+                relabelled[kind] += 1
+    del recs
+    dirs = []
+    for name, (hr, words) in zip(accept_real.SPLITS, parts):
+        dirs.append(f"{root}/{name}")
+        check(create_paired_dataset(dirs[-1], hr, words) == len(hr), f"create_lmdb: {name} not written whole")
+    check(append_paired_dataset(dirs[-1], *parts[-1]) == ACCEPT_APPEND, "create_lmdb: the appended pairs not written")
+    build_s = time.perf_counter() - t0
+    written = parts[:2] + [(parts[2][0] + parts[3][0], parts[2][1] + parts[3][1])]
+    for d, (hr, words) in zip(dirs, written):
+        ds = TextZoomDataset(d, voc_type="all")
+        check(len(ds) == len(words), f"create_lmdb: {d} reads {len(ds)} pairs, {len(words)} written")
+        for i, (img, word) in enumerate(zip(hr, words)):
+            got_hr, got_lr, label = ds[i]
+            lr = img.resize((img.size[0] // 2, img.size[1] // 2), Image.BICUBIC)
+            check(label == word and np.array_equal(np.asarray(got_hr.convert("RGB")), _jpeg_decoded(img))
+                  and np.array_equal(np.asarray(got_lr.convert("RGB")), _jpeg_decoded(lr)),
+                  f"create_lmdb: {d} item {i} is not what was written")
+    readers = sorted((LMDBReader(dirs[-1], meta_slot=s) for s in (0, 1)), key=lambda r: r.txnid)
+    n_last = VAL_PAIRS[-1]
+    check(readers[0].get(b"num-samples") == str(n_last).encode()
+          and readers[0].get(b"label-%09d" % (n_last + 1)) is None
+          and readers[1].get(b"num-samples") == str(n_last + ACCEPT_APPEND).encode(),
+          "create_lmdb: the first commit's snapshot does not read by its meta slot")
+    check(all(relabelled.values()), f"create_lmdb: a recognizer read nothing on the HR {relabelled}")
+    out = {"splits": [len(w) for _, w in written], "appended": ACCEPT_APPEND, "relabelled": relabelled, "build_s": build_s,
+           "txnids": [r.txnid for r in readers], "s": time.perf_counter() - t0}
+    for r in readers:
+        r.close()
+    print(json.dumps({"create_lmdb": out}), flush=True)
+    return dirs
+
+
+def accept_files(root: str):
+    """(b)'s files in the original's layout, from seeded weights:
+    ``crnn.pth`` (phase 17's sharpened CRNN), ``aster_demo.pth.tar`` (a
+    ``state_dict`` entry beside an epoch) and ``moran_demo.pth``, each drawn
+    and sharpened as phase 14's, and a flagship generator
+    ``model_best_0.pth`` with ``state_dict_G``."""
+    os.makedirs(root, exist_ok=True)
+    files = {"crnn": sharpened_crnn(f"{root}/crnn.pth"), "aster": f"{root}/aster_demo.pth.tar",
+             "moran": f"{root}/moran_demo.pth", "ckpt": f"{root}/model_best_0.pth"}
+    cfg = load_config()
+    info = AsterInfo(cfg.TRAIN.voc_type)
+    gen = torch.Generator().manual_seed(19)
+    rec = aster.RecognizerBuilder(info.rec_num_classes, info.char2id[info.EOS], max_len_labels=info.max_len)
+    torch.save({"state_dict": sharpen_recognizer_(rec.init_from_(gen), "ASTER").state_dict(), "epoch": 0},
+               files["aster"])
+    torch.save(sharpen_recognizer_(moran.MORAN().init_from_(gen), "MORAN").state_dict(), files["moran"])
+    sr = build_model("tsrn_tl_cascade", *registry_dicts(cfg, AttrDict(STN=True, mask=True, srb=N_SRB, hd_u=32)))[0]
+    torch.save({"state_dict_G": init_torch_defaults_(sr, gen).state_dict()}, files["ckpt"])
+    return files
+
+
+def aster_flips_within_margin(files, images, flips):
+    """(b)'s rule for ASTER's strings on the first split, card against CPU:
+    its 100-step beam search, from seeded weights that read to the length
+    limit, may pick another beam on the card only where the CPU's own
+    decisions were a near tie, as phase 14 holds it.  For each of ``images``
+    (the CPU pass's SR, LR and HR, NHWC) whose rows ``flips`` lists as
+    differing, ``rec_reads`` on those rows and the first
+    ``ACCEPT_NOISE_ROWS``: every differing row's CPU margin within
+    ``REC_MARGIN_FACTOR`` times the chain's noise (the card's score error on
+    the rows whose ids agree), and at least half the rows equal, as phase
+    14 asks.  Returns {kind: rows, margins, noise, threshold}."""
+    cfg = load_config()
+    cfg.TRAIN.VAL.update(rec_pretrained=files["aster"])
+    card, cpu = (trainer.eval_recognizer("ASTER", cfg, device=d) for d in ("cuda", "cpu"))
+    out = {}
+    for k, rows in flips.items():
+        check(2 * len(rows) <= len(images[k]), f"accept_real aster: {len(rows)} of {len(images[k])} {k} strings differ")
+        if not rows:
+            continue
+        idx = sorted(set(range(min(ACCEPT_NOISE_ROWS, len(images[k])))) | set(rows))
+        with torch.no_grad():
+            r = rec_reads("ASTER", card, cpu, recognizer_input("ASTER", images[k][idx]))
+        ids_g, ids_c = r["ids"]
+        agree = (ids_g.cpu() == ids_c).reshape(len(ids_c), -1).all(dim=1)
+        noise = float((r["chain_score"][0].cpu() - r["chain_score"][1])[agree].abs().max()) if agree.any() else 0.0
+        threshold = REC_MARGIN_FACTOR * max(noise, 1e-7)
+        margins = {j: float(r["margins"][idx.index(j)]) for j in rows}
+        check(all(m <= threshold for m in margins.values()),
+              f"accept_real aster {k}: a row differs beyond its margin {margins} > {threshold}")
+        out[k] = {"rows": rows, "margins": margins, "noise": noise, "threshold": threshold}
+    return out
+
+
+def phase_accept_run(root: str, split_dirs, files, smi: str):
+    """(b) ``python -m tpgsr_tpu_torch.accept_real --recognizers
+    crnn,aster,moran`` in-process on the card over (a)'s splits at batch 48
+    (loading in the calling process) with (b)'s files: each file reported
+    ``[ok]``; each recognizer's ``--go_test`` pass timed (images/s of the
+    pass: ``TextSR``'s start, its loaders and the val), K1's launches
+    counted (10 an SR batch), each split's SR, LR and HR accuracies
+    recounted by ``utils.metrics.accuracy`` from the strings the pass
+    decoded, every recognizer's HR accuracy above 0 (a third of the words
+    are its reads); then the same passes over the first split on the CPU,
+    whose decoded SR, LR and HR strings the card's equal one for one (for
+    ASTER, but in rows ``aster_flips_within_margin`` admits) and whose
+    metric dicts the card's equal (PSNR and SSIM at 1e-4, each accuracy
+    within the share of its rows whose strings differ, the rest exactly)."""
+    t0 = time.perf_counter()
+    argv = ["--textzoom", os.path.dirname(split_dirs[0]), "--recognizers", "crnn,aster,moran", "--batch", str(BATCH),
+            "--workers", "0", "--json", f"{root}/accept.json"] + [f"--{k}={v}" for k, v in files.items()]
+    times, recounts, decoded, images = {}, [], {}, {}
+    go_test, real_evaluate = accept_real.run_go_test, trainer.evaluate
+    current = ["card", None]  # the pass under way: "card" or "cpu", its recognizer
+
+    def tapped_go_test(ns, dirs, rec, device):
+        current[1] = rec
+        if current[0] == "cpu":
+            return go_test(ns, dirs, rec, device)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        out = go_test(ns, dirs, rec, device)
+        torch.cuda.synchronize()
+        times[rec] = time.perf_counter() - s0
+        return out
+
+    def recounting_evaluate(step, models, batches, max_batches=0, decoder=decode_crnn, **kw):
+        logits, labels = {"sr": [], "lr": [], "hr": []}, []
+
+        def tapped_step(m, batch):
+            sr, outs = step(m, batch)
+            for k, v in logits.items():
+                v.append(outs[f"logits_{k}"])
+            if current == ["cpu", "aster"]:
+                images.setdefault("aster", []).append(
+                    {"sr": sr, **{k: port_step._as_image(batch[k], torch.device("cpu"), True) for k in ("lr", "hr")}})
+            return sr, outs
+
+        def tapped_batches():
+            for batch in batches:
+                labels.extend(str_filt(g, "lower") for g in batch["labels"])
+                yield batch
+
+        md = real_evaluate(tapped_step, models, tapped_batches(), max_batches, decoder=decoder, **kw)
+        preds = {k: [str_filt(p, "lower") for out in v for p in decoder(out)] for k, v in logits.items()}
+        for k, key in (("sr", "accuracy"), ("lr", "accuracy_lr"), ("hr", "accuracy_hr")):
+            recounts.append((md[key], metrics.accuracy(preds[k], labels)))
+        decoded.setdefault(tuple(current), []).append(preds)
+        return md
+
+    out = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(root)
+    gru_seq.LAUNCHES = 0
+    accept_real.run_go_test, trainer.evaluate = tapped_go_test, recounting_evaluate
+    try:
+        with contextlib.redirect_stdout(out):
+            results = accept_real.main(argv)
+        launches = gru_seq.LAUNCHES
+        ns = accept_real.build_parser().parse_args(argv)
+        cpu_s, cpu = {}, {}
+        current[0] = "cpu"
+        for rec in results:
+            s0 = time.perf_counter()
+            cpu[rec] = tapped_go_test(ns, split_dirs[:1], rec, "cpu")
+            cpu_s[rec] = time.perf_counter() - s0
+    finally:
+        accept_real.run_go_test, trainer.evaluate = go_test, real_evaluate
+        os.chdir(cwd)
+    print(out.getvalue(), end="", flush=True)
+    for label in ("crnn", "aster", "moran", "generator"):
+        check(f"  [ok]   {label}: " in out.getvalue(), f"accept_real: {label}'s file not reported [ok]")
+    check("=== acceptance table" in out.getvalue(), "accept_real printed no table")
+    n_images = [n + (ACCEPT_APPEND if i == len(VAL_PAIRS) - 1 else 0) for i, n in enumerate(VAL_PAIRS)]
+    for rec, mds in results.items():
+        check(list(mds) == list(accept_real.SPLITS) and [md["images"] for md in mds.values()] == n_images
+              and all(np.isfinite(v) for md in mds.values() for v in md.values()), f"accept_real {rec}: {mds}")
+        check(all(md["accuracy_hr"] > 0 for md in mds.values()), f"accept_real: {rec} read no HR word of a split {mds}")
+    check(len(recounts) == 3 * 3 * (len(n_images) + 1) and all(a == b for a, b in recounts),
+          f"accept_real: accuracies against utils.metrics.accuracy of the decoded strings {recounts}")
+    n_batches = sum(-(-n // BATCH) for n in n_images)
+    check(launches == 3 * 2 * N_SRB * n_batches, f"accept_real: K1 launched {launches} times, expected "
+          f"{3 * 2 * N_SRB * n_batches}")
+    name = accept_real.SPLITS[0]
+    strings, flips = 0, {}
+    for rec in results:
+        (card_first, *_), (cpu_first,) = decoded[("card", rec)], decoded[("cpu", rec)]
+        for k, want in cpu_first.items():
+            differ = [j for j, (g, w) in enumerate(zip(card_first[k], want)) if g != w]
+            check(len(card_first[k]) == len(want) == VAL_PAIRS[0] and (rec == "aster" or not differ),
+                  f"accept_real {rec} {name}: the card's {k} strings differ from the CPU's at {differ[:10]}")
+            flips[(rec, k)] = differ
+            strings += len(want)
+    aster_images = {k: torch.cat([part[k] for part in images["aster"]]) for k in ("sr", "lr", "hr")}
+    aster_flips = aster_flips_within_margin(files, aster_images, {k: flips[("aster", k)] for k in aster_images})
+    for rec in results:
+        got, want = dict(results[rec][name]), dict(cpu[rec][name])
+        for k, key in (("sr", "accuracy"), ("lr", "accuracy_lr"), ("hr", "accuracy_hr")):
+            bound = len(flips[(rec, k)]) / VAL_PAIRS[0]
+            check(abs(got.pop(key) - want.pop(key)) <= bound,
+                  f"accept_real {rec} {name} {key}: card {results[rec][name][key]} vs CPU {cpu[rec][name][key]}")
+        check_metric_dicts(got, want, f"accept_real {rec} {name}, card against CPU")
+    row = {"card": smi, "batch": BATCH, "images": sum(n_images), "k1_launches": launches,
+           "images_per_s": {rec: sum(n_images) / s for rec, s in times.items()}, "pass_s": times,
+           "accuracy_recounts": len(recounts), "cpu_compare_split": name, "strings_compared": strings,
+           "aster_flips": aster_flips,
+           "cpu_s": cpu_s, "metrics": results, "s": time.perf_counter() - t0}
+    print(json.dumps({"accept_real": row}), flush=True)
+    return launches
+
+
+def _max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_b512_eval(smi: str):
+    """(c) The flagship's fp32 eval step at the packaged YAML's batch 512,
+    flat (``eval_tile`` 0, the default) and in tiles of 64, on one batch:
+    SR at ``TILED_SR_ATOL``, every output (per-sample MSE in the SR's units,
+    SSIM, each ``logits_*``) at ``TILED_OUT_ATOL``; K1's launches (10 flat, 80 in
+    tiles); images/s by CUDA events over ``B512_EVAL_REPEATS`` steps after a
+    warm one, and peak memory, of each."""
+    models, _ = entry.flagship(device="cuda", seed=0)
+    batch = synthetic_batch(np.random.default_rng(512), BIG_BATCH, labels=False)
+    rows, results = {}, {}
+    for name, tile in (("flat", 0), ("tiled", tiling.DEFAULT_TILE)):
+        step = make_eval_step(entry.FLAGSHIP_ARGS, entry.TRAIN_WIDTH, device="cuda", tile=tile)
+        gru_seq.LAUNCHES = 0
+        results[name] = step(models, batch)
+        torch.cuda.synchronize()
+        launches = gru_seq.LAUNCHES
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(B512_EVAL_REPEATS):
+            step(models, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / B512_EVAL_REPEATS
+        rows[name] = {"tile": tile, "k1_launches": launches, "ms_per_batch": ms,
+                      "images_per_s": BIG_BATCH / (ms / 1e3), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    (sr_f, outs_f), (sr_t, outs_t) = results["flat"], results["tiled"]
+    errs = {"sr": _max_err(sr_t, sr_f),
+            **{k: _max_err(outs_t[k], v) / TILED_UNITS.get(k, 1.0) for k, v in outs_f.items()}}
+    check(set(outs_t) == set(outs_f) and sr_t.shape == sr_f.shape
+          and all(outs_t[k].shape == v.shape for k, v in outs_f.items()), "batch 512: tiled outputs' shapes")
+    check(errs["sr"] <= TILED_SR_ATOL and all(e <= TILED_OUT_ATOL for k, e in errs.items() if k != "sr"),
+          f"batch 512: tiled against flat {errs} beyond {TILED_SR_ATOL} / {TILED_OUT_ATOL}")
+    check(rows["flat"]["k1_launches"] == 2 * N_SRB and rows["tiled"]["k1_launches"] == 2 * N_SRB * BIG_BATCH // 64,
+          f"batch 512: K1 launches {rows}")
+    out = {"card": smi, "batch": BIG_BATCH, "max_abs_err": errs, "mse_max_abs_err": _max_err(outs_t["mse"], outs_f["mse"]),
+           **rows}
+    print(json.dumps({"b512_eval": out}), flush=True)
+    return rows["flat"]["k1_launches"] + rows["tiled"]["k1_launches"]
+
+
+def phase_b512_cli(root: str, train_dirs, smi: str):
+    """(d) ``cli.main`` with no flags (the default arch, ``tsrn_tl_wmask``) on
+    the packaged YAML, unchanged but for the data directories, the depth
+    (``B512_CLI_EPOCHS`` epochs of 2 iterations over phase 9's train
+    LMDBs) and one val with a save at the end, over phase 9's first train
+    LMDB (528 pairs: a batch of 512, then 16; flat, as the YAML's
+    ``eval_tile: 0`` says): bf16 train steps at batch 512, K1's launches (10
+    + 10 an iteration, 20 in the val), peak memory and images/s between the
+    first iteration and the val."""
+    cfg = load_config()
+    check(cfg.TRAIN.batch_size == BIG_BATCH and cfg.TRAIN.compute_dtype == "bf16" and cfg.TRAIN.eval_tile == 0,
+          f"the packaged YAML: batch {cfg.TRAIN.batch_size}, {cfg.TRAIN.compute_dtype}, tile {cfg.TRAIN.eval_tile}")
+    iterations = B512_CLI_EPOCHS * (TRAIN_PAIRS // BIG_BATCH)
+    cfg.TRAIN.update(train_data_dir=list(train_dirs), epochs=B512_CLI_EPOCHS, saveInterval=iterations,
+                     ckpt_dir=f"{root}/ckpt_b512")
+    cfg.TRAIN.VAL.update(val_data_dir=list(train_dirs[:1]), valInterval=iterations)
+    config_path = f"{root}/b512.yaml"
+    with open(config_path, "w") as f:
+        json.dump(cfg, f)  # JSON is YAML
+    argv = ["--vis_dir", "b512_default", "--config", config_path]
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        probe = TrainerProbe()
+        gru_seq.LAUNCHES = gru_seq.BACKWARD_LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        with probe.installed():
+            state = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - start
+    finally:
+        os.chdir(cwd)
+    (val,) = [e for e in probe.events if e["name"] == "val"]
+    (split,) = val["out"].values()
+    val_launches = val["counts1"][0] - val["counts0"][0]
+    check(state.step == iterations and probe.compute_dtypes == ["bf16"] and len(state.sr) == 1,
+          f"batch 512 CLI: step {state.step}, {probe.compute_dtypes}")
+    check(os.path.exists(f"{root}/ckpt_b512/b512_default/checkpoint_0.pth"), "batch 512 CLI: no save")
+    check(split["images"] == TRAIN_PAIRS // 2 and all(np.isfinite(v) for v in split.values()), f"val {split}")
+    val_batches = -(-(TRAIN_PAIRS // 2) // BIG_BATCH)
+    want = (2 * N_SRB * (iterations + val_batches), 2 * N_SRB * iterations)
+    got = (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES)
+    check(got == want and val_launches == 2 * N_SRB * val_batches, f"batch 512 CLI: K1 launched {got}, "
+          f"{val_launches} in the val; expected {want}")
+    window_s = val["t0"] - probe.first_step_end
+    out = {"card": smi, "arch": "tsrn_tl_wmask", "batch": BIG_BATCH, "compute_dtype": "bf16", "iterations": iterations,
+           "images_per_s": BIG_BATCH * (iterations - 1) / window_s, "window_s": window_s,
+           "first_iteration_s": probe.first_step_end - start, "val_s": val["t1"] - val["t0"], "run_s": run_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "k1_launches": got, "val_k1_launches": val_launches,
+           "losses_first": {k: float(v) for k, v in probe.metrics[0].items()}, "val": split, "host": host_load()}
+    print(json.dumps({"b512_cli": out}), flush=True)
+    del state
+    return {"fp32": val_launches, "bf16": got[0] - val_launches, "bf16_backward": got[1]}
+
+
+def phase_accept(root: str, train_dirs, smi: str):
+    """Phase 19: (a) the dataset writers, (b) the acceptance run, (c) the flagship's
+    eval at batch 512 flat and in tiles, (d) the CLI as shipped at batch
+    512.  Returns K1's launches: (b)'s; (c)'s and (d)'s val's (fp32); (d)'s
+    training's (bf16, forward and backward)."""
+    t0 = time.perf_counter()
+    files = accept_files(f"{root}/accept_files")
+    split_dirs = accept_splits(f"{root}/accept_tz", files)
+    accept_launches = phase_accept_run(root, split_dirs, files, smi)
+    eval_launches = phase_b512_eval(smi)
+    cli_launches = phase_b512_cli(root, train_dirs, smi)
+    print(f"accept: phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"accept": accept_launches, "b512": eval_launches + cli_launches["fp32"], "b512_bf16": cli_launches["bf16"],
+            "b512_bf16_backward": cli_launches["bf16_backward"]}
+
+
 def per_sr(rows, keys):
     """Each key summed over the two sweep rows at batch 48, times N_SRB: one
     SR forward (or backward) at batch 48; None where a row has none (a
@@ -3265,6 +3663,9 @@ def main() -> int:
         # 18. data parallelism: two gloo ranks on the card, one NCCL rank
         ddp = phase_ddp(root, train_dirs, val_dirs, packaged, smi.splitlines()[0])
         lap("18 data parallelism")
+        # 19. the dataset writers, the acceptance run, the packaged YAML's batch 512
+        accept = phase_accept(root, train_dirs, smi.splitlines()[0])
+        lap("19 create_lmdb, acceptance run, batch 512")
 
     kernels = [
         forward_entry(torch.float32, shapes, ptxas, launches, max_err, train_launches=train_launches,
@@ -3274,7 +3675,7 @@ def main() -> int:
                       remat_launches=rest["remat"][0], c2f_launches=newest[("tsrn_c2f", "fp32")][0],
                       opt_launches=newest[("opt", "fp32")][0], sem_launches=newest[("sem_tsrn", "fp32")][0],
                       seed_eval_launches=newest["seed_eval"], random_reso_launches=modes["random_reso"],
-                      ddp_launches=ddp["fp32"],
+                      ddp_launches=ddp["fp32"], accept_launches=accept["accept"], b512_launches=accept["b512"],
                       **{f"{flag}_launches": modes[(flag, "fp32")][0] for flag in MODE_FLAGS}),
         backward_entry(torch.float32, bwd_shapes, bwd_ptxas, backward_launches, bwd_err,
                        lmdb_train_launches=lmdb_train["k1_backward_launches"],
@@ -3288,15 +3689,19 @@ def main() -> int:
                       packaged_yaml_launches=packaged["k1_launches"], zoo_launches=zoo["bf16"][0],
                       tl_simple_launches=rest["bf16"][0], c2f_launches=newest[("tsrn_c2f", "bf16")][0],
                       opt_launches=newest[("opt", "bf16")][0], ddp_launches=ddp["bf16"],
+                      b512_launches=accept["b512_bf16"],
                       **{f"{flag}_launches": modes[(flag, "bf16")][0] for flag in MODE_FLAGS}),
         backward_entry(torch.bfloat16, bf16_bwd_shapes, bwd_ptxas, bf16_backward_launches, bf16_bwd_err,
                        packaged_yaml_launches=packaged["k1_backward_launches"], zoo_launches=zoo["bf16"][1],
                        tl_simple_launches=rest["bf16"][1], c2f_launches=newest[("tsrn_c2f", "bf16")][1],
                        opt_launches=newest[("opt", "bf16")][1], ddp_launches=ddp["bf16_backward"],
+                       b512_launches=accept["b512_bf16_backward"],
                        **{f"{flag}_launches": modes[(flag, "bf16")][1] for flag in MODE_FLAGS}),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
+        check(all(k[key] > 0 for key in ("accept_launches", "b512_launches") if key in k),
+              f"{k['name']} was not launched in phase 19")
         check(len(k["ddp_launches"]) == DDP_WORLD and min(k["ddp_launches"]) > 0,
               f"{k['name']} was not launched on every rank of phase 18")
     print(json.dumps({"phase_seconds": seconds}), flush=True)

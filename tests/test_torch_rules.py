@@ -10,7 +10,7 @@ import torch
 from tests.torch_suite import port_test_module  # noqa: F401  (the run's compile cache, no TensorBoard)
 
 from tpgsr_tpu_torch import device as port_device
-from tpgsr_tpu_torch import cli, entry, parallel, profile_zoo
+from tpgsr_tpu_torch import accept_real, cli, entry, parallel, profile_zoo
 from tpgsr_tpu_torch.config import default_args, load_config, tpg_opt
 from tpgsr_tpu_torch.data.loader import make_loader
 from tpgsr_tpu_torch.models.registry import NOT_PORTED, PORTED_ARCHS
@@ -81,6 +81,7 @@ def test_port_imports_no_jax():
     lambda: parallel.join_env(),
     lambda: cli.run(["--arch", "tsrn_tl_cascade"]),
     lambda: cli.run_rank(["--arch", "tsrn_tl_cascade"]),
+    lambda: accept_real.main(["--dry-run"]),
 ])
 def test_entry_points_default_to_the_card(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -42,7 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 from PIL import Image
 
-from tpgsr_tpu_torch.charset import CTC_CHAR_TO_ID, CTC_NUM_CLASSES
+from tpgsr_tpu_torch.charset import CTC_CHAR_TO_ID, CTC_NUM_CLASSES, encode_ctc_padded
 from tpgsr_tpu_torch.data.transforms import normalize, pil_downsample, resize_normalize, resize_normalize_keep_ratio
 
 
@@ -137,18 +137,13 @@ def collate_real_wtl_amask(batch, cfg: CollateConfig) -> Dict:
     hr, lr, labels = _stack_pairs(batch, cfg)
     b = len(labels)
     label_vecs = np.zeros((b, 1, cfg.prior_len, CTC_NUM_CLASSES), np.float32)
-    ctc_labels = np.zeros((b, cfg.max_label_len), np.int32)
-    ctc_lengths = np.zeros((b,), np.int32)
-    weighted_tics = np.zeros((b,), np.float32)
-    for i, word in enumerate(labels):
-        word = word.lower()[: cfg.max_label_len]
-        ids = [CTC_CHAR_TO_ID[ch] for ch in word if ch in CTC_CHAR_TO_ID]
-        if ids:
+    words = [word.lower()[: cfg.max_label_len] for word in labels]
+    ctc_labels, ctc_lengths = encode_ctc_padded(words, cfg.max_label_len)
+    weighted_tics = (ctc_lengths > 0).astype(np.float32)
+    for i, word in enumerate(words):
+        if ctc_lengths[i]:
             rows = _onehot_rows(word)
             label_vecs[i, 0, : rows.shape[0]] = rows
-            ctc_labels[i, : len(ids)] = ids
-            ctc_lengths[i] = len(ids)
-            weighted_tics[i] = 1.0
         else:
             label_vecs[i, 0, 0, 0] = 1.0  # blank-label fallback (dataset.py:1305-1310)
     return {"hr": hr, "lr": lr, "labels": labels, "label_vecs": label_vecs, "ctc_labels": ctc_labels,

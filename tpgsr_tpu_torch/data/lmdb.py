@@ -12,7 +12,13 @@ written directly:
   the mmap.  Lookups are pure Python.
 * ``write_lmdb``: a valid single-commit ``data.mdb`` from key/value pairs:
   bottom-up B+tree packing, overflow pages for large values, two meta pages.
-  Its output is byte-identical to the JAX package's ``write_lmdb``.
+* ``append_lmdb``: a further commit, copy-on-write as a liblmdb write
+  transaction makes it (pages reused from the freelist, the freelist tree
+  written anew, the new meta in the stale slot, the old snapshot still
+  readable by ``meta_slot``).
+
+Both write byte for byte what the JAX package's ``write_lmdb`` and
+``append_lmdb`` write (tpgsr_tpu/data/lmdb.py:536-663).
 
 Format: LMDB's public ``mdb.c``/``lmdb.h`` layout (BSD-licensed): meta magic
 0xBEEFC0DE, version 1, 16-byte page headers, uint16 node offsets growing up
@@ -97,15 +103,16 @@ class LMDBReader:
     def _read_meta(self, off: int) -> Optional[dict]:
         m = self._mm
         try:
-            magic, version, _addr, _mapsize = struct.unpack_from(_META_PREFIX_FMT, m, off)
+            magic, version, _addr, mapsize = struct.unpack_from(_META_PREFIX_FMT, m, off)
         except struct.error:
             return None
         if magic != MDB_MAGIC or version != MDB_DATA_VERSION:
             return None
         free_db = struct.unpack_from(_DB_FMT, m, off + _META_PREFIX_SIZE)
         main_db = struct.unpack_from(_DB_FMT, m, off + _META_PREFIX_SIZE + _DB_SIZE)
-        _last_pg, txnid = struct.unpack_from("<QQ", m, off + _META_PREFIX_SIZE + 2 * _DB_SIZE)
-        return {"psize": free_db[0], "main": main_db, "txnid": txnid}
+        last_pg, txnid = struct.unpack_from("<QQ", m, off + _META_PREFIX_SIZE + 2 * _DB_SIZE)
+        return {"mapsize": mapsize, "psize": free_db[0], "free": free_db, "main": main_db, "last_pg": last_pg,
+                "txnid": txnid}
 
     def _parse_meta(self):
         # meta 0 at page 0, meta 1 at page 1: the page size comes from meta 0
@@ -123,7 +130,9 @@ class LMDBReader:
             meta = max(valid, key=lambda mt: mt["txnid"])
         self.psize = meta["psize"]
         self.txnid = meta["txnid"]
+        self.last_pg = meta["last_pg"]
         (_pad, _flags, self.depth, _bp, _lp, _op, self.entries, self.root) = meta["main"]
+        self.free_root = meta["free"][7]
 
     # -- page / node parsing -----------------------------------------------
 
@@ -196,11 +205,13 @@ class LMDBReader:
             else:
                 raise LMDBError(f"unexpected page flags {flags:#x}")
 
-    def items(self) -> Iterator[Tuple[bytes, bytes]]:
-        """In-order scan of every key/value pair."""
-        if self.root == P_INVALID:
+    def items(self, root: Optional[int] = None) -> Iterator[Tuple[bytes, bytes]]:
+        """In-order scan of every key/value pair of the tree at ``root`` (the
+        main tree's by default)."""
+        root = self.root if root is None else root
+        if root == P_INVALID:
             return
-        stack: List[Tuple[int, int]] = [(self.root, 0)]
+        stack: List[Tuple[int, int]] = [(root, 0)]
         while stack:
             pgno, idx = stack.pop()
             off, flags = self._page(pgno)
@@ -211,6 +222,41 @@ class LMDBReader:
             elif idx < n:
                 stack.append((pgno, idx + 1))
                 stack.append((self._branch_key_child(off, idx)[1], 0))
+
+    def freelist(self) -> Dict[int, List[int]]:
+        """The FREE_DBI's contents, {freeing txnid: [pgno, ...]}: liblmdb keys
+        it by the txnid that freed the pages (little-endian u64) with IDL
+        values, a u64 count then the pgnos in descending order."""
+        out: Dict[int, List[int]] = {}
+        for k, v in self.items(self.free_root):
+            count = struct.unpack_from("<Q", v, 0)[0]
+            out[struct.unpack("<Q", k)[0]] = list(struct.unpack_from(f"<{count}Q", v, 8))
+        return out
+
+    def tree_pages(self, root: Optional[int] = None) -> List[int]:
+        """Every page reachable from ``root`` (the main tree's by default):
+        branch, leaf and overflow pages, which a copy-on-write commit frees."""
+        root = self.root if root is None else root
+        if root == P_INVALID:
+            return []
+        pages: List[int] = []
+        stack = [root]
+        while stack:
+            pgno = stack.pop()
+            pages.append(pgno)
+            off, flags = self._page(pgno)
+            n = self._num_keys(off)
+            if flags & P_BRANCH:
+                stack.extend(self._branch_key_child(off, i)[1] for i in range(n))
+            elif flags & P_LEAF:
+                for i in range(n):
+                    node_off = self._node_off(off, i)
+                    _lo, _hi, fl, ksize = struct.unpack_from("<HHHH", self._mm, node_off)
+                    if fl & F_BIGDATA:
+                        ov_pgno = struct.unpack_from("<Q", self._mm, node_off + 8 + ksize)[0]
+                        npages = struct.unpack_from("<I", self._mm, ov_pgno * self.psize + 12)[0]
+                        pages.extend(range(ov_pgno, ov_pgno + npages))
+        return pages
 
     def close(self):
         self._mm.close()
@@ -233,17 +279,37 @@ def _even(n: int) -> int:
 
 
 class _PageBuilder:
-    """Pages of one commit, numbered from 2 (pages 0 and 1 are the metas)."""
+    """Pages of one commit, new ones numbered from ``next_pgno`` (pages 0 and
+    1 are the metas).  ``free_pool`` holds the page numbers the freelist lets
+    the commit reuse, kept descending as liblmdb's me_pghead: a single page
+    comes from its end (the smallest first, mdb_page_alloc), a run of
+    overflow pages from the first consecutive run in it, else from the end
+    of the file; ``used_from_pool`` records what was taken."""
 
-    def __init__(self, psize: int):
+    def __init__(self, psize: int, next_pgno: int = 2, free_pool: Optional[List[int]] = None):
         self.psize = psize
         self.pages: Dict[int, bytes] = {}
-        self.next_pgno = 2
+        self.next_pgno = next_pgno
+        self.free_pool = sorted(free_pool or [], reverse=True)
+        self.used_from_pool: List[int] = []
         self.n_branch = 0
         self.n_leaf = 0
         self.n_overflow = 0
 
     def alloc(self, count: int = 1) -> int:
+        if count == 1 and self.free_pool:
+            pgno = self.free_pool.pop()
+            self.used_from_pool.append(pgno)
+            return pgno
+        if count > 1 and self.free_pool:
+            asc = self.free_pool[::-1]
+            for i in range(len(asc) - count + 1):
+                if asc[i + count - 1] == asc[i] + count - 1:
+                    run = asc[i : i + count]
+                    for p in run:
+                        self.free_pool.remove(p)
+                    self.used_from_pool.extend(run)
+                    return run[0]
         pgno = self.next_pgno
         self.next_pgno += count
         return pgno
@@ -296,9 +362,10 @@ def _branch_node(key: bytes, child_pgno: int) -> bytes:
     return head + key
 
 
-def _build_tree(builder: _PageBuilder, pairs: List[Tuple[bytes, bytes]]) -> Tuple[int, int]:
+def _build_tree(builder: _PageBuilder, pairs: List[Tuple[bytes, bytes]]) -> Tuple[int, int, Tuple[int, int, int]]:
     """Pack sorted pairs into a B+tree, leaves first, then each branch level;
-    returns (root, depth)."""
+    returns (root, depth, (branch, leaf, overflow pages of this tree))."""
+    counts0 = (builder.n_branch, builder.n_leaf, builder.n_overflow)
     nodemax = ((builder.psize - PAGEHDRSZ) // 2) & ~1  # mdb_env_init me_nodemax
     psize = builder.psize
 
@@ -339,30 +406,46 @@ def _build_tree(builder: _PageBuilder, pairs: List[Tuple[bytes, bytes]]) -> Tupl
         return _branch_node(b"" if first else key, child)
 
     if not pairs:
-        return P_INVALID, 0
+        return P_INVALID, 0, (0, 0, 0)
     level, depth = pack(pairs, P_LEAF, leaf), 1
     while len(level) > 1:
         level, depth = pack(level, P_BRANCH, branch), depth + 1
-    return level[0][1], depth
+    counts = (builder.n_branch, builder.n_leaf, builder.n_overflow)
+    return level[0][1], depth, tuple(c - c0 for c, c0 in zip(counts, counts0))
 
 
-def _meta_page_bytes(psize: int, pgno: int, txnid: int, mapsize: int, last_pg: int,
-                     main: Tuple[int, int, Tuple[int, int, int], int]) -> bytes:
-    """A meta page; ``main`` is (root, depth, (branch, leaf, overflow pages),
-    entries), and the freelist is empty."""
+# a tree's (root, depth, (branch, leaf, overflow pages), entries)
+TreeMeta = Tuple[int, int, Tuple[int, int, int], int]
+EMPTY_TREE: TreeMeta = (P_INVALID, 0, (0, 0, 0), 0)
+
+
+def _meta_page_bytes(psize: int, pgno: int, txnid: int, mapsize: int, last_pg: int, main: TreeMeta,
+                     free: TreeMeta = EMPTY_TREE) -> bytes:
+    """A meta page: ``main`` and ``free`` are the main tree's and the
+    freelist tree's ``TreeMeta`` (the freelist empty by default)."""
     buf = bytearray(psize)
     struct.pack_into("<QHHHH", buf, 0, pgno, 0, P_META, 0, 0)
     off = PAGEHDRSZ
     struct.pack_into(_META_PREFIX_FMT, buf, off, MDB_MAGIC, MDB_DATA_VERSION, 0, mapsize)
     off += _META_PREFIX_SIZE
+    f_root, f_depth, (f_b, f_l, f_o), f_entries = free
     # FREE_DBI: md_pad carries the page size
-    struct.pack_into(_DB_FMT, buf, off, psize, 0, 0, 0, 0, 0, 0, P_INVALID)
+    struct.pack_into(_DB_FMT, buf, off, psize, 0, f_depth, f_b, f_l, f_o, f_entries, f_root)
     off += _DB_SIZE
     m_root, m_depth, (m_b, m_l, m_o), m_entries = main
     struct.pack_into(_DB_FMT, buf, off, 0, 0, m_depth, m_b, m_l, m_o, m_entries, m_root)
     off += _DB_SIZE
     struct.pack_into("<QQ", buf, off, last_pg, txnid)
     return bytes(buf)
+
+
+def _sorted_pairs(items: Iterable[Tuple[bytes, bytes]]) -> List[Tuple[bytes, bytes]]:
+    """The pairs in LMDB's bytewise key order; raises for a key LMDB refuses."""
+    pairs = sorted(items, key=lambda kv: kv[0])
+    for k, _ in pairs:
+        if not 0 < len(k) <= 511:
+            raise LMDBError(f"invalid key length {len(k)}")
+    return pairs
 
 
 def write_lmdb(path: str, items: Iterable[Tuple[bytes, bytes]], psize: int = 4096, map_extra: int = 0) -> str:
@@ -373,16 +456,12 @@ def write_lmdb(path: str, items: Iterable[Tuple[bytes, bytes]], psize: int = 409
     metas describe the same tree (txnid 0 and 1) and the freelist is empty,
     the layout liblmdb gives a freshly created environment.
     """
-    pairs = sorted(items, key=lambda kv: kv[0])
-    for k, _ in pairs:
-        if not 0 < len(k) <= 511:
-            raise LMDBError(f"invalid key length {len(k)}")
-
+    pairs = _sorted_pairs(items)
     builder = _PageBuilder(psize)
-    root, depth = _build_tree(builder, pairs)
+    root, depth, counts = _build_tree(builder, pairs)
     last_pg = builder.next_pgno - 1
     mapsize = max(builder.next_pgno * psize + map_extra, 1 << 20)
-    main = (root, depth, (builder.n_branch, builder.n_leaf, builder.n_overflow), len(pairs))
+    main = (root, depth, counts, len(pairs))
 
     os.makedirs(path, exist_ok=True)
     out = os.path.join(path, "data.mdb")
@@ -392,3 +471,59 @@ def write_lmdb(path: str, items: Iterable[Tuple[bytes, bytes]], psize: int = 409
         for pgno in range(2, builder.next_pgno):
             f.write(builder.pages[pgno])
     return out
+
+
+def append_lmdb(path: str, items: Iterable[Tuple[bytes, bytes]]) -> str:
+    """Commit ``items`` (new keys, or new values of old keys) into the
+    database at ``path``, copy-on-write as a liblmdb write transaction, and
+    return the data file's path:
+
+    * the new main tree takes its pages from the previous freelist first
+      (``_PageBuilder``'s order), then from the end of the file;
+    * every page of the previous main tree and freelist tree is freed under
+      the committing txnid, beside what older entries did not give back;
+    * the new freelist tree is allocated from the end of the file only: a
+      page it took from the pool would be listed free while it holds the
+      list itself, and a later commit would overwrite it;
+    * the new meta overwrites the stale slot (the lower txnid), so the
+      previous snapshot stays readable by ``LMDBReader(path, meta_slot=...)``.
+    """
+    data_file = _data_file(path)
+    with LMDBReader(path) as env:
+        psize, txnid = env.psize, env.txnid
+        merged = dict(env.items())
+        freed_now = sorted(set(env.tree_pages()) | set(env.tree_pages(env.free_root)), reverse=True)
+        old_freelist = env.freelist()
+        next_pgno = env.last_pg + 1
+        m0, m1 = env._read_meta(PAGEHDRSZ), env._read_meta(psize + PAGEHDRSZ)
+    stale_slot = 0 if (m0["txnid"] if m0 else -1) <= (m1["txnid"] if m1 else -1) else 1
+    mapsize_old = (m0 or m1)["mapsize"]
+
+    merged.update(items)
+    pairs = _sorted_pairs(merged.items())
+    pool = sorted({p for pgs in old_freelist.values() for p in pgs})  # freed by earlier commits
+    builder = _PageBuilder(psize, next_pgno=next_pgno, free_pool=pool)
+    root, depth, counts = _build_tree(builder, pairs)
+
+    consumed = set(builder.used_from_pool)
+    builder.free_pool = []
+    new_freelist = {t: kept for t, pgs in old_freelist.items() if (kept := [p for p in pgs if p not in consumed])}
+    if freed_now:
+        new_freelist[txnid + 1] = freed_now
+    free_pairs = [(struct.pack("<Q", t), struct.pack(f"<{len(pgs) + 1}Q", len(pgs), *sorted(pgs, reverse=True)))
+                  for t, pgs in sorted(new_freelist.items())]
+    f_root, f_depth, f_counts = _build_tree(builder, free_pairs)
+
+    mapsize = max(mapsize_old, builder.next_pgno * psize)
+    meta = _meta_page_bytes(psize, stale_slot, txnid + 1, mapsize, builder.next_pgno - 1,
+                            (root, depth, counts, len(pairs)), (f_root, f_depth, f_counts, len(free_pairs)))
+    with open(data_file, "r+b") as f:
+        f.seek(0, os.SEEK_END)
+        if builder.next_pgno * psize > f.tell():
+            f.truncate(builder.next_pgno * psize)
+        for pgno, page in builder.pages.items():
+            f.seek(pgno * psize)
+            f.write(page)
+        f.seek(stale_slot * psize)
+        f.write(meta)
+    return data_file

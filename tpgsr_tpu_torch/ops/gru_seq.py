@@ -17,7 +17,8 @@ versions are ``ops.rnn.bigru_recurrence`` and
 * A tensor on the CPU takes the plain versions, for that reason only.
 * A CUDA tensor launches the kernels or raises; nothing falls back.
 * ``LAUNCHES`` and ``BACKWARD_LAUNCHES`` count kernel launches, so a run can
-  show that its main path went through the kernels.
+  show that its main path went through the kernels; ``LAUNCH_SHAPES``, set
+  to a list, collects each forward launch's (N, T, H) for a FLOP count.
 * Each kernel's launch configuration comes from a pure function of the
   shape and the card's limits, fed that kernel's own occupancy:
   ``launch_config`` (rows a thread, grid) for the fp32 kernels,
@@ -42,6 +43,9 @@ from tpgsr_tpu_torch.ops.rnn import Params
 
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+# (N, T, H) of each forward launch while a FLOP count runs (utils.cost): the
+# kernel is reached through ctypes, which torch's FLOP counter cannot see
+LAUNCH_SHAPES: Optional[list] = None
 SUPPORTED_HIDDEN = (8, 16, 32)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)  # the storage types of xp, out, grad_out and dxp
 THREADS = 128  # threads a block: H hidden units x 128 / H row groups
@@ -281,6 +285,8 @@ def _recurrence(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"K1 bigru_seq launch failed: cudaError {err}")
     LAUNCHES += 1
+    if LAUNCH_SHAPES is not None:
+        LAUNCH_SHAPES.append((n, t, h))
     return out
 
 

@@ -35,12 +35,9 @@ import torch
 
 from tpgsr_tpu_torch.parallel import barrier, is_primary
 from tpgsr_tpu_torch.train.state import TrainState
+from tpgsr_tpu_torch.utils.cost import param_count
 
 INFO_KEYS = ("arch", "iters", "epochs", "batch_size", "voc_type", "up_scale_factor")
-
-
-def param_count(model: torch.nn.Module) -> int:
-    return sum(p.numel() for p in model.parameters())
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, info: Dict[str, Any], is_best: bool,
@@ -121,6 +118,12 @@ def load_recognizer_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return {k.replace("module.", ""): v for k, v in obj.items() if isinstance(v, torch.Tensor)}
 
 
+def load_generator_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The SR model's ``state_dict`` of a generator file in the original's
+    layout (``model_best_0.pth``: its ``state_dict_G``)."""
+    return _load(path)["state_dict_G"]
+
+
 def restore_checkpoint(ckpt_dir_or_file: str, state: TrainState, prefer_best: bool = False) -> TrainState:
     """Load a checkpoint into ``state`` in place; returns it.
 
@@ -133,9 +136,9 @@ def restore_checkpoint(ckpt_dir_or_file: str, state: TrainState, prefer_best: bo
     save.  A file: its ``state_dict_G`` into every SR stage, as the original
     loads ``--resume`` for each stage."""
     if not os.path.isdir(ckpt_dir_or_file):
-        sd = _load(ckpt_dir_or_file)
+        sd = load_generator_state_dict(ckpt_dir_or_file)
         for sr in state.sr:
-            sr.load_state_dict(sd["state_dict_G"])
+            sr.load_state_dict(sd)
         return state
     d = ckpt_dir_or_file
 

@@ -55,6 +55,7 @@ from tpgsr_tpu_torch.models.aster import RecognizerBuilder, decode_aster_ids
 from tpgsr_tpu_torch.models.moran import MORAN, decode_moran_ids
 from tpgsr_tpu_torch.models.registry import ABLATION_SET, TL_SIMPLE, check_arch
 from tpgsr_tpu_torch.models.seed import SEEDModelBuilder, parse_seed_data
+from tpgsr_tpu_torch.ops import tiling
 from tpgsr_tpu_torch.ops.ctc import ctc_loss, decode_crnn
 from tpgsr_tpu_torch.ops.image import append_contour_mask_u8, ssim
 from tpgsr_tpu_torch.ops.resize import interpolate_bicubic
@@ -207,7 +208,8 @@ def image_crit(kind: str, gradient: bool) -> Callable[[torch.Tensor, torch.Tenso
 EvalStep = Callable[[EvalModels, Mapping[str, np.ndarray]], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
-def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -> EvalStep:
+def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None,
+                   tile: int = 0) -> EvalStep:
     """``eval_step(models, batch) -> (sr, outs)``.
 
     ``args`` reads ``arch``, ``stu_iter``, ``sr_share``, ``tpg_share`` and
@@ -221,7 +223,17 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
     ``models.rec_kind`` gives for its input (``recognizer_input``): a CRNN
     its [T, B, 37] logits, ASTER its beam-search ids [B, max_len], MORAN
     its L2R logits [B, 20, 37], SEED its beam-search ids [B, max_len].
-    ``rec_decoder`` turns each into strings."""
+    ``rec_decoder`` turns each into strings.
+
+    With ``tile`` set (TRAIN.eval_tile), a batch of more than ``tile`` rows
+    that ``tile`` divides runs as tiles of ``tile`` rows, their outputs
+    joined (``ops.tiling.tiled_apply``; tpgsr_tpu/train/step.py:400-429):
+    every output is per-sample, a CRNN's time-major logits joined along
+    axis 1 and the rest along axis 0.  Under data parallelism the tile is
+    a rank's: ``evaluate`` hands each rank its own rows.  ``tile`` 0, the
+    default, runs every batch whole: on the H100 the flagship's batch 512
+    evaluates faster flat than in tiles of 64 (PERF.md), so tiles are only
+    for an eval that must bound its memory."""
     arch = args.get("arch", "tsrn_tl_cascade")
     in_ch = check_arch(arch).in_channels
     tl_arch = arch in ABLATION_SET or arch in TL_SIMPLE
@@ -267,7 +279,15 @@ def make_eval_step(args: Mapping, width: int = 128, device: DeviceLike = None) -
             outs[f"logits_stage{i}"] = recognize(models, s)
         return sr, outs
 
-    return eval_step
+    if not tile:
+        return eval_step
+
+    def tiled_eval_step(models: EvalModels, batch: Mapping[str, np.ndarray]):
+        time_major = models.rec_kind == "CRNN"
+        return tiling.tiled_apply(lambda tile_batch: eval_step(models, tile_batch), batch, tile,
+                                  batch_dim=lambda key: 1 if time_major and key.startswith("logits_") else 0)
+
+    return tiled_eval_step
 
 
 TrainStep = Callable[[TrainState, Mapping[str, np.ndarray]], Dict[str, torch.Tensor]]

@@ -35,10 +35,16 @@ batch, the state is rank 0's with BatchNorm over the global batch
 (``parallel.replicate``), the step averages the gradients, val and
 ``--test`` evaluate sharded and agree on every rank, and rank 0 alone
 writes checkpoints, scalars and visualizations and prints.
+Val, ``--go_test``, ``--test`` and ``--demo`` evaluate a batch above
+TRAIN.eval_tile rows in tiles of that many (``step.make_eval_step``); 0 or
+a missing key runs every batch whole, where the JAX package tiles at 64:
+on the card flat is the faster.  With
+TPGSR_COST_REPORT set in the environment, ``init_state`` prints the SR
+model's and the TP CRNN's FLOPs and parameters (``utils.cost``).
 What is not ported raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item (``check_ported``);
-``dispatch_chain``, ``eval_tile`` and ``wire_uint8`` are read by nothing:
-the port runs one step a dispatch on the uint8 wire.
+``dispatch_chain`` and ``wire_uint8`` are read by nothing: the port runs one
+step a dispatch on the uint8 wire.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ from tpgsr_tpu_torch.train.priors import parse_crnn_data
 from tpgsr_tpu_torch.train.random_reso import conf_threshold_of, evaluate_random_reso_loader
 from tpgsr_tpu_torch.train.state import TrainState, create_train_state
 from tpgsr_tpu_torch.train.step import REC_KINDS, EvalModels, make_eval_step, make_train_step, rec_decoder, torch_dtype
+from tpgsr_tpu_torch.utils.cost import model_cost_report
 
 # --rec of --test -> the eval recognizer (tpgsr_tpu/train/trainer.py:749-751)
 REC_MAP = {"aster": "ASTER", "moran": "MORAN", "crnn": "CRNN"}
@@ -453,9 +460,25 @@ class TextSR:
         resume = self.args.get("resume") or t.get("resume")
         if resume:
             ckpt.restore_checkpoint(resume, state, prefer_best=self._eval_only())
+        if os.environ.get("TPGSR_COST_REPORT") and self.primary:
+            self._cost_report(state)
         replicate([*state.sr, *state.stu], [state.teacher], state.optimizer)
         self._state = state
         return state
+
+    def _cost_report(self, state: TrainState) -> None:
+        """The FLOPs and parameters of the SR model at TRAIN.batch_size and of
+        the text-prior generator at batch 1, as the JAX package prints them
+        under TPGSR_COST_REPORT (tpgsr_tpu/train/trainer.py:365-377; reference
+        interfaces/base.py:372-381, 638-643): zero inputs, eval mode."""
+        t = self.config.TRAIN
+        spec = check_arch(self.arch)
+        size = (int(t.height) // self.scale_factor, int(t.width) // self.scale_factor)
+        lr = torch.zeros(int(t.batch_size), spec.in_channels, *size, device=self.device)
+        prior = torch.zeros(int(t.batch_size), CTC_NUM_CLASSES, 1, 26, device=self.device)
+        model_cost_report(state.sr[0], (lr, prior) if spec.uses_prior else (lr,), f"SR:{self.arch}")
+        if self.is_tl:
+            model_cost_report(state.teacher, (torch.zeros(1, 1, 32, 100, device=self.device),), "TP:CRNN")
 
     def _build_steps(self, with_train: bool = True) -> None:
         width = int(self.config.TRAIN.width)
@@ -463,7 +486,8 @@ class TextSR:
             self._train_step = make_train_step(self.args, width, device=self.device,
                                                compute_dtype=str(self.config.TRAIN.get("compute_dtype", "fp32")))
         if self._eval_step is None:
-            self._eval_step = make_eval_step(self.args, width, device=self.device)
+            tile = int(self.config.TRAIN.get("eval_tile", 0) or 0)
+            self._eval_step = make_eval_step(self.args, width, device=self.device, tile=tile)
 
     @staticmethod
     def _eval_models(state: TrainState, rec: Optional[torch.nn.Module] = None) -> EvalModels:

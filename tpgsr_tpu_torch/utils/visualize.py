@@ -32,8 +32,22 @@ def _grid(lr: np.ndarray, sr: np.ndarray, hr: np.ndarray) -> Image.Image:
     return canvas
 
 
+# a file name's most bytes on common file systems, and a part's share of it
+NAME_MAX = 255
+NAME_PART_MAX = 80
+
+
 def _name(pred_lr: str, pred_sr: str, label: str) -> str:
-    return f"{pred_lr}_{pred_sr}_{label}_.png".replace("/", "")
+    """``<pred_lr>_<pred_sr>_<label>_.png`` without '/', as the JAX package
+    names it; where that passes ``NAME_MAX`` bytes (a recognizer reading to
+    its 100-character limit, where the JAX package's save fails), each part
+    cut to ``NAME_PART_MAX`` bytes."""
+    parts = [p.replace("/", "") for p in (pred_lr, pred_sr, label)]
+    name = "_".join(parts) + "_.png"
+    if len(name.encode()) > NAME_MAX:
+        parts = [p.encode()[:NAME_PART_MAX].decode(errors="ignore") for p in parts]
+        name = "_".join(parts) + "_.png"
+    return name
 
 
 def tripple_display(images_lr: np.ndarray, images_sr: np.ndarray, images_hr: np.ndarray,
