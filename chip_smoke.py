@@ -10,14 +10,23 @@ package beside this script):
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: compiles every kernel under tpgsr_tpu_torch/csrc with nvcc and
    checks that no instantiation of K1's forward or backward, fp32
-   (csrc/bigru_seq.cu, csrc/bigru_seq_bwd.cu) or bf16 on the tensor cores
-   (csrc/bigru_seq_bf16.cu, csrc/bigru_seq_bwd_bf16.cu), spills;
+   (csrc/bigru_seq.cu, csrc/bigru_seq_bwd.cu), bf16 on the tensor cores
+   (csrc/bigru_seq_bf16.cu, csrc/bigru_seq_bwd_bf16.cu) or wide (H = 64
+   and 128, both ways, both storage types: csrc/bigru_seq_wide.cu), spills;
 3. K1 (the BiGRU recurrence) against its plain PyTorch version on the card,
    in fp32 and in bf16, at the flagship's two sweep shapes at batch 48 and
    at the packaged YAML's 512, at edge cases and at every compiled instantiation (hidden
    size x rows a thread in fp32, x rows an m-tile in bf16), with times
    beside the plain version, ``nn.GRU`` (in the same dtype) and the card's
-   bound, and the launch configuration of each timed shape;
+   bound, and the launch configuration of each timed shape; then the wide
+   kernels and the padded sizes (``phase_k1_wide``): the flagship's sweeps
+   at ``--hd_u`` 64 and 128 (C = 2H, batch 48; timed the same way), a
+   ragged N and T = 1 at each, H = 1, 12, 20, 40 and 100 padded to an
+   instantiated size, and every wide instantiation forced; the wrapper's
+   output the kernel's sliced back bit for bit, the padded units 0, the
+   kernel held in fp32 to an fp64 recurrence on the same projection (at
+   most twice the plain fp32 version's gap plus 1e-6) and in bf16 within
+   one bf16 ulp of the plain version;
 4. the flagship eval path on the card against the same path on the CPU;
 5. serving: ``evaluate`` over 4 batches of 48 at full width, with K1's
    launches counted on that run alone;
@@ -25,9 +34,13 @@ package beside this script):
    the card, in fp32 and in bf16, at the flagship's two sweeps at batch 48
    and 512, edge cases and every compiled instantiation, with times
    beside the plain version, ``nn.GRU`` forward + backward and the card's
-   bound, and the launch configuration of each case;
+   bound, and the launch configuration of each case; then phase 3's wide
+   and padded cases backward (``phase_k1_wide_backward``): the padded
+   units' gradients 0, dxp, dW_hh and db_hh by phase 3's rules, and the
+   wrapper's gradients through the padding against its own on the CPU;
 7. one flagship train step on the card against the same step on the CPU,
-   from the same weights and batch: losses, every gradient, BN statistics;
+   from the same weights and batch: losses, every gradient, BN statistics
+   (phases 5 and 8 also check that the flagship launches no wide kernel);
 8. training: 20 flagship train steps at batch 48 after 2 warm-up steps, with
    K1's forward and backward launches counted on that run alone, images/s
    by CUDA events and peak memory;
@@ -42,11 +55,11 @@ package beside this script):
    a second pass timed, K1's launches counted, then the same batches
    preloaded, for the twin of the same shapes;
 10. the trainer and the CLI: ``tpgsr_tpu_torch.cli.main`` in-process over
-   phase 9's TextZoom and two more train LMDBs (an epoch of 44 batches of
-   48), in the same temporary directory, from a config with
-   ``compute_dtype: fp32``: one epoch with val and saves at 22 and 44, its
-   files and scalar log, its first two iterations against a CPU ``TextSR``,
-   ``--resume`` for a second epoch, loading in the calling process (step 88,
+   phase 9's TextZoom (an epoch of 22 batches of 48), in the same
+   temporary directory, from a config with ``compute_dtype: fp32``: one
+   epoch with vals and saves at 11 and 22, its files and scalar log, its
+   first two iterations against a CPU ``TextSR``, ``--resume`` into the
+   second epoch for 3 iterations, loading in the calling process (step 25,
    global epoch 2's first batch),
    then ``--go_test`` over the three splits, and ``--go_test`` and ``--test
    --rec crnn`` over the smallest and ``--demo`` from the checkpoint against
@@ -146,8 +159,8 @@ package beside this script):
    batch, the gradients averaged) for 22 steps from the same weights and
    batches, the last 5 timed; one process runs them twice.  The first step
    at phase 7's bounds (K1 10 + 10 a rank); after the last, two ranks no
-   farther from one process than twice one process from itself (the
-   drift); ``evaluate`` over 4 val batches (the last of 29 rows) against
+   farther from one process than twice the median of three one-process
+   reruns' distances from it (the drift); ``evaluate`` over 4 val batches (the last of 29 rows) against
    the one-process metric dict; one bf16 step at phase 11's bounds of one
    process's.  (b) In the same group ``TextSR`` with TRAIN.n_devices 2
    through ``cli.run_rank`` (the CLI's per-rank function): phase 12's run
@@ -155,7 +168,8 @@ package beside this script):
    and a save) on two ranks: rank 0 alone writes, the checkpoint's keys
    and first losses are phase 12's, the val's metric dicts those of
    ``--go_test`` on rank 0's saved weights, the saved parameters no farther
-   from phase 12's than twice phase 12's command run again in one process;
+   from phase 12's than twice the median of phase 12's command run again
+   three times in one process;
    (c) one NCCL rank: three steps and an all-reduce.  A ``{"ddp": ...}``
    line with both images/s (two ranks sharing one card: not a scaling
    figure), each rank's K1 launches, the drifts with the vals beside them,
@@ -183,6 +197,14 @@ package beside this script):
    its batch 512 in bf16 for 20 iterations, a val over 528 pairs (flat: the YAML's
    ``eval_tile`` is 0) and a save: images/s, peak memory, K1's launches.  Phases 3 and 6 hold K1's
    fp32 kernels at batch 512's sweeps too.
+20. ``--hd_u`` beyond 32 on the flagship: (a) one fp32 train step at batch 8
+   on the card against the CPU at ``--hd_u`` 64 (the wide kernels) and 20
+   (padded to 32), phase 7's bounds, K1 launched 10 + 10, on the wide
+   kernels at 64 and not at 20; (b) ``cli.main`` at ``--hd_u 64`` on phase
+   12's config (the packaged YAML, bf16, batch 48, 22 iterations, a val and
+   a save), every K1 launch on the wide kernels, then ``--go_test`` from
+   its checkpoint with the val's metric dicts; a ``{"hd_u": ...}`` line
+   with images/s and peak memory beside phase 12's at ``--hd_u 32``.
 
 The third line from the end is ``{"phase_seconds": {...}}``, each phase's
 seconds; the line before the last is ``{"kernels": [...]}``: K1's forward and
@@ -195,7 +217,8 @@ phase 17(b)'s; ``syn_launches``, ``mixed_launches``, ``ic15sr_launches``:
 17(d)'s; ``ddp_launches``: each rank's in phase 18, the fp32 entries (a)'s
 step, the bf16 ones (b)'s training; ``accept_launches``: phase 19(b)'s;
 ``b512_launches``: phase 19(c)'s and (d)'s val's in fp32, (d)'s training's
-in bf16); the last is
+in bf16), and the wide kernel's four (launches: phase 20(a)'s ``--hd_u 64``
+step in fp32, 20(b)'s train window in bf16); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -203,6 +226,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import re
@@ -225,7 +249,7 @@ from tpgsr_tpu_torch.data.create_lmdb import append_paired_dataset, create_paire
 from tpgsr_tpu_torch.data.datasets import ConcatDataset, SingleImageLMDB, TextZoomDataset
 from tpgsr_tpu_torch.data.lmdb import LMDBReader, write_lmdb
 from tpgsr_tpu_torch.models import aster, moran
-from tpgsr_tpu_torch.models.layers import init_torch_defaults_
+from tpgsr_tpu_torch.models.layers import BiGRUParams, init_torch_defaults_
 from tpgsr_tpu_torch.models.registry import build_model
 from tpgsr_tpu_torch.ops import _build, gru_seq, rnn, tiling
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
@@ -470,7 +494,8 @@ def phase_k1(dtype: torch.dtype = torch.float32):
         max_err = max([max_err] + [r["max_abs_err"] for r in native])
 
     # every compiled instantiation, forced, on a ragged N at T = 13 and T = 3
-    for h in gru_seq.SUPPORTED_HIDDEN:
+    # (the wide kernels': phase_k1_wide)
+    for h in gru_seq.NARROW_HIDDEN:
         x, fw, bw = gru_case(100 + h, 3 * gru_seq.THREADS // h * 4 + 5, 13, 16, h)
         x = x.to(dtype)
         w_hh = torch.stack([fw["w_hh"], bw["w_hh"]])
@@ -535,11 +560,12 @@ def native_k1_cases():
     return rows
 
 
-def instantiations(dtype: torch.dtype, backward: bool = False):
+def instantiations(dtype: torch.dtype, backward: bool = False, hidden: int = 32):
     """Launch configurations that force each compiled instantiation of K1's
-    forward (or backward) in ``dtype`` (a hidden size apart): rows a thread
-    in fp32, rows an m-tile in bf16 (the bf16 backward's 8 only)."""
-    if dtype == torch.bfloat16:
+    forward (or backward) in ``dtype`` at ``hidden``: rows a thread in fp32
+    and in the wide kernels, rows an m-tile in the bf16 tensor-core ones
+    (the bf16 backward's 8 only)."""
+    if dtype == torch.bfloat16 and hidden in gru_seq.NARROW_HIDDEN:
         return [gru_seq.TileConfig(rows, 0, 0, 0) for rows in gru_seq.TILE_ROWS[:1 if backward else None]]
     return [gru_seq.LaunchConfig(rpt, 0, 0, 0) for rpt in gru_seq.RPTS]
 
@@ -594,6 +620,7 @@ def phase_serve(models, step):
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     gru_seq.LAUNCHES = 0
+    gru_seq.WIDE_LAUNCHES = 0
     start.record()
     t0 = time.perf_counter()
     metrics = evaluate(step, models, batches)
@@ -609,6 +636,7 @@ def phase_serve(models, step):
     check(all(0.0 <= metrics[k] <= 1.0 for k in metrics if k.startswith("accuracy")), "accuracy outside [0, 1]")
     want = 2 * N_SRB * 1 * SERVE_BATCHES  # sweeps per SR forward x stages x batches
     check(launches == want, f"K1 launched {launches} times on the main path, expected {want}")
+    check(gru_seq.WIDE_LAUNCHES == 0, f"the flagship (--hd_u 32) launched a wide kernel {gru_seq.WIDE_LAUNCHES} times")
     serve = {"batch": BATCH, "batches": SERVE_BATCHES, "images_per_s": n_images / event_s,
              "event_s": event_s, "host_s": host_s, "k1_launches": launches,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -735,7 +763,8 @@ def phase_k1_backward(dtype: torch.dtype = torch.float32):
         shapes.append(row)
 
     # every compiled instantiation, forced, on a ragged N at T = 13 and T = 3
-    for h in gru_seq.SUPPORTED_HIDDEN:
+    # (the wide kernels': phase_k1_wide_backward)
+    for h in gru_seq.NARROW_HIDDEN:
         n = 3 * gru_seq.THREADS // h * 4 + 5
         for t in (13, 3):
             _, _, _, xp, w_hh, b_hh, out, grad_out = backward_case(300 + h + t, n, t, 16, h, dtype)
@@ -753,6 +782,270 @@ def phase_k1_backward(dtype: torch.dtype = torch.float32):
         print(f"{tag} H={h}: {[f[0] for f in instantiations(dtype, backward=True)]} at N={n}, T=13 and T=3 agree "
               f"(dxp 2e-5, dW_hh/db_hh {w_rtol})", flush=True)
     return max_err, shapes
+
+
+# phases 3 and 6 beyond the flagship's H = 32: the wide kernels
+# (csrc/bigru_seq_wide.cu) at --hd_u 64 and 128 and the sizes padded to an
+# instantiated one (ops/gru_seq.py::padded_hidden).  The flagship's two
+# sweeps at batch 48 with C = 2H are timed at each wide size.
+WIDE_SWEEP_HIDDEN = (64, 128)
+PADDED_HIDDEN = (1, 12, 20, 40, 100)
+# fp32: the kernel's gap to an fp64 recurrence on the same projection is at
+# most WIDE_FP64_FACTOR times the plain fp32 version's gap plus
+# WIDE_FP64_ATOL (``fp64_rule``): a fixed atol does not scale to sums of
+# up to 3 x 128 terms.  bf16: within one bf16 ulp of the plain version's
+# plus phase 3's (6's) atol, as ``agrees`` holds the tensor-core kernels.
+WIDE_FP64_FACTOR = 2.0
+WIDE_FP64_ATOL = 1e-6
+
+
+def wide_cases():
+    """(label, N, T, C, H, timed) of phases 3's and 6's wide and padded cases."""
+    cases = []
+    for h in WIDE_SWEEP_HIDDEN:
+        cases += [(f"sweep over W, B={BATCH}, H={h}", BATCH * 16, 64, 2 * h, h, True),
+                  (f"sweep over H, B={BATCH}, H={h}", BATCH * 64, 16, 2 * h, h, True),
+                  (f"ragged N, H={h}", 771, 13, 2 * h, h, False), (f"T=1, H={h}", 37, 1, 2 * h, h, False)]
+    return cases + [(f"padded H={h}", 100, 20, 2 * h, h, False) for h in PADDED_HIDDEN]
+
+
+def padded_case(seed: int, n: int, t: int, c: int, h: int, dtype: torch.dtype):
+    """(x, fw, bw) at the real ``h`` and the wrapper's operands at the
+    instantiated size: (xp [N, T, 6Hp], w_hh [2, 3Hp, Hp], b_hh [2, 3Hp]),
+    from the zero-padded weights, as ``gru_seq.bigru`` forms them."""
+    x, fw, bw = gru_case(seed, n, t, c, h)
+    x = x.to(dtype)
+    hp = gru_seq.padded_hidden(h)
+    pfw, pbw = (rnn.pad_hidden(d, hp) for d in (fw, bw))
+    xp = rnn.input_projection(x, pfw, pbw).contiguous()
+    return x, fw, bw, (xp, torch.stack([pfw["w_hh"], pbw["w_hh"]]), torch.stack([pfw["b_hh"], pbw["b_hh"]]))
+
+
+def padded_units(h: int, hp: int, gates: int) -> torch.Tensor:
+    """The padded columns of a [.., 2 * gates * Hp] tensor (both directions'
+    ``gates`` gates of Hp units each, H real)."""
+    cols = torch.zeros(2 * gates * hp, dtype=torch.bool)
+    cols.view(2 * gates, hp)[:, h:] = True
+    return cols.cuda()
+
+
+def fp64_rule(kernel, plain, fp64, what: str, scale: float = 1.0) -> dict:
+    """The fp32 rule: ``kernel``'s max gap to ``fp64`` at most
+    WIDE_FP64_FACTOR times ``plain``'s plus WIDE_FP64_ATOL, both gaps
+    divided by ``scale`` (dW_hh is 0 at T = 1, where h_{t-1} is 0, on every
+    side)."""
+    scale = max(scale, 1e-30)
+    k = float((kernel.double() - fp64).abs().max()) / scale
+    p = float((plain.double() - fp64).abs().max()) / scale
+    check(k <= WIDE_FP64_FACTOR * p + WIDE_FP64_ATOL,
+          f"{what}: kernel {k:.3g} from fp64, plain fp32 {p:.3g} (allowed {WIDE_FP64_FACTOR} x + {WIDE_FP64_ATOL})")
+    return {"kernel_vs_fp64": k, "plain_vs_fp64": p}
+
+
+def wide_forward_check(label: str, n: int, t: int, c: int, h: int, dtype: torch.dtype, seed: int):
+    """One wide or padded forward case: the wrapper's output equals the
+    kernel's at the instantiated size sliced back, bit for bit; the padded
+    units are exactly 0; the kernel is held to the plain version on the same
+    projection (fp32: ``fp64_rule``; bf16: ``agrees``).  Returns (x, fw,
+    bw, kernel operands, row)."""
+    x, fw, bw, (xp, w_hh, b_hh) = padded_case(seed, n, t, c, h, dtype)
+    hp = xp.shape[-1] // 6
+    with torch.no_grad():
+        got = gru_seq.bigru(x, fw, bw)
+        kernel = gru_seq._launch(xp, w_hh, b_hh)
+        torch.cuda.synchronize()
+        plain = rnn.bigru_recurrence(xp, w_hh, b_hh)
+        real = rnn.bigru(x, fw, bw)
+    tag = f"K1 wide {DTYPE_NAMES[dtype]} {label}"
+    check(got.dtype == dtype and torch.isfinite(got).all().item(), f"{tag}: non-finite output")
+    check(torch.equal(got, rnn.unpad_output(kernel, h)), f"{tag}: the wrapper is not the kernel's output sliced")
+    check(not kernel[..., padded_units(h, hp, 1)].any().item(), f"{tag}: a padded unit is not 0")
+    err = float((kernel.float() - plain.float()).abs().max())
+    row = {"label": label, "dtype": DTYPE_NAMES[dtype], "N": n, "T": t, "C": c, "H": h, "Hp": hp, "max_abs_err": err,
+           "real_h_gap": float((got.float() - real.float()).abs().max())}
+    if dtype == torch.float32:
+        fp64 = rnn._recurrence(xp.double(), w_hh.double(), b_hh.double(), torch.float64)
+        row.update(fp64_rule(kernel, plain, fp64, tag))
+    else:
+        tol = 2e-5 if t >= 64 else 1e-5
+        check(agrees(kernel, plain, tol), f"{tag}: max abs err {err:.3g} beyond one bf16 ulp + {tol}")
+        row["tol"] = tol
+    return x, fw, bw, (xp, w_hh, b_hh), row
+
+
+def phase_k1_wide(dtype: torch.dtype = torch.float32):
+    """Phase 3 beyond H = 32 in ``dtype``: every ``wide_cases`` case by
+    ``wide_forward_check``, the timed sweeps with times beside the plain
+    version, ``nn.GRU`` (at the real H, in ``dtype``) and the card's bound;
+    then every instantiation of the wide kernel, forced, on a ragged N at T
+    = 13 and T = 3.  Returns (max_abs_err, rows)."""
+    name = DTYPE_NAMES[dtype]
+    elem = torch.finfo(dtype).bits // 8
+    max_err, rows = 0.0, []
+    for i, (label, n, t, c, h, timed) in enumerate(wide_cases()):
+        x, fw, bw, operands, row = wide_forward_check(label, n, t, c, h, dtype, 400 + i)
+        max_err = max(max_err, row["max_abs_err"])
+        row.update(gru_seq.config_for(n, row["Hp"], x.device, dtype=dtype)._asdict())
+        if timed:
+            lib = library_gru(c, h, fw, bw, dtype)
+            with torch.no_grad():
+                kernel_args = (operands[0], *gru_seq._kernel_weights(*operands))
+                library_ms, library_note = library_time(lambda: lib(x), device_ms)
+                row.update({
+                    "ms": median_ms(lambda: gru_seq.bigru(x, fw, bw), 50),
+                    "device_ms": device_ms(lambda: gru_seq.bigru(x, fw, bw)),
+                    "kernel_only_ms": device_ms(lambda: gru_seq._recurrence(*kernel_args)),
+                    "plain_ms": median_ms(lambda: rnn.bigru(x, fw, bw), 5, warmup=1),
+                    "library_ms": library_ms})
+                if library_note:
+                    row["library_note"] = library_note
+            row["bytes_ms"], row["operations_ms"] = bigru_bound_ms(n, t, c, h, projection=True, elem=elem)
+            row.update(bound_fields(row["bytes_ms"], row["operations_ms"]))
+            row.update(bound_fields(*bigru_bound_ms(n, t, c, h, projection=False, elem=elem), prefix="kernel_only_"))
+        print(f"K1 wide {name} " + json.dumps(row), flush=True)
+        rows.append(row)
+    for h in gru_seq.WIDE_HIDDEN:
+        n = 3 * gru_seq.block_rows(h, max(gru_seq.RPTS)) + 5
+        x, fw, bw = gru_case(500 + h, n, 13, 16, h)
+        x = x.to(dtype)
+        w_hh = torch.stack([fw["w_hh"], bw["w_hh"]])
+        b_hh = torch.stack([fw["b_hh"], bw["b_hh"]])
+        for t in (13, 3):
+            xp = rnn.input_projection(x[:, :t].contiguous(), fw, bw).contiguous()
+            plain = rnn.bigru_recurrence(xp, w_hh, b_hh)
+            fp64 = rnn._recurrence(xp.double(), w_hh.double(), b_hh.double(), torch.float64)
+            for forced in instantiations(dtype, hidden=h):
+                got = gru_seq._recurrence(xp, *gru_seq._kernel_weights(xp, w_hh, b_hh), config=forced)
+                torch.cuda.synchronize()
+                tag = f"K1 wide {name} H={h} {forced} T={t}"
+                if dtype == torch.float32:
+                    fp64_rule(got, plain, fp64, tag)
+                else:
+                    check(agrees(got, plain, 1e-5), f"{tag}: beyond one bf16 ulp + 1e-5")
+                max_err = max(max_err, float((got.float() - plain.float()).abs().max()))
+        print(f"K1 wide {name} H={h}: rows a thread {[f[0] for f in instantiations(dtype, hidden=h)]} at N={n}, "
+              "T=13 and T=3 agree", flush=True)
+    return max_err, rows
+
+
+def wide_backward_check(label: str, n: int, t: int, c: int, h: int, dtype: torch.dtype, seed: int,
+                        autograd: bool):
+    """One wide or padded backward case at the instantiated size, on the
+    kernel's own forward output and a cotangent zero on the padded units (as
+    the wrapper's slice gives it): dxp, dW_hh and db_hh exactly 0 on the
+    padded units, and held to the plain BPTT on the same operands (fp32:
+    ``fp64_rule``, dW_hh and db_hh relative to their largest fp64 entry;
+    bf16: dxp within one bf16 ulp plus atol, dW_hh and db_hh at 1e-4 of
+    their largest entry).  With ``autograd``, the wrapper's gradients
+    against the wrapper's on CPU copies (the plain versions at the real H,
+    whose backward also reads h_{t-1} from the stored output): each
+    gradient within 1e-4 (bf16: 1e-2) of its own norm.  Returns (x, fw, bw,
+    kernel operands, out, grad_out, row)."""
+    x, fw, bw, (xp, w_hh, b_hh) = padded_case(seed, n, t, c, h, dtype)
+    hp = xp.shape[-1] // 6
+    tag = f"K1 wide backward {DTYPE_NAMES[dtype]} {label}"
+    out = gru_seq._launch(xp, w_hh, b_hh)
+    g = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((n, t, 2 * h)).astype(np.float32))
+    g = g.to("cuda", dtype)
+    grad_out = torch.zeros(n, t, 2 * hp, device="cuda", dtype=dtype)
+    grad_out[..., ~padded_units(h, hp, 1)] = g
+    got = gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+    torch.cuda.synchronize()
+    want = rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+    check(all(torch.isfinite(v).all().item() for v in got), f"{tag}: non-finite output")
+    pad3 = padded_units(h, hp, 3)
+    pad_w = pad3.view(2, 3 * hp)[0]
+    check(not got[0][..., pad3].any().item() and not got[1][:, pad_w].any().item()
+          and not got[1][:, :, h:].any().item() and not got[2][:, pad_w].any().item(),
+          f"{tag}: a padded unit's gradient is not 0")
+    err = float((got[0].float() - want[0].float()).abs().max())
+    row = {"label": label, "dtype": DTYPE_NAMES[dtype], "N": n, "T": t, "C": c, "H": h, "Hp": hp, "max_abs_err": err}
+    if dtype == torch.float32:
+        fp64 = rnn._recurrence_backward(xp.double(), w_hh.double(), b_hh.double(), out.double(), grad_out.double())
+        row["dxp"] = fp64_rule(got[0], want[0], fp64[0], f"{tag} dxp")
+        for k, name in ((1, "dw_hh"), (2, "db_hh")):
+            row[name] = fp64_rule(got[k], want[k], fp64[k], f"{tag} {name}", float(fp64[k].abs().max()))
+    else:
+        tol = 5e-5 if t >= 64 else 2e-5
+        ok, rel = backward_agrees(got, want, tol, 1e-4)
+        check(ok, f"{tag}: dxp max abs err {err:.3g} (tol {tol} + 1 bf16 ulp), dW_hh / db_hh rel err {rel} (tol 1e-4)")
+        row.update({"tol": tol, "w_b_rel_err": max(rel)})
+    if autograd:
+        grads = []
+        for dev in ("cuda", "cpu"):
+            leaves = [x.detach().to(dev, copy=True).requires_grad_(True)] + [
+                {k: v.detach().to(dev, copy=True).requires_grad_(True) for k, v in d.items()} for d in (fw, bw)]
+            gru_seq.bigru(*leaves).backward(g.to(dev))
+            grads.append([leaves[0].grad.cpu()] + [d[k].grad.cpu() for d in leaves[1:] for k in sorted(d)])
+        rel = max(float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+                  for a, b in zip(*grads))
+        check(all(a.shape == b.shape for a, b in zip(*grads)) and rel <= (1e-4 if dtype == torch.float32 else 1e-2),
+              f"{tag}: the wrapper's gradients {rel:.3g} from its own on the CPU")
+        row["autograd_rel_err"] = rel
+    return x, fw, bw, (xp, w_hh, b_hh), out, grad_out, row
+
+
+def phase_k1_wide_backward(dtype: torch.dtype = torch.float32):
+    """Phase 6 beyond H = 32 in ``dtype``: every ``wide_cases`` case by
+    ``wide_backward_check`` (the untimed ones also through the wrapper's
+    autograd), the timed sweeps with times beside the plain BPTT, ``nn.GRU``
+    forward + backward and the card's bound; then every instantiation,
+    forced, on a ragged N at T = 13 and T = 3.  Returns (max_abs_err, rows)."""
+    name = DTYPE_NAMES[dtype]
+    elem = torch.finfo(dtype).bits // 8
+    max_err, rows = 0.0, []
+    for i, (label, n, t, c, h, timed) in enumerate(wide_cases()):
+        x, fw, bw, (xp, w_hh, b_hh), out, grad_out, row = wide_backward_check(label, n, t, c, h, dtype, 600 + i,
+                                                                               autograd=not timed)
+        max_err = max(max_err, row["max_abs_err"])
+        row.update(gru_seq.config_for(n, row["Hp"], x.device, backward=True, dtype=dtype)._asdict())
+        if timed:
+            w_t, b_k = gru_seq._kernel_weights(xp, w_hh, b_hh)
+            leaves = [x.clone().requires_grad_(True), *({k: v.clone().requires_grad_(True) for k, v in d.items()}
+                                                        for d in (fw, bw))]
+            g = grad_out[..., ~padded_units(h, row["Hp"], 1)].contiguous()
+            lib = library_gru(c, h, fw, bw, dtype)
+            x_lib = x.clone().requires_grad_(True)
+            library_ms, library_note = library_time(lambda: lib(x_lib)[0].backward(g), device_ms)
+            row.update({
+                "ms": device_ms(lambda: gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)),
+                "kernel_only_ms": device_ms(lambda: gru_seq._backward_kernel(xp, w_t, b_k, out, grad_out)),
+                "fwd_bwd_ms": device_ms(lambda: gru_seq.bigru(*leaves).backward(g)),
+                "library_ms": library_ms,
+                "plain_ms": median_ms(lambda: rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out), 5,
+                                      warmup=1)})
+            if library_note:
+                row["library_note"] = library_note
+            row["bytes_ms"], row["operations_ms"] = bigru_backward_bound_ms(n, t, h, elem)
+            row.update(bound_fields(row["bytes_ms"], row["operations_ms"]))
+            row.update(bound_fields(*bigru_backward_bound_ms(n, t, h, elem, kernel_only=True), prefix="kernel_only_"))
+        print(f"K1 wide backward {name} " + json.dumps(row), flush=True)
+        rows.append(row)
+    for h in gru_seq.WIDE_HIDDEN:
+        n = 3 * gru_seq.block_rows(h, max(gru_seq.RPTS)) + 5
+        for t in (13, 3):
+            _, _, _, xp, w_hh, b_hh, out, grad_out = backward_case(700 + h + t, n, t, 16, h, dtype)
+            kernel_weights = gru_seq._kernel_weights(xp, w_hh, b_hh)
+            want = rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+            fp64 = rnn._recurrence_backward(xp.double(), w_hh.double(), b_hh.double(), out.double(),
+                                            grad_out.double()) if dtype == torch.float32 else None
+            for forced in instantiations(dtype, backward=True, hidden=h):
+                dxp, dhp, h_prev = gru_seq._backward_kernel(xp, *kernel_weights, out, grad_out, config=forced)
+                got = (dxp, *gru_seq.recurrent_weight_grads(dhp, h_prev))
+                torch.cuda.synchronize()
+                tag = f"K1 wide backward {name} H={h} {forced} T={t}"
+                if fp64 is not None:
+                    fp64_rule(got[0], want[0], fp64[0], f"{tag} dxp")
+                    for k in (1, 2):
+                        fp64_rule(got[k], want[k], fp64[k], f"{tag} dW_hh/db_hh", float(fp64[k].abs().max()))
+                else:
+                    ok, rel = backward_agrees(got, want, 2e-5, 1e-4)
+                    check(ok, f"{tag}: dxp beyond one bf16 ulp + 2e-5 or dW_hh / db_hh rel err {rel} beyond 1e-4")
+                max_err = max(max_err, float((got[0].float() - want[0].float()).abs().max()))
+        print(f"K1 wide backward {name} H={h}: rows a thread "
+              f"{[f[0] for f in instantiations(dtype, backward=True, hidden=h)]} at N={n}, T=13 and T=3 agree",
+              flush=True)
+    return max_err, rows
 
 
 def grads_of(module: torch.nn.Module):
@@ -792,9 +1085,11 @@ def check_card_grads(name: str, card: torch.nn.Module, cpu: torch.nn.Module, tol
     return errs
 
 
-def phase_train_card_vs_cpu():
-    """One flagship train step from the same seeded weights and numpy batch
-    on the card and on the CPU (plain versions).  Gradients are compared, not
+def phase_train_card_vs_cpu(hidden_units: int = 32):
+    """One flagship train step at ``hidden_units`` (``--hd_u``) from the same
+    seeded weights and numpy batch on the card and on the CPU (plain
+    versions); returns K1's launches in the card's step, (forward, backward,
+    wide forward, wide backward).  Gradients are compared, not
     the parameters after Adam: its first update is lr * g / (|g| + eps),
     about +-lr wherever g is not tiny, so a gradient near zero whose sign the
     two devices round differently moves the copies 2 lr apart.  The pre-BN
@@ -807,9 +1102,12 @@ def phase_train_card_vs_cpu():
     two nearly tie and a rounding flips the sign.  Losses at rtol 1e-5, BN
     statistics after the step at 1e-4."""
     batch = synthetic_batch(np.random.default_rng(3), CARD_VS_CPU_TRAIN_BATCH, labels=False)
-    card, card_step = entry.flagship_train(device="cuda", seed=0)
-    cpu, cpu_step = entry.flagship_train(device="cpu", seed=0)
+    card, card_step = entry.flagship_train(device="cuda", seed=0, hidden_units=hidden_units)
+    cpu, cpu_step = entry.flagship_train(device="cpu", seed=0, hidden_units=hidden_units)
+    before = k1_counts()
     m_card = card_step(card, batch)
+    torch.cuda.synchronize()
+    launches = tuple(b - a for a, b in zip(before, k1_counts()))
     m_cpu = cpu_step(cpu, batch)
     for k in m_cpu:
         got, want = float(m_card[k]), float(m_cpu[k])
@@ -817,8 +1115,15 @@ def phase_train_card_vs_cpu():
     worst = {**check_card_grads("sr", card.sr[0], cpu.sr[0], 5e-3),
              **check_card_grads("stu", card.stu[0], cpu.stu[0], 3e-2)}
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
-    print(f"train card vs CPU (batch {CARD_VS_CPU_TRAIN_BATCH}): losses "
-          f"{ {k: float(v) for k, v in m_card.items()} }; worst gradient rel errs {top}", flush=True)
+    print(f"train card vs CPU (batch {CARD_VS_CPU_TRAIN_BATCH}, --hd_u {hidden_units}): losses "
+          f"{ {k: float(v) for k, v in m_card.items()} }; worst gradient rel errs {top}; K1 launches {launches}",
+          flush=True)
+    return launches
+
+
+def k1_counts():
+    """K1's launch counts: (forward, backward, wide forward, wide backward)."""
+    return (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES, gru_seq.WIDE_LAUNCHES, gru_seq.WIDE_BACKWARD_LAUNCHES)
 
 
 def phase_train(compute_dtype: str = "fp32"):
@@ -834,6 +1139,8 @@ def phase_train(compute_dtype: str = "fp32"):
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     gru_seq.LAUNCHES = 0
     gru_seq.BACKWARD_LAUNCHES = 0
+    gru_seq.WIDE_LAUNCHES = 0
+    gru_seq.WIDE_BACKWARD_LAUNCHES = 0
     start.record()
     t0 = time.perf_counter()
     metrics = [step(state, b) for b in batches[TRAIN_WARMUP:]]
@@ -847,6 +1154,8 @@ def phase_train(compute_dtype: str = "fp32"):
     want = 2 * N_SRB * TRAIN_STEPS
     check(launches == want, f"K1 forward launched {launches} times in training, expected {want}")
     check(backward_launches == want, f"K1 backward launched {backward_launches} times in training, expected {want}")
+    check(gru_seq.WIDE_LAUNCHES == gru_seq.WIDE_BACKWARD_LAUNCHES == 0,
+          "the flagship (--hd_u 32) launched a wide kernel in training")
     check(state.step == TRAIN_WARMUP + TRAIN_STEPS, f"train state at step {state.step}")
     train = {"compute_dtype": compute_dtype, "batch": BATCH, "steps": TRAIN_STEPS,
              "images_per_s": BATCH * TRAIN_STEPS / event_s,
@@ -1160,8 +1469,9 @@ def phase_trainer(root: str, train_dirs, val_dirs, lmdb_train_ips: float):
        iterations' losses against a CPU ``TextSR`` from the same seed and
        batches (1e-5, then 1e-4: one Adam update apart, the bound the CPU
        tests hold the port's second step to against JAX);
-    2. ``--resume`` for one more epoch, the loaders in the calling process:
-       the step reaches 44 and the first batch is global epoch 2's;
+    2. ``--resume`` into the next epoch for RESUMED_ITERATIONS iterations,
+       the loaders in the calling process: the step reaches 25 and the first
+       batch is global epoch 2's;
     3. ``--go_test`` over the three splits on the card, then ``--go_test``
        and ``--test --rec crnn`` over the smallest split and ``--demo`` over
        four PNGs, each from the checkpoint, against the same command on the
@@ -1200,6 +1510,49 @@ def phase_trainer(root: str, train_dirs, val_dirs, lmdb_train_ips: float):
         return trainer_runs(argv, ckpt_dir, train_dirs, val_dirs, demo_dir, lmdb_train_ips)
     finally:
         os.chdir(cwd)
+
+
+# phase 10's resumed run: the iterations of global epoch 2 it trains
+RESUMED_ITERATIONS = 3
+
+
+@contextlib.contextmanager
+def val_in_process():
+    """``TextSR`` builds its val loaders with TRAIN.workers 0 while the
+    block runs (its train loader keeps the config's workers): each val
+    loader's worker start costs phases 12 and 20 about 20-30 s a run, and
+    the batches are the same either way."""
+    get_val_data = trainer.TextSR.get_val_data
+
+    def in_process(mission, dirs=None):
+        t = mission.config.TRAIN
+        workers, t.workers = t.workers, 0
+        try:
+            return get_val_data(mission, dirs)
+        finally:
+            t.workers = workers
+
+    trainer.TextSR.get_val_data = in_process
+    try:
+        yield
+    finally:
+        trainer.TextSR.get_val_data = get_val_data
+
+
+class FirstBatches:
+    """A train loader cut to the first ``count`` batches of each epoch; its
+    length (so the trainer's global iterations) and sampler are the
+    loader's."""
+
+    def __init__(self, loader, count: int):
+        self.loader, self.count = loader, count
+        self.batch_sampler = loader.batch_sampler
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self):
+        return itertools.islice(iter(self.loader), self.count)
 
 
 def trainer_runs(argv, ckpt_dir, train_dirs, val_dirs, demo_dir, lmdb_train_ips: float):
@@ -1271,16 +1624,26 @@ def trainer_runs(argv, ckpt_dir, train_dirs, val_dirs, demo_dir, lmdb_train_ips:
     out["card_losses"], out["cpu_losses"] = card, cpu_losses
     print(f"trainer card vs CPU: iterations 1-2 losses card {card} CPU {cpu_losses}", flush=True)
 
-    # 2. resume for one more epoch, loading in the calling process (the
-    # batches are the sampler's either way; a loader worker's start costs
-    # seconds, four of them here)
+    # 2. resume for RESUMED_ITERATIONS iterations of the next epoch, loading
+    # in the calling process (the batches are the sampler's either way; a
+    # loader worker's start costs seconds)
     eval_path = f"{os.path.dirname(argv[-1])}/{EVAL_CONFIG}"
+    resumed = TRAINER_EPOCH + RESUMED_ITERATIONS
+    resume_cfg, resume_path = load_config(eval_path), f"{os.path.dirname(argv[-1])}/trainer_resume.yaml"
+    resume_cfg.TRAIN.saveInterval = resumed  # a save at the resumed run's last iteration
+    with open(resume_path, "w") as f:
+        json.dump(resume_cfg, f)  # JSON is YAML
     probe = TrainerProbe()
-    with probe.installed():
-        state = cli.main(argv[:-1] + [eval_path, "--resume", ckpt_dir])
-    check(state.step == 2 * TRAINER_EPOCH, f"resumed trainer at step {state.step}")
+    get_train_data = trainer.TextSR.get_train_data
+    trainer.TextSR.get_train_data = lambda mission: FirstBatches(get_train_data(mission), RESUMED_ITERATIONS)
+    try:
+        with probe.installed():
+            state = cli.main(argv[:-1] + [resume_path, "--resume", ckpt_dir])
+    finally:
+        trainer.TextSR.get_train_data = get_train_data
+    check(state.step == resumed, f"resumed trainer at step {state.step}")
     with open(f"{ckpt_dir}/info.json") as f:
-        check(json.load(f)["step"] == 2 * TRAINER_EPOCH, "info.json after the resume")
+        check(json.load(f)["step"] == resumed, "info.json after the resume")
     ref_loader = trainer.train_loader(train_dirs, "tsrn_tl_cascade", mask=True, **loader_kw(BATCH, "cpu", workers=0))
     ref_loader.batch_sampler.epoch = 1
     ref = next(iter(ref_loader))
@@ -1457,7 +1820,9 @@ def phase_packaged_yaml(root: str, train_dirs, val_dirs):
     22; finite first-iteration losses (phase 11(a) holds the bf16 step to
     the CPU's); the val's metric dicts equal the fp32 eval step's on the
     saved weights (PSNR and SSIM at 1e-4); the loop's images/s and K1's
-    launches between the end of the first iteration and the val."""
+    launches between the end of the first iteration and the val; peak
+    memory.  The val loaders load in the calling process
+    (``val_in_process``)."""
     cfg = load_config()
     check(cfg.TRAIN.compute_dtype == "bf16", f"the packaged YAML says compute_dtype {cfg.TRAIN.compute_dtype}")
     iterations = TRAIN_PAIRS // BATCH
@@ -1478,11 +1843,13 @@ def phase_packaged_yaml(root: str, train_dirs, val_dirs):
         torch.backends.cudnn.allow_tf32 = True
         gru_seq.LAUNCHES = 0
         gru_seq.BACKWARD_LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
         start = time.perf_counter()
-        with probe.installed():
+        with probe.installed(), val_in_process():
             state = cli.main(argv)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - start
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
         check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
               "the trainer left TF32 on under the packaged YAML")
         check(probe.compute_dtypes == ["bf16"], f"the train step ran in {probe.compute_dtypes}")
@@ -1515,10 +1882,12 @@ def phase_packaged_yaml(root: str, train_dirs, val_dirs):
     out = {"compute_dtype": "bf16", "batch": BATCH, "iterations": iterations, "window_iterations": iterations - 1,
            "window_s": window_s, "images_per_s": BATCH * (iterations - 1) / window_s,
            "first_iteration_s": probe.first_step_end - start, "run_s": run_s, "val_s": val["t1"] - val["t0"],
-           "k1_launches": window[0], "k1_backward_launches": window[1], "card_losses": card}
+           "peak_mem_gib": peak_gib, "k1_launches": window[0], "k1_backward_launches": window[1],
+           "card_losses": card}
     print(json.dumps({"packaged_yaml": out}), flush=True)
-    # what phase 18(b) holds the same run on two ranks to
-    return {**out, "val": val["out"], "ckpt_dir": ckpt_dir}
+    # what phase 18(b) holds the same run on two ranks to, and phase 20(b)
+    # runs at --hd_u 64
+    return {**out, "val": val["out"], "ckpt_dir": ckpt_dir, "config": config_path}
 
 
 # phase 13: the SR zoo of the repo's other train scripts, with each script's
@@ -2718,6 +3087,11 @@ DDP_MOMENT_TOL = {"sr": 5e-3, "stu": 3e-2}  # phase 7's gradient bounds: Adam's 
 # run's own change: one process from itself 0.70 (fp32, (a)) and 0.58
 # (bf16, phase 12's command), two ranks from one process 0.67 and 0.71.
 DDP_DRIFT_FACTOR = 2.0
+# One process reruns the same command this many times, and the median of
+# their distances from its first run is the drift's yardstick: one rerun is
+# one sample of a chaotic distance, which fell to 0.40 of its usual size
+# once (a ratio of 2.47 against 0.95-1.45 in eight other runs; PERF.md)
+DDP_RERUNS = 3
 
 
 def _ddp_counts(*counts):
@@ -2907,16 +3281,23 @@ def check_ddp_bf16(two, one, fp32):
     return out
 
 
-def check_drift(two, again, ref, base, what: str):
+def check_drift(two, agains, ref, base, what: str):
     """``two`` (parameters) no farther from ``ref`` than DDP_DRIFT_FACTOR
-    times ``again``, ``ref``'s command run once more in one process; both
-    distances also relative to ``ref``'s change from ``base``."""
-    d_two, d_again = float((two - ref).norm()), float((again - ref).norm())
+    times the median distance of ``agains``, ``ref``'s command run again
+    DDP_RERUNS times in one process; every distance also relative to
+    ``ref``'s change from ``base``, and the ratio of two ranks' distance to
+    the median."""
+    check(len(agains) >= 3, f"{what}: {len(agains)} reruns, the median needs at least 3")
+    d_two = float((two - ref).norm())
+    d_agains = [float((again - ref).norm()) for again in agains]
+    d_again = statistics.median(d_agains)
     check(bool(torch.isfinite(two).all()), f"{what}: a parameter is not finite")
-    check(d_two <= DDP_DRIFT_FACTOR * d_again, f"{what}: two ranks {d_two:.4g} from one process, which lies "
-          f"{d_again:.4g} from itself run again (factor {DDP_DRIFT_FACTOR})")
+    check(d_two <= DDP_DRIFT_FACTOR * d_again, f"{what}: two ranks {d_two:.4g} from one process, whose reruns lie "
+          f"{[round(d, 4) for d in d_agains]} from it, median {d_again:.4g} (factor {DDP_DRIFT_FACTOR})")
     change = float((ref - base).norm())
-    return {"two_ranks": d_two / change, "one_process_again": d_again / change}
+    return {"two_ranks": d_two / change, "one_process_again": d_again / change,
+            "one_process_reruns": [d / change for d in d_agains], "ratio": d_two / d_again,
+            "rerun_ratios": [d_two / d for d in d_agains]}
 
 
 def ddp_config(root: str, train_dirs, val_dirs, n_devices: int) -> str:
@@ -3002,9 +3383,9 @@ def phase_ddp(root: str, train_dirs, val_dirs, packaged, smi: str):
                          backend="gloo", timeout=DDP_TIMEOUT_S)
     group_s = time.perf_counter() - s0
 
-    # (a) against one process on the card, run twice
+    # (a) against one process on the card, run 1 + DDP_RERUNS times
     one = ddp_fp32_run(batch, trajectory, val_batches, "cuda")
-    again = ddp_fp32_run(batch, trajectory, val_batches, "cuda")
+    agains = [ddp_fp32_run(batch, trajectory, val_batches, "cuda") for _ in range(DDP_RERUNS)]
     models, eval_step = entry.flagship(device="cuda", seed=0)
     want_md = evaluate(eval_step, models, val_batches)
     del models
@@ -3014,7 +3395,8 @@ def phase_ddp(root: str, train_dirs, val_dirs, packaged, smi: str):
     errs = check_ddp_step(a, one)
     bf16_errs = check_ddp_bf16(a["bf16_moments"], one_bf16, one["moments"])
     check(all(np.isfinite(v) for v in a["losses"]), f"ddp train: losses {a['losses']}")
-    drift = check_drift(a["params"], again["params"], one["params"], base, f"ddp train after {DDP_STEPS} steps")
+    drift = check_drift(a["params"], [again["params"] for again in agains], one["params"], base,
+                        f"ddp train after {DDP_STEPS} steps")
     check_metric_dicts(a["eval"], want_md, "ddp evaluate over two ranks")
     check(a["eval"]["images"] == sum(DDP_VAL_SIZES), f"ddp evaluate read {a['eval']['images']} images")
     n_val = len(DDP_VAL_SIZES)
@@ -3051,24 +3433,28 @@ def phase_ddp(root: str, train_dirs, val_dirs, packaged, smi: str):
         check(abs(b["first_losses"][k] - v) <= BF16_LOSS_RTOL[k] * abs(v),
               f"ddp TextSR iteration 1 {k}: two ranks {b['first_losses'][k]} vs phase 12's {v}")
     one_path = ddp_config(root, train_dirs, val_dirs, 1)
-    probe = TrainerProbe()
+    again_vals = []
 
     def run_again():
+        probe = TrainerProbe()
         with probe.installed():
-            return cli.main(TRAINER_FLAGS[:-1] + ["ddp_again", "--config", one_path])
+            state = cli.main(TRAINER_FLAGS[:-1] + ["ddp_again", "--config", one_path])
+        check(state.step == iterations, f"phase 12's command again: step {state.step}")
+        (val,) = [e["out"] for e in probe.events if e["name"] == "val"]
+        again_vals.append(val)
 
-    again_state = _in_dir(f"{root}/ddp_one", run_again)
-    check(again_state.step == iterations, f"phase 12's command again: step {again_state.step}")
-    (again_val,) = [e["out"] for e in probe.events if e["name"] == "val"]
+    for k in range(DDP_RERUNS):
+        _in_dir(f"{root}/ddp_one{k}", run_again)
     first = trainer.TextSR(load_config(one_path), AttrDict(vars(build_arg_parser().parse_args(argv))),
                            device="cpu").init_state()
-    cli_drift = check_drift(_saved_params(f"{rank0}/ckpt/ddp"), _saved_params(f"{root}/ddp_one/ckpt/ddp_again"),
+    cli_drift = check_drift(_saved_params(f"{rank0}/ckpt/ddp"),
+                            [_saved_params(f"{root}/ddp_one{k}/ckpt/ddp_again") for k in range(DDP_RERUNS)],
                             _saved_params(packaged["ckpt_dir"]),
                             _sd_params(m.state_dict() for m in (first.sr[0], first.stu[0])),
                             f"ddp TextSR after {iterations} iterations")
     del first
-    go = _in_dir(f"{root}/ddp_one", cli.main, TRAINER_FLAGS[:-1] + ["ddp_go", "--config", one_path, "--go_test",
-                                                                     "--resume", f"{rank0}/ckpt/ddp"])
+    go = _in_dir(f"{root}/ddp_one0", cli.main, TRAINER_FLAGS[:-1] + ["ddp_go", "--config", one_path, "--go_test",
+                                                                      "--resume", f"{rank0}/ckpt/ddp"])
     check(list(b["vals"]) == list(go) == list(packaged["val"]), f"ddp TextSR val splits {list(b['vals'])}")
     for split in go:
         check_metric_dicts(b["vals"][split], go[split], f"ddp TextSR val {split} against one process's --go_test")
@@ -3083,16 +3469,18 @@ def phase_ddp(root: str, train_dirs, val_dirs, packaged, smi: str):
            "eval_k1_launches_per_rank": [c[2] for c in a["counts"]], "step_errs": errs, "bf16_step": bf16_errs,
            "fp32_drift": {"steps": DDP_STEPS, "param_rel_to_change": drift,
                           "loss_rel_two_ranks": [abs(x - y) / abs(y) for x, y in zip(a["losses"], one["losses"])],
-                          "loss_rel_again": [abs(x - y) / abs(y) for x, y in zip(again["losses"], one["losses"])],
+                          "loss_rel_again": [[abs(x - y) / abs(y) for x, y in zip(again["losses"], one["losses"])]
+                                             for again in agains],
                           "val": {"one_process": _psnr_ssim(one["trained_eval"]),
-                                  "again": _psnr_ssim(again["trained_eval"]),
+                                  "again": [_psnr_ssim(again["trained_eval"]) for again in agains],
                                   "two_ranks": _psnr_ssim(a["trained_eval"])}},
            "cli_k1_launches_per_rank": [{"train": c[:2], "val": c[2] - c[0]} for c in b["counts"]],
            "cli_run_s": b["run_s"], "cli_window_s": b["window_s"], "cli_iterations": iterations,
            "cli_images_per_s": BATCH * (iterations - 1) / b["window_s"],
            "one_process_cli_images_per_s": packaged["images_per_s"],
            "cli_bf16_drift": {"param_rel_to_change": cli_drift,
-                              "val": {s: {"phase_12": _psnr_ssim(packaged["val"][s]), "again": _psnr_ssim(again_val[s]),
+                              "val": {s: {"phase_12": _psnr_ssim(packaged["val"][s]),
+                                          "again": [_psnr_ssim(v[s]) for v in again_vals],
                                           "two_ranks": _psnr_ssim(b["vals"][s])} for s in go}},
            "nccl": nccl, "group_s": group_s, "s": time.perf_counter() - t0}
     print(json.dumps({"ddp": out}), flush=True)
@@ -3500,11 +3888,97 @@ def phase_accept(root: str, train_dirs, smi: str):
             "b512_bf16_backward": cli_launches["bf16_backward"]}
 
 
-def per_sr(rows, keys):
-    """Each key summed over the two sweep rows at batch 48, times N_SRB: one
-    SR forward (or backward) at batch 48; None where a row has none (a
-    library call cuDNN refused)."""
-    rows = [row for row in rows if row["label"].endswith(f"B={BATCH}")]
+# phase 20: the flagship at --hd_u beyond 32.  (a)'s fp32 steps card
+# against CPU: a wide size and one padded to 32; (b)'s CLI run: the wide
+# kernels in bf16 through the packaged YAML
+HD_U_STEPS = (64, 20)
+HD_U_CLI = 64
+
+
+def phase_hd_u(root: str, val_dirs, packaged, smi: str):
+    """Phase 20: (a) one flagship fp32 train step at batch 8 on the card
+    against the CPU at each of ``HD_U_STEPS`` (phase 7's bounds), K1
+    launched 10 + 10, on the wide kernels at 64 and on the padded 32's at 20;
+    (b) ``cli.main`` with the flagship's flags and ``--hd_u 64`` on phase
+    12's config (``packaged``: the packaged YAML, bf16, batch 48, one epoch
+    of 22 iterations over phase 9's TextZoom with a val and a save), every K1
+    launch on the wide kernels, then ``--go_test`` from its checkpoint with
+    the run's val metric dicts (PSNR and SSIM at phase 4's 1e-4), the val
+    loaders in the calling process as in phase 12 (``val_in_process``);
+    images/s between the first iteration and the val and peak memory beside
+    phase 12's at --hd_u 32.  Returns K1's launches for the kernels line."""
+    t0 = time.perf_counter()
+    steps = {}
+    for h in HD_U_STEPS:
+        launches = phase_train_card_vs_cpu(h)
+        wide = 2 * N_SRB if h in gru_seq.WIDE_HIDDEN else 0
+        want = (2 * N_SRB, 2 * N_SRB, wide, wide)
+        check(launches == want, f"--hd_u {h} step: K1 launched {launches} (forward, backward, wide forward, wide "
+              f"backward), expected {want}")
+        steps[h] = launches
+
+    iterations = packaged["iterations"]
+    n_val_batches = sum(-(-n // BATCH) for n in VAL_PAIRS)
+    name = f"smoke_hd{HD_U_CLI}"
+    argv = TRAINER_FLAGS[:-1] + [name, "--config", packaged["config"], "--hd_u", str(HD_U_CLI)]
+    ckpt_dir = f"{root}/ckpt_packaged/{name}"
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        probe = TrainerProbe()
+        for k in ("LAUNCHES", "BACKWARD_LAUNCHES", "WIDE_LAUNCHES", "WIDE_BACKWARD_LAUNCHES"):
+            setattr(gru_seq, k, 0)
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        with probe.installed(), val_in_process():
+            state = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - start
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check(probe.compute_dtypes == ["bf16"], f"--hd_u {HD_U_CLI}: the train step ran in {probe.compute_dtypes}")
+        check(state.step == iterations, f"--hd_u {HD_U_CLI}: trainer at step {state.step}, expected {iterations}")
+        sizes = {m.hidden_size for m in state.sr[0].modules() if isinstance(m, BiGRUParams)}
+        check(sizes == {HD_U_CLI}, f"--hd_u {HD_U_CLI}: the SR model's BiGRUs have hidden sizes {sizes}")
+        run = k1_counts()
+        fwd, bwd = 2 * N_SRB * (iterations + n_val_batches), 2 * N_SRB * iterations
+        check(run == (fwd, bwd, fwd, bwd), f"--hd_u {HD_U_CLI}: K1 launched {run} (forward, backward, wide forward, "
+              f"wide backward), expected {(fwd, bwd, fwd, bwd)}")
+        (val,) = [e for e in probe.events if e["name"] == "val"]
+        window_s = val["t0"] - probe.first_step_end
+        window = [b - a for a, b in zip(probe.first_step_counts, val["counts0"])]
+        want = 2 * N_SRB * (iterations - 1)
+        check(window == [want, want], f"--hd_u {HD_U_CLI}: K1 launched {window} times in the window, expected {want}")
+        losses = {k: float(v) for k, v in probe.metrics[0].items()}
+        check(all(np.isfinite(v) for v in losses.values()), f"--hd_u {HD_U_CLI} iteration 1: losses {losses}")
+        del state
+        with val_in_process():
+            go = cli.main(argv + ["--go_test", "--resume", ckpt_dir])
+        check(list(go) == list(val["out"]), f"--hd_u {HD_U_CLI} --go_test splits {list(go)}")
+        for split in go:
+            check_metric_dicts(go[split], val["out"][split], f"--hd_u {HD_U_CLI} --go_test {split} against the val")
+    finally:
+        os.chdir(cwd)
+    out = {"card": smi, "compute_dtype": "bf16", "batch": BATCH, "hd_u": HD_U_CLI, "iterations": iterations,
+           "window_iterations": iterations - 1, "window_s": window_s,
+           "images_per_s": BATCH * (iterations - 1) / window_s, "peak_mem_gib": peak_gib,
+           "phase12_hd_u32_images_per_s": packaged["images_per_s"],
+           "phase12_hd_u32_peak_mem_gib": packaged["peak_mem_gib"],
+           "first_iteration_s": probe.first_step_end - start, "run_s": run_s, "val_s": val["t1"] - val["t0"],
+           "k1_launches": window[0], "k1_backward_launches": window[1], "card_losses": losses,
+           "val": {s: _psnr_ssim(md) for s, md in val["out"].items()},
+           "step_k1_launches": {str(h): list(v) for h, v in steps.items()}, "s": time.perf_counter() - t0}
+    print(json.dumps({"hd_u": out}), flush=True)
+    return {"fp32": steps[HD_U_CLI][2], "fp32_backward": steps[HD_U_CLI][3], "bf16": window[0],
+            "bf16_backward": window[1]}
+
+
+def per_sr(rows, keys, hidden: int = 32):
+    """Each key summed over the two sweep rows at batch 48 (at ``hidden``:
+    the wide rows' label names it), times N_SRB: one SR forward (or
+    backward) at batch 48; None where a row has none (a library call cuDNN
+    refused)."""
+    end = f"B={BATCH}" if hidden == 32 else f"B={BATCH}, H={hidden}"
+    rows = [row for row in rows if row["label"].endswith(end)]
     return {k: None if any(row[k] is None for row in rows) else N_SRB * sum(row[k] for row in rows) for k in keys}
 
 
@@ -3568,18 +4042,64 @@ def backward_entry(dtype, shapes, ptxas, launches, max_err, **extra):
     }
 
 
+def wide_entry(dtype, backward: bool, shapes, ptxas, launches, max_err, **extra):
+    """The wide kernel's entry of the kernels line, forward or backward, in
+    ``dtype``: per SR forward (backward) of the flagship at --hd_u 64."""
+    name = DTYPE_NAMES[dtype]
+    h = HD_U_CLI
+    if backward:
+        keys = ("ms", "kernel_only_ms", "fwd_bwd_ms", "library_ms", "plain_ms", "bytes_ms", "operations_ms",
+                "kernel_only_bound_ms")
+        unit = (f"one flagship SR backward at --hd_u {h}, batch {BATCH}, in {name}: {N_SRB} sweeps over W and "
+                f"{N_SRB} over H; ms: the recurrence's backward (the kernel, then the dW_hh GEMM and sums); "
+                f"kernel_only_ms: the kernel alone; fwd_bwd_ms: the wrapper's forward and backward; library_ms: "
+                f"nn.GRU forward and backward in {name}; plain_ms: the plain BPTT")
+    else:
+        keys = ("ms", "device_ms", "kernel_only_ms", "plain_ms", "library_ms", "bytes_ms", "operations_ms",
+                "kernel_only_bound_ms")
+        unit = (f"one flagship SR forward at --hd_u {h}, batch {BATCH}, in {name}: {N_SRB} sweeps over W and "
+                f"{N_SRB} over H; ms: the wrapper by per-call events; device_ms: the wrapper by device_ms; "
+                "kernel_only_ms: the kernel alone on prepared weights")
+    per = per_sr(shapes, keys, hidden=h)
+    return {
+        "name": f"K1 bigru_seq wide{' backward' if backward else ''} ({name})",
+        "route": "cuda",
+        "source": f"tpgsr_tpu_torch/csrc/{WIDE_SOURCE}.cu",
+        "replaces": "tpgsr_tpu/ops/pallas_gru.py:34 (backward of)" if backward else "tpgsr_tpu/ops/pallas_gru.py:95",
+        "dtype": name,
+        "hidden": list(gru_seq.WIDE_HIDDEN),
+        "launches": launches,
+        "max_abs_err": max_err,
+        "unit": unit,
+        **{k: per[k] for k in keys if k not in ("bytes_ms", "operations_ms")},
+        **bound_fields(per["bytes_ms"], per["operations_ms"]),
+        "shapes": shapes,
+        "ptxas": [r for r in ptxas[backward] if r["dtype"] == name],
+        **extra,
+    }
+
+
 # K1's sources by storage type: (forward, backward)
 K1_SOURCES = {torch.float32: ("bigru_seq", "bigru_seq_bwd"), torch.bfloat16: ("bigru_seq_bf16", "bigru_seq_bwd_bf16")}
 
 
+WIDE_SOURCE = "bigru_seq_wide"  # both ways, both storage types, H = 64 and 128
+
+
 def check_ptxas(name: str, backward: bool):
-    """Phase 2's rows for one source: every instantiation (hidden size x
-    ``instantiations``) reported, none spilling or keeping a stack frame."""
+    """Phase 2's rows for one source (one direction of the wide source):
+    every instantiation (hidden size x ``instantiations``; in the wide
+    source storage type x hidden size x rows a thread) reported, none
+    spilling or keeping a stack frame."""
     rows = ptxas_report(_build.build_log(name), backward=backward)
     for r in rows:
         print(f"nvcc {name} " + json.dumps(r), flush=True)
-    dtype = torch.bfloat16 if name.endswith("_bf16") else torch.float32
-    want = len(gru_seq.SUPPORTED_HIDDEN) * len(instantiations(dtype, backward))
+    if name == WIDE_SOURCE:
+        want = len(DTYPE_NAMES) * len(gru_seq.WIDE_HIDDEN) * len(gru_seq.RPTS)
+        rows = [r for r in rows if r.get("wide")]
+    else:
+        dtype = torch.bfloat16 if name.endswith("_bf16") else torch.float32
+        want = len(gru_seq.NARROW_HIDDEN) * len(instantiations(dtype, backward))
     check(len(rows) == want, f"ptxas reported {len(rows)} instantiations of {name}, expected {want}")
     check(all(r["spill_bytes"] == 0 and r["stack_bytes"] == 0 for r in rows),
           f"an instantiation of {name} spills registers or keeps a stack frame")
@@ -3611,11 +4131,13 @@ def main() -> int:
     print(f"build: {len(logs)} kernel source(s) compiled in {time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = {dtype: check_ptxas(fwd, backward=False) for dtype, (fwd, _) in K1_SOURCES.items()}
     bwd_ptxas = {dtype: check_ptxas(bwd, backward=True) for dtype, (_, bwd) in K1_SOURCES.items()}
+    wide_ptxas = {backward: check_ptxas(WIDE_SOURCE, backward) for backward in (False, True)}
     lap("1-2 device, build")
 
-    # 3. K1 against its plain version, fp32 and bf16
+    # 3. K1 against its plain version, fp32 and bf16, the wide kernels and padded sizes
     max_err, shapes = phase_k1()
     bf16_err, bf16_shapes = phase_k1(torch.bfloat16)
+    wide = {dtype: phase_k1_wide(dtype) for dtype in DTYPE_NAMES}
     lap("3 K1")
 
     # 4. card vs CPU, 5. serve
@@ -3627,6 +4149,7 @@ def main() -> int:
     # 6. K1's backward against its plain version, 7. train step card vs CPU, 8. train
     bwd_err, bwd_shapes = phase_k1_backward()
     bf16_bwd_err, bf16_bwd_shapes = phase_k1_backward(torch.bfloat16)
+    wide_bwd = {dtype: phase_k1_wide_backward(dtype) for dtype in DTYPE_NAMES}
     lap("6 K1 backward")
     phase_train_card_vs_cpu()
     train_launches, backward_launches, train = phase_train()
@@ -3666,6 +4189,9 @@ def main() -> int:
         # 19. the dataset writers, the acceptance run, the packaged YAML's batch 512
         accept = phase_accept(root, train_dirs, smi.splitlines()[0])
         lap("19 create_lmdb, acceptance run, batch 512")
+        # 20. --hd_u beyond 32: the wide kernels and a padded size on the flagship
+        hd_u = phase_hd_u(root, val_dirs, packaged, smi.splitlines()[0])
+        lap("20 --hd_u beyond 32")
 
     kernels = [
         forward_entry(torch.float32, shapes, ptxas, launches, max_err, train_launches=train_launches,
@@ -3698,11 +4224,16 @@ def main() -> int:
                        b512_launches=accept["b512_bf16_backward"],
                        **{f"{flag}_launches": modes[(flag, "bf16")][1] for flag in MODE_FLAGS}),
     ]
+    for dtype in DTYPE_NAMES:
+        key = DTYPE_NAMES[dtype]
+        kernels.append(wide_entry(dtype, False, wide[dtype][1], wide_ptxas, hd_u[key], wide[dtype][0]))
+        kernels.append(wide_entry(dtype, True, wide_bwd[dtype][1], wide_ptxas, hd_u[f"{key}_backward"],
+                                  wide_bwd[dtype][0]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
         check(all(k[key] > 0 for key in ("accept_launches", "b512_launches") if key in k),
               f"{k['name']} was not launched in phase 19")
-        check(len(k["ddp_launches"]) == DDP_WORLD and min(k["ddp_launches"]) > 0,
+        check("ddp_launches" not in k or (len(k["ddp_launches"]) == DDP_WORLD and min(k["ddp_launches"]) > 0),
               f"{k['name']} was not launched on every rank of phase 18")
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -186,15 +186,17 @@ def _allow_tf32(monkeypatch):
 
 
 def test_hidden_sizes_beyond_k1_raise_on_the_card_only(monkeypatch):
-    """``--hd_u 12``: the CPU takes any hidden size; the card (CUDA patched
-    in) raises before it builds anything, naming K1's sizes."""
+    """``--hd_u 129``: the CPU takes any hidden size; the card (CUDA patched
+    in) raises before it builds anything, naming K1's ceiling of 128 and
+    queue 2 item 3.  Every size up to 128 builds on the card: 12 (padded to
+    16), 64 and 128 (the wide kernels), and the flagship's 8, 16 and 32."""
     _allow_tf32(monkeypatch)
-    args = config.default_args(arch="tsrn_tl_cascade", hd_u=12)
+    args = config.default_args(arch="tsrn_tl_cascade", hd_u=129)
     trainer.TextSR(_fp32_config(), args, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match=r"\(8, 16, 32\).*queue 2 item 3"):
+    with pytest.raises(NotImplementedError, match=r"1 to 128.*queue 2 item 3"):
         trainer.TextSR(_fp32_config(), args)
-    for h in (8, 16, 32):
+    for h in (8, 12, 16, 32, 64, 128):
         trainer.TextSR(_fp32_config(), config.default_args(arch="tsrn_tl_cascade", hd_u=h))
 
 

@@ -23,6 +23,11 @@ MAIN_PATH_CASES = [(768, 64, 64, 32), (3072, 16, 64, 32), (771, 64, 64, 32)]
 EDGE_CASES = [(1500, 16, 64, 32), (3070, 16, 64, 32), (37, 3, 64, 32), (45, 13, 64, 32)]
 # the flagship's two sweeps at batch 512 (the bf16 kernels')
 BATCH_512_CASES = [(8192, 64, 64, 32), (32768, 16, 64, 32)]
+# the wide kernels: the flagship's sweeps at --hd_u 64 and 128 (C = 2H) at
+# batch 48, a ragged N and T = 1; hidden sizes padded to an instantiated one
+WIDE_CASES = [(768, 64, 128, 64), (3072, 16, 128, 64), (768, 64, 256, 128), (3072, 16, 256, 128),
+              (771, 13, 128, 64), (37, 1, 256, 128)]
+PADDED_CASES = [(100, 20, 2, 1), (100, 20, 24, 12), (100, 20, 40, 20), (100, 20, 80, 40), (100, 20, 200, 100)]
 H100 = {"sms": 132, "blocks_per_sm": dict.fromkeys(gru_seq.RPTS, 3)}
 
 
@@ -89,7 +94,7 @@ def test_launch_config_flagship_sweeps_take_one_wave(n, rpt, blocks):
 @pytest.mark.parametrize("n", [1, 5, 37, 771, 1500, 3070, 3072, 100_000])
 def test_launch_config_covers_every_row_with_no_idle_block(n, h):
     cfg = gru_seq.launch_config(n, h, **H100)
-    rows = gru_seq.THREADS // h * cfg.rpt
+    rows = gru_seq.block_rows(h, cfg.rpt)
     assert cfg.blocks % 2 == 0
     assert (cfg.blocks // 2) * rows >= n > (cfg.blocks // 2 - 1) * rows
     assert cfg.waves == -(-cfg.blocks // (132 * 3))
@@ -153,6 +158,38 @@ def test_backward_config_reads_the_backward_occupancy(monkeypatch):
         gru_seq._config.cache_clear()
 
 
+@pytest.mark.parametrize("n,h,occupancy,want", [
+    (768, 64, {1: 3, 2: 3, 4: 2}, gru_seq.LaunchConfig(1, 384, 3, 1)),
+    (3072, 64, {1: 3, 2: 3, 4: 2}, gru_seq.LaunchConfig(4, 384, 2, 2)),
+    (768, 128, {1: 1, 2: 1, 4: 1}, gru_seq.LaunchConfig(4, 96, 1, 1)),
+    (3072, 128, {1: 1, 2: 1, 4: 1}, gru_seq.LaunchConfig(4, 384, 1, 3)),
+    (771, 64, {1: 3, 2: 3, 4: 2}, gru_seq.LaunchConfig(1, 386, 3, 1)),
+    (800, 64, {1: 3, 2: 3, 4: 2}, gru_seq.LaunchConfig(2, 200, 3, 1))])
+def test_launch_config_of_the_wide_kernels(n, h, occupancy, want):
+    """The wide kernels' blocks hold four row groups of H threads, so
+    ``block_rows`` rows at RPT rows a thread: 4, 8 and 16.  At the
+    flagship's sweeps at batch 48 (the occupancies an H100 reports for the
+    forward: three, three and two blocks an SM at H = 64, one at 128): over
+    W at H = 64 one row a thread in one wave; over H and at H = 128 four
+    rows a thread, in the waves they need; past one wave at one row, two."""
+    assert [gru_seq.block_rows(h, rpt) for rpt in gru_seq.RPTS] == [4, 8, 16]
+    assert gru_seq.launch_config(n, h, 132, occupancy) == want
+
+
+@pytest.mark.parametrize("hidden", [0, 129, 256])
+def test_padded_hidden_raises_beyond_the_kernels(hidden):
+    """K1 takes hidden sizes 1 to 128 on the card; ``bigru`` raises before
+    it projects anything (the CPU's plain versions take any size)."""
+    with pytest.raises(ValueError, match="1 to 128"):
+        gru_seq.padded_hidden(hidden)
+
+
+def test_padded_hidden_is_the_smallest_instantiated_size_that_holds_it():
+    got = [gru_seq.padded_hidden(h) for h in range(1, gru_seq.MAX_HIDDEN + 1)]
+    assert got == [min(s for s in gru_seq.SUPPORTED_HIDDEN if s >= h) for h in range(1, 129)]
+    assert gru_seq.SUPPORTED_HIDDEN == gru_seq.NARROW_HIDDEN + gru_seq.WIDE_HIDDEN == (8, 16, 32, 64, 128)
+
+
 def test_launch_config_follows_the_occupancy_of_each_rpt():
     cfg = gru_seq.launch_config(3072, 32, 132, {1: 4, 2: 4, 4: 2})
     assert (cfg.rpt, cfg.blocks_per_sm, cfg.waves) == (4, 2, 2)
@@ -185,7 +222,7 @@ def test_bigru_kernel_every_instantiation_matches_plain(cuda, h, rpt):
     fw, bw = (torch_params(p, cuda) for p in gru_params(rng, 16, h))
     w_t = torch.stack([fw["w_hh"].t(), bw["w_hh"].t()]).contiguous()
     b_hh = torch.stack([fw["b_hh"], bw["b_hh"]])
-    rows = gru_seq.THREADS // h * rpt
+    rows = gru_seq.block_rows(h, rpt)
     for n, t in ((2 * rows + 3, 13), (rows - 1, 3)):
         x = torch.from_numpy(rng.random((n, t, 16), dtype=np.float32)).to(cuda)
         xp = rnn.input_projection(x, fw, bw).contiguous()
@@ -198,11 +235,99 @@ def test_bigru_kernel_every_instantiation_matches_plain(cuda, h, rpt):
 
 @pytest.mark.cuda
 def test_bigru_kernel_rejects_unsupported_hidden(cuda):
+    """Beyond 128 no kernel takes the hidden size: the wrapper raises before
+    it launches anything."""
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.random((4, 3, 8), dtype=np.float32)).to(cuda)
-    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, 8, 12))
-    with pytest.raises(ValueError):
+    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, 8, 129))
+    before = gru_seq.LAUNCHES
+    with pytest.raises(ValueError, match="1 to 128"):
         gru_seq.bigru(x, fw, bw)
+    assert gru_seq.LAUNCHES == before
+
+
+def padded_operands(x, fw, bw):
+    """The wrapper's operands at the instantiated size: (xp, w_hh, b_hh)
+    from the zero-padded weights."""
+    hp = gru_seq.padded_hidden(fw["w_hh"].shape[-1])
+    pfw, pbw = (rnn.pad_hidden(d, hp) for d in (fw, bw))
+    return (rnn.input_projection(x, pfw, pbw).contiguous(), torch.stack([pfw["w_hh"], pbw["w_hh"]]),
+            torch.stack([pfw["b_hh"], pbw["b_hh"]]))
+
+
+def assert_fp64_rule(got, plain, fp64, scale=1.0):
+    """The wide and padded cases' fp32 tolerance: the kernel's max gap to an
+    fp64 recurrence on the same operands at most twice the plain fp32
+    version's plus 1e-6, relative to ``scale`` (a fixed atol does not scale
+    to sums of up to 3 x 128 terms)."""
+    scale = max(scale, 1e-30)  # dW_hh is 0 at T = 1 (h_{t-1} = 0), on every side
+    k = float((got.double() - fp64).abs().max()) / scale
+    p = float((plain.double() - fp64).abs().max()) / scale
+    assert k <= 2 * p + 1e-6, (k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,c,h", WIDE_CASES + PADDED_CASES)
+def test_bigru_wide_and_padded_match_plain_on_card(cuda, n, t, c, h):
+    """At --hd_u 64 and 128 (the wide kernel) and at sizes padded to an
+    instantiated one: the wrapper's output is the kernel's at the
+    instantiated size sliced back, bit for bit, the padded units are 0, and
+    the kernel holds the fp64 rule against the plain version; one launch,
+    on the wide kernel where the instantiated size is wide."""
+    rng = np.random.default_rng(n + t + h)
+    x = torch.from_numpy(rng.random((n, t, c), dtype=np.float32)).to(cuda)
+    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, c, h, scale=float(1 / np.sqrt(h))))
+    xp, w_hh, b_hh = padded_operands(x, fw, bw)
+    hp = w_hh.shape[-1]
+    before = (gru_seq.LAUNCHES, gru_seq.WIDE_LAUNCHES)
+    got = gru_seq.bigru(x, fw, bw)
+    torch.cuda.synchronize()
+    assert (gru_seq.LAUNCHES - before[0], gru_seq.WIDE_LAUNCHES - before[1]) == (1, int(hp in gru_seq.WIDE_HIDDEN))
+    kernel = gru_seq._launch(xp, w_hh, b_hh)
+    assert torch.equal(got, rnn.unpad_output(kernel, h))
+    assert not kernel.view(n, t, 2, hp)[..., h:].any()
+    fp64 = rnn._recurrence(xp.double(), w_hh.double(), b_hh.double(), torch.float64)
+    assert_fp64_rule(kernel, rnn.bigru_recurrence(xp, w_hh, b_hh), fp64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,c,h", WIDE_CASES + PADDED_CASES)
+def test_bigru_wide_and_padded_backward_match_plain_on_card(cuda, n, t, c, h):
+    """The backward at the same sizes, on the kernel's own forward output
+    and a cotangent zero on the padded units: dxp, dW_hh and db_hh 0 on the
+    padded units and within the fp64 rule of the plain BPTT (dW_hh and
+    db_hh relative to their largest entry); then the wrapper's gradients,
+    through the padding's autograd at the real shapes, against its own on
+    the CPU (the plain versions at the real H) at 1e-4 of each norm."""
+    rng = np.random.default_rng(10 * n + t + h)
+    x = torch.from_numpy(rng.random((n, t, c), dtype=np.float32)).to(cuda)
+    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, c, h, scale=float(1 / np.sqrt(h))))
+    xp, w_hh, b_hh = padded_operands(x, fw, bw)
+    hp = w_hh.shape[-1]
+    out = gru_seq._launch(xp, w_hh, b_hh)
+    g = torch.from_numpy(rng.standard_normal((n, t, 2 * h)).astype(np.float32)).to(cuda)
+    grad_out = torch.zeros(n, t, 2, hp, device=cuda)
+    grad_out[..., :h] = g.view(n, t, 2, h)
+    grad_out = grad_out.view(n, t, 2 * hp)
+    got = gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+    torch.cuda.synchronize()
+    assert not got[0].view(n, t, 6, hp)[..., h:].any()
+    assert not got[1].view(2, 3, hp, hp)[:, :, h:].any() and not got[1][..., h:].any()
+    assert not got[2].view(2, 3, hp)[..., h:].any()
+    want = rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+    fp64 = rnn._recurrence_backward(xp.double(), w_hh.double(), b_hh.double(), out.double(), grad_out.double())
+    assert_fp64_rule(got[0], want[0], fp64[0])
+    for k in (1, 2):
+        assert_fp64_rule(got[k], want[k], fp64[k], float(fp64[k].abs().max()))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.detach().to(dev, copy=True).requires_grad_(True)] + [
+            {k: v.detach().to(dev, copy=True).requires_grad_(True) for k, v in d.items()} for d in (fw, bw)]
+        gru_seq.bigru(*leaves).backward(g.to(dev))
+        grads.append([leaves[0].grad.cpu()] + [d[k].grad.cpu() for d in leaves[1:] for k in sorted(d)])
+    for a, b in zip(*grads):
+        assert a.shape == b.shape
+        assert float((a - b).norm()) <= 1e-4 * float(b.norm()), float((a - b).norm() / b.norm())
 
 
 def backward_case(rng, n, t, c, h, device, dtype=torch.float32):
@@ -246,7 +371,7 @@ def test_bigru_kernel_backward_every_instantiation_matches_plain(cuda, h, rpt):
     with T = 13 and T = 3, against the plain BPTT at the tolerances above;
     one launch a call."""
     rng = np.random.default_rng(100 * h + rpt)
-    rows = gru_seq.THREADS // h * rpt
+    rows = gru_seq.block_rows(h, rpt)
     for n, t in ((2 * rows + 3, 13), (rows - 1, 3)):
         xp, w_hh, b_hh, out, grad_out = backward_case(rng, n, t, 16, h, cuda)
         w_t = w_hh.transpose(1, 2).contiguous()
@@ -317,8 +442,46 @@ def test_bigru_kernel_bf16_matches_plain_on_card(cuda, n, t, c, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,t,c,h", WIDE_CASES + PADDED_CASES)
+def test_bigru_wide_and_padded_bf16_match_plain_on_card(cuda, n, t, c, h):
+    """bf16 at --hd_u 64 and 128 (the wide kernel, fp32 arithmetic on bf16
+    storage) and padded sizes: the wrapper's output is the kernel's sliced
+    back, the padded units 0, and the kernel within one bf16 ulp of the bf16
+    plain version on the same projection."""
+    rng = np.random.default_rng(n + t + h + 1)
+    x = torch.from_numpy(rng.random((n, t, c), dtype=np.float32)).to(cuda).bfloat16()
+    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, c, h, scale=float(1 / np.sqrt(h))))
+    xp, w_hh, b_hh = padded_operands(x, fw, bw)
+    got = gru_seq.bigru(x, fw, bw)
+    kernel = gru_seq._launch(xp, w_hh, b_hh)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rnn.unpad_output(kernel, h))
+    assert_within_bf16_ulp(kernel, rnn.bigru_recurrence(xp, w_hh, b_hh), atol=2e-5 if t >= 64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpt", gru_seq.RPTS)
+@pytest.mark.parametrize("h", gru_seq.WIDE_HIDDEN)
+def test_bigru_wide_bf16_every_instantiation_matches_plain(cuda, h, rpt):
+    """Each bf16 (H, rows a thread) of the wide kernel, forward and
+    backward, forced, on a ragged N with T = 13 and T = 3."""
+    rng = np.random.default_rng(h * rpt + 2)
+    rows = gru_seq.block_rows(h, rpt)
+    cfg = gru_seq.LaunchConfig(rpt, 0, 0, 0)
+    for n, t in ((2 * rows + 3, 13), (rows - 1, 3)):
+        xp, w_hh, b_hh, out, grad_out = backward_case(rng, n, t, 16, h, cuda, torch.bfloat16)
+        weights = gru_seq._kernel_weights(xp, w_hh, b_hh)
+        got = gru_seq._recurrence(xp, *weights, config=cfg)
+        dxp, dhp, h_prev = gru_seq._backward_kernel(xp, *weights, out, grad_out, config=cfg)
+        torch.cuda.synchronize()
+        assert_within_bf16_ulp(got, rnn.bigru_recurrence(xp, w_hh, b_hh), atol=1e-5)
+        assert_backward_bf16_close((dxp, *gru_seq.recurrent_weight_grads(dhp, h_prev)),
+                                   rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out), atol=2e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tile_rows", gru_seq.TILE_ROWS)
-@pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
+@pytest.mark.parametrize("h", gru_seq.NARROW_HIDDEN)
 def test_bigru_kernel_bf16_every_instantiation_matches_plain(cuda, h, tile_rows):
     """Each bf16 (H, rows a warp's m-tile), forced, on a ragged N with T = 13
     and T = 3."""
@@ -361,7 +524,7 @@ def test_bigru_kernel_bf16_backward_matches_plain_on_card(cuda, n, t, c, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
+@pytest.mark.parametrize("h", gru_seq.NARROW_HIDDEN)
 def test_bigru_kernel_bf16_backward_every_instantiation_matches_plain(cuda, h):
     """Each bf16 H of the tensor-core backward kernel (8 rows an m-tile, its
     one instantiation a hidden size), on a ragged N with T = 13 and T = 3."""
@@ -483,6 +646,33 @@ def test_ptxas_report_reads_the_tensor_core_kernels():
         {"dtype": "bf16", "H": 32, "rows": 8, "registers": 80, "spill_bytes": 0, "stack_bytes": 0,
          "smem_bytes": 4 * 2 * 3 * 12 * 32 + 2 * 4 * 3 * 8 * (24 + 8 + 40)}]
     assert ptxas_report(TILE_PTXAS_LOG, backward=True) == ptxas_report(TILE_BWD_PTXAS_LOG) == []
+
+
+WIDE_PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125bigru_wide_forward_kernelIfLi128ELi4EEEvPKT_PKfS6_PS3_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125bigru_wide_forward_kernelIfLi128ELi4EEEvPKT_PKfS6_PS3_ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 108 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126bigru_wide_backward_kernelI13__nv_bfloat16Li64ELi1EEEvPKT_PKfS7_S5_S5_PS3_PfS9_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_126bigru_wide_backward_kernelI13__nv_bfloat16Li64ELi1EEEvPKT_PKfS7_S5_S5_PS3_PfS9_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 432 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_the_wide_kernels():
+    """csrc/bigru_seq_wide.cu's instantiations by storage type, hidden size
+    and rows a thread, with the weights at a row stride of 3H + 1 floats and
+    the forward's two h buffers or the backward's h_{t-1} and dhp_t as
+    shared memory (16 rows a block at four rows a thread, 4 at one); the
+    narrow reports skip them."""
+    assert ptxas_report(WIDE_PTXAS_LOG) == [
+        {"dtype": "fp32", "H": 128, "rpt": 4, "wide": True, "registers": 108, "spill_bytes": 0, "stack_bytes": 0,
+         "smem_bytes": 4 * (128 * 385 + 2 * 16 * 128)}]
+    assert ptxas_report(WIDE_PTXAS_LOG, backward=True) == [
+        {"dtype": "bf16", "H": 64, "rpt": 1, "wide": True, "registers": 80, "spill_bytes": 0, "stack_bytes": 0,
+         "smem_bytes": 4 * (64 * 193 + 4 * 4 * 64)}]
+    assert all(not r.get("wide") for log in (PTXAS_LOG, BWD_PTXAS_LOG, TILE_PTXAS_LOG)
+               for b in (False, True) for r in ptxas_report(log, backward=b))
 
 
 def _check_ablation_variants(backward, bf16=False):

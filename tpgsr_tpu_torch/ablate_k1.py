@@ -3,7 +3,7 @@
 forward csrc/bigru_seq_bf16.cu), each with one part taken out, timed at the
 flagship's two sweeps on one NVIDIA card.
 
-    python -m tpgsr_tpu_torch.ablate_k1 [--backward | --bf16]
+    python -m tpgsr_tpu_torch.ablate_k1 [--backward | --bf16] [--hidden H]
 
 The card's profilers do not run on the machines this port is measured on, so
 this stands in for them.  Each variant is the kernel's source with a text
@@ -13,7 +13,8 @@ variant's time and the full kernel's is what the removed part costs on the
 critical path.  Every substitution must match the source once, so an edit of
 the kernel that moves one of them stops this script instead of timing the
 wrong thing.  It times the fp32 instantiations, or with ``--bf16`` the bf16
-ones.
+ones, at hidden size ``--hidden`` (32 by default, the flagship's; 8 and 16
+are the sources' other sizes) with C = 2H.
 """
 
 from __future__ import annotations
@@ -117,7 +118,7 @@ def variant_sources(backward: bool = False, bf16: bool = False):
     return out
 
 
-def build_variants(backward: bool = False, bf16: bool = False):
+def build_variants(backward: bool = False, bf16: bool = False, hidden: int = H):
     out_dir = OUT_DIR / ("backward" if backward else "forward_bf16" if bf16 else "forward")
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
@@ -132,32 +133,32 @@ def build_variants(backward: bool = False, bf16: bool = False):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
         regs = {f"rows{r['rows']}" if bf16 else f"rpt{r['rpt']}": [r["registers"], r["spill_bytes"]]
-                for r in ptxas_report(log, backward) if r["H"] == H and r["dtype"] == ("bf16" if bf16 else "fp32")}
+                for r in ptxas_report(log, backward) if r["H"] == hidden and r["dtype"] == ("bf16" if bf16 else "fp32")}
         libs[name] = (ctypes.CDLL(str(lib)), regs)
     return libs
 
 
-def _forward_calls(lib, stream):
+def _forward_calls(lib, stream, h: int = H):
     """[(label, call(rpt), rpt of the launch configuration)] at both sweeps."""
     fn = lib.tpgsr_bigru_seq_forward
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     calls = []
     for i, (label, n, t) in enumerate(SWEEPS):
-        x, fw, bw = case(i, n, t)
+        x, fw, bw = case(i, n, t, 2 * h, h)
         xp = rnn.input_projection(x, fw, bw).contiguous()
         w_t = torch.stack([fw["w_hh"].t(), bw["w_hh"].t()]).contiguous()
         b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
-        out = torch.empty(n, t, 2 * H, device="cuda")
+        out = torch.empty(n, t, 2 * h, device="cuda")
 
         def call(rpt, n=n, t=t, args=(xp, w_t, b_hh, out)):
-            return fn(*(a.data_ptr() for a in args), n, t, H, rpt, stream)
+            return fn(*(a.data_ptr() for a in args), n, t, h, rpt, stream)
 
-        calls.append((label, call, gru_seq.config_for(n, H, x.device).rpt))
+        calls.append((label, call, gru_seq.config_for(n, h, x.device).rpt))
     return calls
 
 
-def _bf16_forward_calls(lib, stream):
+def _bf16_forward_calls(lib, stream, h: int = H):
     """As ``_forward_calls``, for the bf16 forward: xp and out in bf16, the
     weights rounded to bf16 values; the m-tile's rows in place of rpt."""
     fn = lib.tpgsr_bigru_seq_bf16_forward
@@ -165,21 +166,21 @@ def _bf16_forward_calls(lib, stream):
     fn.restype = ctypes.c_int
     calls = []
     for i, (label, n, t) in enumerate(SWEEPS):
-        x, fw, bw = case(i, n, t)
+        x, fw, bw = case(i, n, t, 2 * h, h)
         xp = rnn.input_projection(x.bfloat16(), fw, bw).contiguous()
         w_hh = torch.stack([fw["w_hh"], bw["w_hh"]])
         b_hh = torch.stack([fw["b_hh"], bw["b_hh"]])
         w_t, b_k = gru_seq._kernel_weights(xp, w_hh, b_hh)
-        out = torch.empty(n, t, 2 * H, device="cuda", dtype=torch.bfloat16)
+        out = torch.empty(n, t, 2 * h, device="cuda", dtype=torch.bfloat16)
 
         def call(rows, n=n, t=t, args=(xp, w_t, b_k, out)):
-            return fn(*(a.data_ptr() for a in args), n, t, H, rows, stream)
+            return fn(*(a.data_ptr() for a in args), n, t, h, rows, stream)
 
-        calls.append((label, call, gru_seq.config_for(n, H, x.device, dtype=torch.bfloat16).rows))
+        calls.append((label, call, gru_seq.config_for(n, h, x.device, dtype=torch.bfloat16).rows))
     return calls
 
 
-def _backward_calls(lib, stream):
+def _backward_calls(lib, stream, h: int = H):
     """As ``_forward_calls``, for the backward kernel on the forward's output
     and a random cotangent."""
     fn = lib.tpgsr_bigru_seq_backward
@@ -187,20 +188,20 @@ def _backward_calls(lib, stream):
     fn.restype = ctypes.c_int
     calls = []
     for i, (label, n, t) in enumerate(SWEEPS):
-        x, fw, bw = case(i, n, t)
+        x, fw, bw = case(i, n, t, 2 * h, h)
         xp = rnn.input_projection(x, fw, bw).contiguous()
         w_hh = torch.stack([fw["w_hh"], bw["w_hh"]]).contiguous()
         w_t = w_hh.transpose(1, 2).contiguous()
         b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
         out = gru_seq._launch(xp, w_hh, b_hh)
-        grad_out = torch.randn(n, t, 2 * H, device="cuda", generator=torch.Generator("cuda").manual_seed(i))
+        grad_out = torch.randn(n, t, 2 * h, device="cuda", generator=torch.Generator("cuda").manual_seed(i))
         n_pad = -(-n // gru_seq._chunk_rows(t)) * gru_seq._chunk_rows(t)
-        dxp, dhp, h_prev = torch.empty_like(xp), xp.new_zeros(2, n_pad, t, 3 * H), xp.new_zeros(2, n_pad, t, H)
+        dxp, dhp, h_prev = torch.empty_like(xp), xp.new_zeros(2, n_pad, t, 3 * h), xp.new_zeros(2, n_pad, t, h)
 
         def call(rpt, n=n, t=t, n_pad=n_pad, args=(xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev)):
-            return fn(*(a.data_ptr() for a in args), n, n_pad, t, H, rpt, stream)
+            return fn(*(a.data_ptr() for a in args), n, n_pad, t, h, rpt, stream)
 
-        calls.append((label, call, gru_seq.config_for(n, H, x.device, backward=True).rpt))
+        calls.append((label, call, gru_seq.config_for(n, h, x.device, backward=True).rpt))
     return calls
 
 
@@ -208,8 +209,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--backward", action="store_true", help="ablate the backward kernel")
     parser.add_argument("--bf16", action="store_true", help="ablate the bf16 forward on the tensor cores")
+    parser.add_argument("--hidden", type=int, default=H, choices=gru_seq.NARROW_HIDDEN,
+                        help="the hidden size of the instantiations timed (the ablated sources' sizes)")
     args = parser.parse_args()
-    backward, bf16 = args.backward, args.bf16
+    backward, bf16, hidden = args.backward, args.bf16, args.hidden
     if backward and bf16:
         parser.error("--bf16 ablates the bf16 forward only")
     if not torch.cuda.is_available():
@@ -218,7 +221,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    libs = build_variants(backward, bf16)
+    libs = build_variants(backward, bf16, hidden)
     torch.cuda._sleep(int(2e9))  # about a second of spinning, to read the clock under load
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
                              "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
@@ -228,7 +231,7 @@ def main() -> int:
     variants = _kernel(backward, bf16)[1]
     tag = "ablate_k1 backward " if backward else "ablate_k1 bf16 " if bf16 else "ablate_k1 "
     for name, (lib, regs) in libs.items():
-        calls = (_backward_calls if backward else _bf16_forward_calls if bf16 else _forward_calls)(lib, stream)
+        calls = (_backward_calls if backward else _bf16_forward_calls if bf16 else _forward_calls)(lib, stream, hidden)
 
         def run(call, rpt):
             err = call(rpt)
@@ -240,7 +243,7 @@ def main() -> int:
         for label, call, rpt in calls:
             row[f"{label} ms"] = device_ms(lambda: run(call, rpt))
             row[f"{label} {kind}"] = rpt
-        row["registers, spilled bytes at H=32"] = regs
+        row[f"registers, spilled bytes at H={hidden}"] = regs
         print(tag + json.dumps(row), flush=True)
         if name == "full":  # the full kernel at every instantiation
             for rpt in gru_seq.TILE_ROWS if bf16 else gru_seq.RPTS:

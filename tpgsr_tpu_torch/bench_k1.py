@@ -1,9 +1,11 @@
 """Device times of kernel K1 at the flagship's two sweeps, on one NVIDIA card.
 
-    python -m tpgsr_tpu_torch.bench_k1 [--bf16] [--batch B]
+    python -m tpgsr_tpu_torch.bench_k1 [--bf16] [--batch B] [--hidden H]
 
 For each sweep at batch B, 48 by default (over W: N = 16 B, T = 64; over H:
-N = 64 B, T = 16; C = 64, H = 32) it prints one JSON line: K1 alone on a
+N = 64 B, T = 16; C = 2H, H = 32 by default, the flagship's ``--hd_u``;
+64 and 128 run the wide kernels, any other size up to 128 runs padded)
+it prints one JSON line: K1 alone on a
 precomputed projection (``gru_seq._launch``), the wrapper (projection + K1,
 ``gru_seq.bigru``) and ``nn.GRU`` (cuDNN) on the same input, each the mean
 device time of calls queued back to back (``device_ms``), with K1's error
@@ -36,7 +38,7 @@ import torch
 from tpgsr_tpu_torch.ops import gru_seq, rnn
 
 SWEEPS = (("over W", 768, 64), ("over H", 3072, 16))  # (label, N, T) at batch 48
-C, H = 64, 32
+C, H = 64, 32  # the flagship's sweeps: C = 2H
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -105,6 +107,14 @@ def _tile_smem(h: int, rows: int, backward: bool) -> int:
     return 4 * groups * words + 2 * gru_seq.TILE_WARPS * gru_seq.BF16_RING_STAGES * rows * ring_row
 
 
+def _wide_smem(h: int, rpt: int, backward: bool) -> int:
+    """Dynamic shared memory of a wide kernel's block (csrc/bigru_seq_wide.cu):
+    W_hh^T at a row stride of 3H + 1 floats, then the forward's two h
+    buffers or the backward's h_{t-1} and dhp_t, each the block's rows."""
+    rows = gru_seq.block_rows(h, rpt)
+    return 4 * (h * (3 * h + 1) + (4 * rows * h if backward else 2 * rows * h))
+
+
 def ptxas_report(log: str, backward: bool = False):
     """Registers and spilled bytes of each instantiation of K1's forward (or,
     with ``backward``, its backward) from -Xptxas -v, with the dynamic shared
@@ -114,8 +124,11 @@ def ptxas_report(log: str, backward: bool = False):
     the storage type where the kernel copies them by cp.async, at four rows a
     thread, else fp32).  bf16 (csrc/bigru_seq_bf16.cu,
     csrc/bigru_seq_bwd_bf16.cu), by hidden size and rows an m-tile
-    (``rows``; 8 in the backward): ``_tile_smem``."""
+    (``rows``; 8 in the backward): ``_tile_smem``.  The wide kernels
+    (csrc/bigru_seq_wide.cu), by storage type, hidden size and rows a
+    thread, marked ``"wide": True``: ``_wide_smem``."""
     kernel = "bigru_seq_backward_kernel" if backward else "bigru_seq_kernel"
+    wide = "bigru_wide_backward_kernel" if backward else "bigru_wide_forward_kernel"
     # the bf16 forward's template arguments: hidden, rows an m-tile; the backward's: hidden (8 rows)
     tile = r"bigru_seq_bwd_bf16_kernelILi(\d+)E()E" if backward else r"bigru_seq_bf16_kernelILi(\d+)ELi(\d+)E"
     rows = []
@@ -123,7 +136,12 @@ def ptxas_report(log: str, backward: bool = False):
         kept = {"registers": e["registers"], "spill_bytes": e["spill_bytes"], "stack_bytes": e["stack_bytes"]}
         t = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", e["kernel"])
         tiled = re.search(tile, e["kernel"])
-        if t:
+        w = re.search(wide + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", e["kernel"])
+        if w:
+            h, rpt = int(w.group(2)), int(w.group(3))
+            rows.append({"dtype": _MANGLED_DTYPES[w.group(1)], "H": h, "rpt": rpt, "wide": True, **kept,
+                         "smem_bytes": _wide_smem(h, rpt, backward)})
+        elif t:
             dtype = _MANGLED_DTYPES[t.group(1)]
             h, rpt = int(t.group(2)), int(t.group(3))
             size = 2 if dtype == "bf16" else 4
@@ -161,7 +179,8 @@ def sweeps(batch: int):
 
 def _maybe_ms(fn):
     """``device_ms`` of ``fn``, or None where the host cannot queue its calls
-    ahead of the card."""
+    ahead of the card (``nn.GRU`` in bf16; the wrapper's forward and
+    backward at a padded size, whose padding and slices are small ops)."""
     try:
         return device_ms(fn)
     except RuntimeError:
@@ -172,7 +191,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--bf16", action="store_true", help="bf16 input: K1's bf16 kernels")
     parser.add_argument("--batch", type=int, default=48, help="the flagship's batch the sweeps follow")
+    parser.add_argument("--hidden", type=int, default=H, help="K1's hidden size (--hd_u); the input is 2H wide")
     args = parser.parse_args(argv)
+    h, c = args.hidden, 2 * args.hidden
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     if not torch.cuda.is_available():
         raise SystemExit("bench_k1: needs an NVIDIA card")
@@ -183,12 +204,15 @@ def main(argv=None) -> int:
     print(smi.splitlines()[0], flush=True)
     torch.cuda._sleep(int(2e9))  # about a second of spinning, so that the first timing finds the clocks up
     for i, (label, n, t) in enumerate(sweeps(args.batch)):
-        x, fw, bw = case(i, n, t)
+        x, fw, bw = case(i, n, t, c, h)
         x = x.to(dtype)
-        xp = rnn.input_projection(x, fw, bw).contiguous()
-        w_hh = torch.stack([fw["w_hh"], bw["w_hh"]]).contiguous()
-        b_hh = torch.stack([fw["b_hh"], bw["b_hh"]]).contiguous()
-        lib = torch.nn.GRU(C, H, bidirectional=True, batch_first=True).cuda()
+        # K1 alone runs at the instantiated size: a padded H's projection and weights
+        hp = gru_seq.padded_hidden(h) if hasattr(gru_seq, "padded_hidden") else h
+        pfw, pbw = (rnn.pad_hidden(d, hp) for d in (fw, bw)) if hp != h else (fw, bw)
+        xp = rnn.input_projection(x, pfw, pbw).contiguous()
+        w_hh = torch.stack([pfw["w_hh"], pbw["w_hh"]]).contiguous()
+        b_hh = torch.stack([pfw["b_hh"], pbw["b_hh"]]).contiguous()
+        lib = torch.nn.GRU(c, h, bidirectional=True, batch_first=True).cuda()
         with torch.no_grad():
             for sfx, d in (("", fw), ("_reverse", bw)):
                 for ours, theirs in (("w_ih", "weight_ih_l0"), ("w_hh", "weight_hh_l0"),
@@ -197,7 +221,7 @@ def main(argv=None) -> int:
             lib = lib.to(dtype)
             err = float((gru_seq._launch(xp, w_hh, b_hh).float()
                          - rnn.bigru_recurrence(xp, w_hh, b_hh).float()).abs().max())
-            row = {"sweep": label, "batch": args.batch, "dtype": str(dtype), "N": n, "T": t, "C": C, "H": H,
+            row = {"sweep": label, "batch": args.batch, "dtype": str(dtype), "N": n, "T": t, "C": c, "H": h, "Hp": hp,
                    "max_abs_err": err,
                    "k1_ms": device_ms(lambda: gru_seq._launch(xp, w_hh, b_hh)),
                    "wrapper_ms": device_ms(lambda: gru_seq.bigru(x, fw, bw)),
@@ -212,11 +236,13 @@ def main(argv=None) -> int:
 
 
 def backward_row(label, x, fw, bw, xp, w_hh, b_hh, lib):
-    """Device times of K1's backward: the kernel alone, with the dW_hh GEMM,
-    the wrapper's forward + backward and nn.GRU's, on one cotangent."""
-    n, t, _ = x.shape
+    """Device times of K1's backward: the kernel alone, with the dW_hh GEMM
+    (both at the instantiated size, on ``xp``, ``w_hh`` and ``b_hh``), the
+    wrapper's forward + backward and nn.GRU's, on one cotangent."""
+    n, t, c = x.shape
+    h, hp = fw["w_hh"].shape[-1], w_hh.shape[-1]
     out = gru_seq._launch(xp, w_hh, b_hh)
-    grad_out = torch.from_numpy(np.random.default_rng(n).standard_normal((n, t, 2 * H)).astype(np.float32))
+    grad_out = torch.from_numpy(np.random.default_rng(n).standard_normal((n, t, 2 * hp)).astype(np.float32))
     grad_out = grad_out.to("cuda", x.dtype)
     if x.dtype == torch.float32:
         w_t, b_k = w_hh.transpose(1, 2).contiguous(), b_hh
@@ -225,19 +251,20 @@ def backward_row(label, x, fw, bw, xp, w_hh, b_hh, lib):
     leaves = [x.clone().requires_grad_(True), *({k: v.clone().requires_grad_(True) for k, v in d.items()}
                                                 for d in (fw, bw))]
     x_lib = x.clone().requires_grad_(True)
+    grad_real = grad_out if hp == h else rnn.unpad_output(grad_out, h).contiguous()
     got = gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)[0]
     want = rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)[0]
     config = {}
     params = inspect.signature(gru_seq.config_for).parameters
     if "backward" in params:  # older trees configure the forward only
         dtype = {"dtype": x.dtype} if "dtype" in params else {}
-        config = gru_seq.config_for(n, H, x.device, backward=True, **dtype)._asdict()
-    return {"sweep": label, "dtype": str(x.dtype), "N": n, "T": t, "C": C, "H": H, **config,
+        config = gru_seq.config_for(n, hp, x.device, backward=True, **dtype)._asdict()
+    return {"sweep": label, "dtype": str(x.dtype), "N": n, "T": t, "C": c, "H": h, "Hp": hp, **config,
             "dxp_max_abs_err": float((got.float() - want.float()).abs().max()),
             "kernel_ms": device_ms(lambda: gru_seq._backward_kernel(xp, w_t, b_k, out, grad_out)),
             "backward_ms": device_ms(lambda: gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)),
-            "wrapper_fwd_bwd_ms": device_ms(lambda: gru_seq.bigru(*leaves).backward(grad_out)),
-            "nn_gru_fwd_bwd_ms": _maybe_ms(lambda: lib(x_lib)[0].backward(grad_out))}
+            "wrapper_fwd_bwd_ms": _maybe_ms(lambda: gru_seq.bigru(*leaves).backward(grad_real)),
+            "nn_gru_fwd_bwd_ms": _maybe_ms(lambda: lib(x_lib)[0].backward(grad_real))}
 
 
 if __name__ == "__main__":

@@ -10,6 +10,8 @@ for the prior and a teacher CRNN, weights drawn from a seeded
 seed gives the same weights on every device.  ``flagship`` serves in eval
 mode; ``flagship_train`` returns the train state (the student a copy of the
 teacher, Adam) and its train step in fp32 or bf16 (TRAIN.compute_dtype).
+``flagship_train`` takes the SRBs' hidden size (``--hd_u``; 32, the
+script's default).
 """
 
 from __future__ import annotations
@@ -32,11 +34,11 @@ LR_SIZE = (16, 64)  # h, w; SR and HR are 32x128
 TRAIN_WIDTH = 128
 
 
-def _flagship_models(gen: torch.Generator, dev: torch.device):
+def _flagship_models(gen: torch.Generator, dev: torch.device, hidden_units: int = 32):
     """(TSRN_TL, student CRNN, teacher CRNN), drawn in that order."""
     h, w = LR_SIZE
     sr = TSRN_TL(scale_factor=2, width=2 * w, height=2 * h, stn=True, mask=True,
-                 srb_nums=5, hidden_units=32)
+                 srb_nums=5, hidden_units=hidden_units)
     stu = CRNN(nclass=CTC_NUM_CLASSES)
     teacher = CRNN(nclass=CTC_NUM_CLASSES)
     return [init_torch_defaults_(m, gen).to(dev) for m in (sr, stu, teacher)]
@@ -50,12 +52,12 @@ def flagship(device: DeviceLike = None, seed: int = 0) -> Tuple[EvalModels, Eval
     return eval_models, make_eval_step(FLAGSHIP_ARGS, TRAIN_WIDTH, device=dev)
 
 
-def flagship_train(device: DeviceLike = None, seed: int = 0,
-                   compute_dtype: str = "fp32") -> Tuple[TrainState, TrainStep]:
+def flagship_train(device: DeviceLike = None, seed: int = 0, compute_dtype: str = "fp32",
+                   hidden_units: int = 32) -> Tuple[TrainState, TrainStep]:
     """(train state on ``device``, its train step with the models in
     ``compute_dtype``, 'fp32' or 'bf16').  The same draws as ``flagship``;
     the student starts as a copy of the teacher."""
     dev = resolve_device(device)
-    sr, _, teacher = _flagship_models(torch.Generator().manual_seed(seed), dev)
+    sr, _, teacher = _flagship_models(torch.Generator().manual_seed(seed), dev, hidden_units)
     state = create_train_state([sr], teacher, n_stu=1)
     return state, make_train_step(FLAGSHIP_ARGS, TRAIN_WIDTH, device=dev, compute_dtype=compute_dtype)

@@ -4,9 +4,20 @@ CUDA kernels.
 Counterpart of tpgsr_tpu/ops/pallas_gru.py (``bigru_pallas``).  The kernel
 sources are ``csrc/bigru_seq.cu`` and ``csrc/bigru_seq_bwd.cu`` (forward and
 backward, fp32) and ``csrc/bigru_seq_bf16.cu`` and
-``csrc/bigru_seq_bwd_bf16.cu`` (bf16, on the tensor cores); their plain
-versions are ``ops.rnn.bigru_recurrence`` and
-``ops.rnn.bigru_recurrence_backward``.
+``csrc/bigru_seq_bwd_bf16.cu`` (bf16, on the tensor cores) at hidden sizes
+8, 16 and 32 (``NARROW_HIDDEN``: a row within a warp), and
+``csrc/bigru_seq_wide.cu`` (both ways, fp32 or bf16 storage) at 64 and 128
+(``WIDE_HIDDEN``); their plain versions are ``ops.rnn.bigru_recurrence``
+and ``ops.rnn.bigru_recurrence_backward``.
+
+* Every hidden size from 1 to ``MAX_HIDDEN`` runs on the card: ``bigru``
+  pads it with zero units to the next instantiated size
+  (``padded_hidden``, ``rnn.pad_hidden``) and slices the output back.  A
+  padded unit is exactly 0 at every step and feeds nothing into the real
+  ones, so the padding changes no value; autograd of the padding returns
+  the parameters' gradients at their real shapes.  The slice costs one copy
+  of the output at a padded size only: every kernel keeps one layout for
+  any H.
 
 * ``x`` is fp32 or bf16 (``SUPPORTED_DTYPES``), its parameters fp32.  In
   bf16 the kernels read and write xp, out, grad_out and dxp in bf16 and
@@ -17,12 +28,16 @@ versions are ``ops.rnn.bigru_recurrence`` and
 * A tensor on the CPU takes the plain versions, for that reason only.
 * A CUDA tensor launches the kernels or raises; nothing falls back.
 * ``LAUNCHES`` and ``BACKWARD_LAUNCHES`` count kernel launches, so a run can
-  show that its main path went through the kernels; ``LAUNCH_SHAPES``, set
-  to a list, collects each forward launch's (N, T, H) for a FLOP count.
+  show that its main path went through the kernels: every K1 launch,
+  ``WIDE_LAUNCHES`` and ``WIDE_BACKWARD_LAUNCHES`` those of them on the
+  wide kernels.  ``LAUNCH_SHAPES``, set to a list, collects each forward
+  call's (N, T, H) at the real H, with the FLOPs its padding adds to the
+  input projection, for a FLOP count (``utils.cost``).
 * Each kernel's launch configuration comes from a pure function of the
   shape and the card's limits, fed that kernel's own occupancy:
-  ``launch_config`` (rows a thread, grid) for the fp32 kernels,
-  ``tile_config`` (rows an m-tile, grid) for the bf16 ones.
+  ``launch_config`` (rows a thread, grid) for the fp32 kernels and the
+  wide ones, ``tile_config`` (rows an m-tile, grid) for the bf16 tensor-core
+  ones.
 * The backward kernel writes dxp, and dhp and h_{t-1} laid out per
   direction; dW_hh and db_hh are one batched GEMM and one sum outside it
   (``recurrent_weight_grads``), and the input projection's gradients come
@@ -43,13 +58,21 @@ from tpgsr_tpu_torch.ops.rnn import Params
 
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
-# (N, T, H) of each forward launch while a FLOP count runs (utils.cost): the
-# kernel is reached through ctypes, which torch's FLOP counter cannot see
+WIDE_LAUNCHES = 0
+WIDE_BACKWARD_LAUNCHES = 0
+# (N, T, H, padding FLOPs) of each forward call on the card while a FLOP
+# count runs (utils.cost): the kernel is reached through ctypes, which
+# torch's FLOP counter cannot see, and at a padded H the counter sees the
+# input projection's products on the padded units
 LAUNCH_SHAPES: Optional[list] = None
-SUPPORTED_HIDDEN = (8, 16, 32)
+NARROW_HIDDEN = (8, 16, 32)  # csrc/bigru_seq*.cu: a row within a warp
+WIDE_HIDDEN = (64, 128)  # csrc/bigru_seq_wide.cu: a row across H / 32 warps
+SUPPORTED_HIDDEN = NARROW_HIDDEN + WIDE_HIDDEN  # the instantiated sizes; any other pads to the next
+MAX_HIDDEN = SUPPORTED_HIDDEN[-1]  # an fp32 W_hh of H = 256 (786 KB a direction) fits no SM's shared memory
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)  # the storage types of xp, out, grad_out and dxp
-THREADS = 128  # threads a block: H hidden units x 128 / H row groups
-RPTS = (1, 2, 4)  # rows a thread, the kernel's instantiations
+THREADS = 128  # threads a block of the narrow kernels: H hidden units x 128 / H row groups
+WIDE_GROUPS = 4  # row groups a block of the wide kernels (kGroups): H x 4 threads
+RPTS = (1, 2, 4)  # rows a thread, the fp32 and wide kernels' instantiations
 RING_STAGES = 4  # steps of xp in the kernel's shared-memory ring (kStages)
 TILE_ROWS = (8, 16)  # rows an m-tile, the bf16 kernels' instantiations
 TILE_WARPS = 4  # warps a block of the bf16 kernels, H / 8 an m-tile (kWarps)
@@ -58,6 +81,20 @@ SUB_PARTITIONS = 4  # warp schedulers an SM
 SMALL_TILE_WARPS = 2  # warps a sub-partition up to which the bf16 forward takes 8-row m-tiles
 GEMM_CHUNK = 256  # row-steps a batch of the dW_hh GEMM sums over
 _PARAM_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+
+def padded_hidden(hidden: int) -> int:
+    """The instantiated size K1 runs ``hidden`` at on the card: the smallest
+    of ``SUPPORTED_HIDDEN`` that holds it."""
+    if not 1 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"K1 takes hidden sizes 1 to {MAX_HIDDEN} on the card, got {hidden}")
+    return next(h for h in SUPPORTED_HIDDEN if h >= hidden)
+
+
+def block_rows(hidden: int, rpt: int) -> int:
+    """Rows a block of the fp32 or wide kernels at ``rpt`` rows a thread:
+    128 / H row groups of H threads at H <= 32, four groups above."""
+    return (WIDE_GROUPS if hidden in WIDE_HIDDEN else THREADS // hidden) * rpt
 
 
 class LaunchConfig(NamedTuple):
@@ -69,7 +106,9 @@ class LaunchConfig(NamedTuple):
 
 def launch_config(n: int, hidden: int, sms: int, blocks_per_sm: Mapping[int, int]) -> LaunchConfig:
     """The smallest rows-a-thread whose grid of ``2 * ceil(n / rows)`` blocks
-    fits one wave of ``sms * blocks_per_sm[rpt]``; the largest when none does."""
+    (``rows``: ``block_rows``) fits one wave of ``sms *
+    blocks_per_sm[rpt]``; the largest when none does.  The fp32 kernels and,
+    in both storage types, the wide ones."""
     if n < 1 or hidden not in SUPPORTED_HIDDEN:
         raise ValueError(f"need n >= 1 and hidden in {SUPPORTED_HIDDEN}, got n={n} hidden={hidden}")
     for rpt in RPTS:
@@ -77,7 +116,7 @@ def launch_config(n: int, hidden: int, sms: int, blocks_per_sm: Mapping[int, int
             raise ValueError(f"K1 at hidden {hidden}, {rpt} rows a thread fits no block on an SM")
     configs = []
     for rpt in RPTS:
-        rows = THREADS // hidden * rpt
+        rows = block_rows(hidden, rpt)
         blocks = 2 * -(-n // rows)
         per_wave = sms * blocks_per_sm[rpt]
         configs.append(LaunchConfig(rpt, blocks, blocks_per_sm[rpt], -(-blocks // per_wave)))
@@ -101,9 +140,10 @@ def tile_config(n: int, hidden: int, sms: int, blocks_per_sm: Mapping[int, int],
     8``, come to at most ``SMALL_TILE_WARPS`` a sub-partition of the card
     (the flagship's sweep over W), else 16 rows (fewer warps, each product's
     rows all used: over H and at batch 512).  Measured on an H100 at H = 32
-    (PERF.md)."""
-    if n < 1 or hidden not in SUPPORTED_HIDDEN:
-        raise ValueError(f"need n >= 1 and hidden in {SUPPORTED_HIDDEN}, got n={n} hidden={hidden}")
+    (PERF.md).  The tensor-core kernels' sizes only (``NARROW_HIDDEN``); bf16
+    at ``WIDE_HIDDEN`` takes ``launch_config``."""
+    if n < 1 or hidden not in NARROW_HIDDEN:
+        raise ValueError(f"need n >= 1 and hidden in {NARROW_HIDDEN}, got n={n} hidden={hidden}")
     tile_warps = hidden // 8
     small = TILE_ROWS[0]
     fits = 2 * -(-n // small) * tile_warps <= SMALL_TILE_WARPS * SUB_PARTITIONS * sms
@@ -162,6 +202,20 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _wide_lib() -> ctypes.CDLL:
+    from tpgsr_tpu_torch.ops import _build
+
+    lib = _build.load("bigru_seq_wide")
+    lib.tpgsr_bigru_wide_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tpgsr_bigru_wide_forward.restype = ctypes.c_int
+    lib.tpgsr_bigru_wide_backward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.tpgsr_bigru_wide_backward.restype = ctypes.c_int
+    lib.tpgsr_bigru_wide_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tpgsr_bigru_wide_occupancy.restype = ctypes.c_int
+    return lib
+
+
 def _bf16_flag(dtype: torch.dtype) -> int:
     """The kernels' storage-type argument: 0 for fp32, 1 for bf16."""
     if dtype not in SUPPORTED_DTYPES:
@@ -174,9 +228,13 @@ def _device_limits(index: int, hidden: int, backward: bool, bf16: int) -> Tuple[
     """(SMs, ((instantiation, resident blocks an SM), ...)) of card ``index``
     for the forward kernel, or the backward's with ``backward``, in fp32
     storage or with ``bf16`` in bf16 (their registers and shared memory
-    differ); an instantiation is a rows a thread (``RPTS``), or in bf16 a
-    rows an m-tile (``TILE_ROWS``; the backward's 8 only)."""
-    if bf16 and backward:  # one instantiation a hidden size, 8 rows an m-tile
+    differ); an instantiation is a rows a thread (``RPTS``), or in bf16 at
+    ``NARROW_HIDDEN`` a rows an m-tile (``TILE_ROWS``; the backward's 8
+    only)."""
+    if hidden in WIDE_HIDDEN:
+        lib = _wide_lib().tpgsr_bigru_wide_occupancy
+        query, kinds = (lambda rpt, blocks: lib(hidden, rpt, bf16, int(backward), blocks)), RPTS
+    elif bf16 and backward:  # one instantiation a hidden size, 8 rows an m-tile
         lib = _bwd_bf16_lib().tpgsr_bigru_seq_bf16_backward_occupancy
         query, kinds = (lambda rows, blocks: lib(hidden, blocks)), TILE_ROWS[:1]
     elif bf16:
@@ -199,7 +257,8 @@ def config_for(n: int, hidden: int, device: torch.device, backward: bool = False
                dtype: torch.dtype = torch.float32) -> "LaunchConfig | TileConfig":
     """The launch configuration K1's forward (or, with ``backward``, its
     backward) takes for ``n`` rows of storage type ``dtype`` on CUDA
-    ``device``: a ``TileConfig`` in bf16, a ``LaunchConfig`` in fp32."""
+    ``device``: a ``TileConfig`` for the bf16 tensor-core kernels
+    (``NARROW_HIDDEN``), a ``LaunchConfig`` for the others."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     return _config(index, n, hidden, backward, _bf16_flag(dtype))
 
@@ -207,7 +266,7 @@ def config_for(n: int, hidden: int, device: torch.device, backward: bool = False
 @functools.lru_cache(maxsize=1024)
 def _config(index: int, n: int, hidden: int, backward: bool, bf16: int) -> "LaunchConfig | TileConfig":
     sms, occupancy = _device_limits(index, hidden, backward, bf16)
-    if bf16:
+    if bf16 and hidden in NARROW_HIDDEN:
         return tile_config(n, hidden, sms, dict(occupancy), backward=backward)
     return launch_config(n, hidden, sms, dict(occupancy))
 
@@ -255,11 +314,12 @@ def _recurrence(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor,
                 config: "Optional[LaunchConfig | TileConfig]" = None) -> torch.Tensor:
     """Run K1 on [N, T, 6H] projections with ``w_t`` [2, H, 3H] (W_hh
     transposed per direction) and ``b_hh`` [2, 3H] in fp32, holding values of
-    xp's dtype (``_kernel_weights``); returns [N, T, 2H] in xp's dtype: the
-    fp32 kernel for fp32, the tensor-core kernel for bf16.  ``config``
+    xp's dtype (``_kernel_weights``); returns [N, T, 2H] in xp's dtype: at
+    ``NARROW_HIDDEN`` the fp32 kernel for fp32 and the tensor-core kernel for
+    bf16, at ``WIDE_HIDDEN`` the wide kernel in either.  ``config``
     overrides ``config_for`` (the tests use it to reach every
     instantiation)."""
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     n, t, g6 = xp.shape
     h = g6 // 6
     bf16 = _bf16_flag(xp.dtype)
@@ -272,21 +332,26 @@ def _recurrence(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor,
         raise ValueError("xp must be 16-byte aligned (the kernel copies it 16 bytes a thread)")
     if config is None:
         config = config_for(n, h, xp.device, dtype=xp.dtype)
-    if bf16 and (n + TILE_ROWS[-1]) * t * 6 * h >= 2**31:
+    wide = h in WIDE_HIDDEN
+    if bf16 and not wide and (n + TILE_ROWS[-1]) * t * 6 * h >= 2**31:
         raise ValueError(f"K1's bf16 forward indexes with 32-bit offsets: N={n}, T={t}, H={h} is too large")
-    if bf16:
-        fn, kind = _bf16_lib().tpgsr_bigru_seq_bf16_forward, config.rows
-    else:
-        fn, kind = _lib().tpgsr_bigru_seq_forward, config.rpt
     out = torch.empty(n, t, 2 * h, device=xp.device, dtype=xp.dtype)
+    args = [xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), n, t, h]
+    if wide:
+        fn = _wide_lib().tpgsr_bigru_wide_forward
+        args += [config.rpt, bf16]
+    elif bf16:
+        fn = _bf16_lib().tpgsr_bigru_seq_bf16_forward
+        args.append(config.rows)
+    else:
+        fn = _lib().tpgsr_bigru_seq_forward
+        args.append(config.rpt)
     with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
-        err = fn(xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), n, t, h, kind, stream)
+        err = fn(*args, torch.cuda.current_stream(xp.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K1 bigru_seq launch failed: cudaError {err}")
     LAUNCHES += 1
-    if LAUNCH_SHAPES is not None:
-        LAUNCH_SHAPES.append((n, t, h))
+    WIDE_LAUNCHES += int(wide)
     return out
 
 
@@ -304,7 +369,8 @@ def _chunk_rows(t: int) -> int:
 def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, out: torch.Tensor,
                      grad_out: torch.Tensor, config: "Optional[LaunchConfig | TileConfig]" = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Run K1's backward kernel (fp32, or the tensor-core kernel in bf16):
+    """Run K1's backward kernel (at ``NARROW_HIDDEN`` the fp32 kernel, or
+    the tensor-core kernel in bf16; at ``WIDE_HIDDEN`` the wide kernel):
     ``xp`` [N, T, 6H], the forward's ``out`` and ``grad_out`` [N, T, 2H], all
     fp32 or all bf16, with ``w_t`` [2, H, 3H] and ``b_hh`` [2, 3H] in fp32
     holding values of xp's dtype (``_kernel_weights``) -> (dxp [N, T, 6H] in
@@ -312,7 +378,7 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
     padded with zero rows to Np, a multiple of the GEMM's chunk of rows.
     ``config`` overrides ``config_for(..., backward=True)`` (the tests use it
     to reach every instantiation)."""
-    global BACKWARD_LAUNCHES
+    global BACKWARD_LAUNCHES, WIDE_BACKWARD_LAUNCHES
     n, t, g6 = xp.shape
     h = g6 // 6
     bf16 = _bf16_flag(xp.dtype)
@@ -333,9 +399,10 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
         raise ValueError("out must be 4-byte aligned (the kernel copies h_{t-1} from it 4 bytes at a time)")
     if config is None:
         config = config_for(n, h, xp.device, backward=True, dtype=xp.dtype)
+    wide = h in WIDE_HIDDEN
     rows = _chunk_rows(t)
     n_pad = -(-n // rows) * rows
-    if (n_pad + 64) * t * 6 * h >= 2**31:
+    if not wide and (n_pad + 64) * t * 6 * h >= 2**31:
         raise ValueError(f"K1's backward indexes with 32-bit offsets: N={n}, T={t}, H={h} is too large")
     dxp = torch.empty_like(xp)
     dhp = xp.new_empty(2, n_pad, t, 3 * h, dtype=torch.float32)
@@ -343,11 +410,14 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
     if n_pad > n:
         dhp[:, n:].zero_()
         h_prev[:, n:].zero_()
-    if bf16 and config.rows != TILE_ROWS[0]:
+    if bf16 and not wide and config.rows != TILE_ROWS[0]:
         raise ValueError(f"K1's bf16 backward runs {TILE_ROWS[0]} rows an m-tile, got {config.rows}")
     args = [xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
             dxp.data_ptr(), dhp.data_ptr(), h_prev.data_ptr(), n, n_pad, t, h]
-    if bf16:
+    if wide:
+        fn = _wide_lib().tpgsr_bigru_wide_backward
+        args += [config.rpt, bf16]
+    elif bf16:
         fn = _bwd_bf16_lib().tpgsr_bigru_seq_bf16_backward
     else:
         fn = _bwd_lib().tpgsr_bigru_seq_backward
@@ -357,6 +427,7 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
     if err != 0:
         raise RuntimeError(f"K1 bigru_seq backward launch failed: cudaError {err}")
     BACKWARD_LAUNCHES += 1
+    WIDE_BACKWARD_LAUNCHES += int(wide)
     return dxp, dhp, h_prev
 
 
@@ -412,11 +483,22 @@ def bigru(x: torch.Tensor, fw: Params, bw: Params) -> torch.Tensor:
     """Bidirectional GRU [N, T, C] -> [N, T, 2H] in x's dtype (fp32 or
     bf16); ``fw``/``bw`` hold ``w_ih`` [3H, C], ``w_hh`` [3H, H], ``b_ih``,
     ``b_hh`` [3H] in torch layout, fp32.  The input projection runs in x's
-    dtype, with its weights cast to it."""
+    dtype, with its weights cast to it.  On the card a hidden size between
+    the instantiated ones runs padded with zero units (``padded_hidden``);
+    on the CPU the plain versions run at the real size."""
     _check(x, fw, bw)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, got {x.device}")
+    n, t, c = x.shape
+    h = fw["w_hh"].shape[-1]
+    hp = h if x.device.type == "cpu" else padded_hidden(h)
+    if hp != h:
+        fw, bw = rnn.pad_hidden(fw, hp), rnn.pad_hidden(bw, hp)
     xp = rnn.input_projection(x, fw, bw).contiguous()
     w_hh = torch.stack([fw["w_hh"], bw["w_hh"]])
     b_hh = torch.stack([fw["b_hh"], bw["b_hh"]])
-    return _BiGRUSeq.apply(xp, w_hh, b_hh)
+    out = _BiGRUSeq.apply(xp, w_hh, b_hh)
+    if LAUNCH_SHAPES is not None and x.device.type == "cuda":
+        # the counter sees the padded projection's 2 N T C 6 (Hp - H) FLOPs
+        LAUNCH_SHAPES.append((n, t, h, 2 * n * t * c * 6 * (hp - h)))
+    return out if hp == h else rnn.unpad_output(out, h)

@@ -16,6 +16,14 @@ Weights per direction: ``w_ih`` [3H, C], ``w_hh`` [3H, H], ``b_ih`` and
 ``bigru_recurrence_backward`` is the plain version of K1's backward kernel
 (``csrc/bigru_seq_bwd.cu``): BPTT of ``bigru_recurrence``, step by step.
 
+``pad_hidden`` and ``unpad_output`` are how K1's wrapper runs a hidden size
+between its kernels' sizes on the card (``ops.gru_seq.padded_hidden``):
+zero units appended to each gate, their outputs sliced away.  A padded unit
+sees xp = 0 and hp = 0, so r = z = sigmoid(0) = 1/2, n = tanh(0) = 0 and
+h = 0 at every step, and its zero columns of W_hh feed nothing into the real
+units; its gradients are exactly 0 too.  The CPU tests run the plain
+recurrence so; the CPU path itself runs the real size.
+
 Both recurrences take ``xp`` (and ``out``, ``grad_out``) in fp32 or bf16 and
 compute in fp32 from those values, with W_hh and b_hh rounded to xp's dtype
 (``rounded_to``), as the JAX layers cast weights to the activation dtype:
@@ -147,6 +155,31 @@ def _recurrence_backward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tenso
         db_hh += dhp.sum(1)
         dh_next = dh * z + torch.bmm(dhp, w_hh)
     return dxp, dw_hh, db_hh
+
+
+def pad_hidden(params: Params, hidden: int) -> Params:
+    """One direction's ``w_ih`` [3H, C], ``w_hh`` [3H, H], ``b_ih``, ``b_hh``
+    [3H] with zero units appended to each gate up to ``hidden``: [3Hp, C],
+    [3Hp, Hp], [3Hp].  Differentiable, so autograd returns the gradients at
+    the real shapes."""
+    h = params["w_hh"].shape[-1]
+    if hidden < h:
+        raise ValueError(f"cannot pad hidden size {h} to {hidden}")
+    extra = hidden - h
+
+    def rows(t: torch.Tensor) -> torch.Tensor:  # [3H, ...] -> [3Hp, ...], zeros after each gate's H rows
+        g = t.reshape(3, h, -1)
+        return torch.nn.functional.pad(g, (0, 0, 0, extra)).reshape(3 * hidden, *t.shape[1:])
+
+    return {"w_ih": rows(params["w_ih"]),
+            "w_hh": torch.nn.functional.pad(rows(params["w_hh"]), (0, extra)),
+            "b_ih": rows(params["b_ih"]), "b_hh": rows(params["b_hh"])}
+
+
+def unpad_output(out: torch.Tensor, hidden: int) -> torch.Tensor:
+    """[N, T, 2Hp] -> [N, T, 2H]: each direction's first ``hidden`` units."""
+    hp = out.shape[-1] // 2
+    return torch.cat([out[..., :hidden], out[..., hp:hp + hidden]], -1)
 
 
 def bigru(x: torch.Tensor, fw: Params, bw: Params) -> torch.Tensor:

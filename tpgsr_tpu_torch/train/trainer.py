@@ -72,7 +72,7 @@ from tpgsr_tpu_torch.models.opt_tpg import OPTModel
 from tpgsr_tpu_torch.models.seed import SEEDModelBuilder
 from tpgsr_tpu_torch.models.registry import ABLATION_SET, TL_SIMPLE, build_model, check_arch
 from tpgsr_tpu_torch.ops.ctc import decode_crnn
-from tpgsr_tpu_torch.ops.gru_seq import SUPPORTED_HIDDEN
+from tpgsr_tpu_torch.ops.gru_seq import MAX_HIDDEN
 from tpgsr_tpu_torch.parallel import rank_and_world, rank_device, replicate
 from tpgsr_tpu_torch.train import checkpoint as ckpt
 from tpgsr_tpu_torch.train.evaluate import evaluate
@@ -338,9 +338,13 @@ def check_ported(config: AttrDict, args: Mapping, device: torch.device) -> None:
         if not (args.get("test") or args.get("demo")) and str(args.get("test_model") or "CRNN") != "CRNN":
             raise ValueError("--random_reso eval supports --test_model=CRNN only")
     hidden = int(args.get("hd_u", 32))
-    # only the TSRN family runs K1; the other backbones read no --hd_u
-    if device.type == "cuda" and args["arch"].startswith("tsrn") and hidden not in SUPPORTED_HIDDEN:
-        missing(f"--hd_u {hidden} on the card (K1 takes hidden sizes {SUPPORTED_HIDDEN})", "queue 2 item 3")
+    # only the TSRN family runs K1; the other backbones read no --hd_u.  K1
+    # runs every size from 1 to MAX_HIDDEN (padded to its kernels' sizes);
+    # at 256 an fp32 W_hh is 786 KB a direction, more than an SM's shared
+    # memory, which needs another design
+    if device.type == "cuda" and args["arch"].startswith("tsrn") and not 1 <= hidden <= MAX_HIDDEN:
+        missing(f"--hd_u {hidden} on the card (K1 takes hidden sizes 1 to {MAX_HIDDEN}; above, an fp32 W_hh "
+                "outgrows an SM's shared memory)", "queue 2 item 3")
 
 
 class TextSR:

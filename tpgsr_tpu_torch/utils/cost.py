@@ -6,9 +6,11 @@ FLOPs are counted by ``torch.utils.flop_counter.FlopCounterMode`` over one
 forward pass: the convolutions and matrix products, each 2 FLOPs a
 multiply-add.  K1's recurrence on the card is a CUDA kernel reached through
 ctypes, which the counter cannot see, so each of its launches adds the
-2·T·2N·3H·H FLOPs of its recurrent products (``gru_seq.LAUNCH_SHAPES``);
-on the CPU its plain version runs those products as ``baddbmm``s, which
-the counter counts, so the card and the CPU report the same number.
+2·T·2N·3H·H FLOPs of its recurrent products (``gru_seq.LAUNCH_SHAPES``) at
+the real hidden size H, and takes off what a padded H (``gru_seq.bigru``)
+adds to the input projection the counter sees; on the CPU the plain
+version runs those products as ``baddbmm``s at the real size, which the
+counter counts, so the card and the CPU report the same number.
 
 The count differs from the JAX package's by design: XLA's
 ``cost_analysis`` counts every operation of the compiled program,
@@ -52,8 +54,9 @@ def cost_analysis(fn: Callable, *example_args) -> Dict[str, float]:
             fn(*example_args)
     finally:
         gru_seq.LAUNCH_SHAPES = None
-    k1 = sum(recurrence_flops(*shape) for shape in shapes)
-    return {"flops": float(counter.get_total_flops() + k1), "k1_flops": float(k1)}
+    k1 = sum(recurrence_flops(n, t, h) for n, t, h, _ in shapes)
+    padding = sum(extra for *_, extra in shapes)
+    return {"flops": float(counter.get_total_flops() - padding + k1), "k1_flops": float(k1)}
 
 
 def model_cost_report(model: torch.nn.Module, example_inputs: Tuple[torch.Tensor, ...],
