@@ -10,23 +10,25 @@ package beside this script):
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: compiles every kernel under tpgsr_tpu_torch/csrc with nvcc and
    checks that no instantiation of K1's forward or backward, fp32
-   (csrc/bigru_seq.cu, csrc/bigru_seq_bwd.cu), bf16 on the tensor cores
-   (csrc/bigru_seq_bf16.cu, csrc/bigru_seq_bwd_bf16.cu) or wide (H = 64
-   and 128, both ways, both storage types: csrc/bigru_seq_wide.cu), spills;
+   (csrc/bigru_seq.cu, csrc/bigru_seq_bwd.cu; H = 64 and 128, both ways:
+   csrc/bigru_seq_wide.cu) or bf16 on the tensor cores (csrc/bigru_seq_bf16.cu,
+   csrc/bigru_seq_bwd_bf16.cu; H = 8 to 128), spills;
 3. K1 (the BiGRU recurrence) against its plain PyTorch version on the card,
    in fp32 and in bf16, at the flagship's two sweep shapes at batch 48 and
    at the packaged YAML's 512, at edge cases and at every compiled instantiation (hidden
    size x rows a thread in fp32, x rows an m-tile in bf16), with times
    beside the plain version, ``nn.GRU`` (in the same dtype) and the card's
    bound, and the launch configuration of each timed shape; then the wide
-   kernels and the padded sizes (``phase_k1_wide``): the flagship's sweeps
+   sizes and the padded ones (``phase_k1_wide``): the flagship's sweeps
    at ``--hd_u`` 64 and 128 (C = 2H, batch 48; timed the same way), a
    ragged N and T = 1 at each, H = 1, 12, 20, 40 and 100 padded to an
-   instantiated size, and every wide instantiation forced; the wrapper's
-   output the kernel's sliced back bit for bit, the padded units 0, the
-   kernel held in fp32 to an fp64 recurrence on the same projection (at
-   most twice the plain fp32 version's gap plus 1e-6) and in bf16 within
-   one bf16 ulp of the plain version;
+   instantiated size, and every instantiation at 64 and 128 forced; the
+   wrapper's output the kernel's sliced back bit for bit, the padded units
+   0, each launch counted on the kernel it belongs to (fp32: the wide
+   kernel; bf16: the tensor-core one), the kernel held in fp32 to an fp64
+   recurrence on the same projection (at most twice the plain fp32
+   version's gap plus 1e-6) and in bf16 within one bf16 ulp of the plain
+   version;
 4. the flagship eval path on the card against the same path on the CPU;
 5. serving: ``evaluate`` over 4 batches of 48 at full width, with K1's
    launches counted on that run alone;
@@ -198,11 +200,13 @@ package beside this script):
    ``eval_tile`` is 0) and a save: images/s, peak memory, K1's launches.  Phases 3 and 6 hold K1's
    fp32 kernels at batch 512's sweeps too.
 20. ``--hd_u`` beyond 32 on the flagship: (a) one fp32 train step at batch 8
-   on the card against the CPU at ``--hd_u`` 64 (the wide kernels) and 20
-   (padded to 32), phase 7's bounds, K1 launched 10 + 10, on the wide
+   on the card against the CPU at ``--hd_u`` 64 (the fp32 wide kernels) and
+   20 (padded to 32), phase 7's bounds, K1 launched 10 + 10, on the wide
    kernels at 64 and not at 20; (b) ``cli.main`` at ``--hd_u 64`` on phase
    12's config (the packaged YAML, bf16, batch 48, 22 iterations, a val and
-   a save), every K1 launch on the wide kernels, then ``--go_test`` from
+   a save), every K1 launch of its bf16 train steps, the window's
+   included, on the tensor-core kernels at H = 64 and the val's (fp32) on
+   the wide kernel, then ``--go_test`` from
    its checkpoint with the val's metric dicts; a ``{"hd_u": ...}`` line
    with images/s and peak memory beside phase 12's at ``--hd_u 32``.
 
@@ -217,8 +221,9 @@ phase 17(b)'s; ``syn_launches``, ``mixed_launches``, ``ic15sr_launches``:
 17(d)'s; ``ddp_launches``: each rank's in phase 18, the fp32 entries (a)'s
 step, the bf16 ones (b)'s training; ``accept_launches``: phase 19(b)'s;
 ``b512_launches``: phase 19(c)'s and (d)'s val's in fp32, (d)'s training's
-in bf16), and the wide kernel's four (launches: phase 20(a)'s ``--hd_u 64``
-step in fp32, 20(b)'s train window in bf16); the last is
+in bf16), and the four at ``--hd_u 64`` (fp32: csrc/bigru_seq_wide.cu, its
+launches phase 20(a)'s step; bf16: the tensor-core sources, their launches
+20(b)'s train window); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -563,9 +568,9 @@ def native_k1_cases():
 def instantiations(dtype: torch.dtype, backward: bool = False, hidden: int = 32):
     """Launch configurations that force each compiled instantiation of K1's
     forward (or backward) in ``dtype`` at ``hidden``: rows a thread in fp32
-    and in the wide kernels, rows an m-tile in the bf16 tensor-core ones
-    (the bf16 backward's 8 only)."""
-    if dtype == torch.bfloat16 and hidden in gru_seq.NARROW_HIDDEN:
+    (the narrow and the wide kernels), rows an m-tile in the bf16
+    tensor-core ones (the bf16 backward's 8 only)."""
+    if dtype == torch.bfloat16:
         return [gru_seq.TileConfig(rows, 0, 0, 0) for rows in gru_seq.TILE_ROWS[:1 if backward else None]]
     return [gru_seq.LaunchConfig(rpt, 0, 0, 0) for rpt in gru_seq.RPTS]
 
@@ -784,10 +789,11 @@ def phase_k1_backward(dtype: torch.dtype = torch.float32):
     return max_err, shapes
 
 
-# phases 3 and 6 beyond the flagship's H = 32: the wide kernels
-# (csrc/bigru_seq_wide.cu) at --hd_u 64 and 128 and the sizes padded to an
-# instantiated one (ops/gru_seq.py::padded_hidden).  The flagship's two
-# sweeps at batch 48 with C = 2H are timed at each wide size.
+# phases 3 and 6 beyond the flagship's H = 32: --hd_u 64 and 128 (fp32: the
+# wide kernels, csrc/bigru_seq_wide.cu; bf16: the tensor-core kernels) and
+# the sizes padded to an instantiated one (ops/gru_seq.py::padded_hidden).
+# The flagship's two sweeps at batch 48 with C = 2H are timed at each wide
+# size.
 WIDE_SWEEP_HIDDEN = (64, 128)
 PADDED_HIDDEN = (1, 12, 20, 40, 100)
 # fp32: the kernel's gap to an fp64 recurrence on the same projection is at
@@ -842,21 +848,34 @@ def fp64_rule(kernel, plain, fp64, what: str, scale: float = 1.0) -> dict:
     return {"kernel_vs_fp64": k, "plain_vs_fp64": p}
 
 
+def wide_launched(before, hp: int, dtype: torch.dtype, tag: str, backward: bool = False) -> None:
+    """One K1 launch since ``before`` (``k1_counts()``), forward or
+    backward, on the kernel of ``dtype`` at the instantiated size ``hp``:
+    at a wide size the fp32 wide kernel or, in bf16, the tensor-core one."""
+    launched = [b - a for a, b in zip(before, k1_counts())][int(backward)::2]
+    wide = int(hp in gru_seq.WIDE_HIDDEN)
+    want = [1, wide, wide * int(dtype == torch.bfloat16)]
+    check(launched == want, f"{tag}: K1 launched {launched} (all, wide, wide on the tensor cores), expected {want}")
+
+
 def wide_forward_check(label: str, n: int, t: int, c: int, h: int, dtype: torch.dtype, seed: int):
     """One wide or padded forward case: the wrapper's output equals the
     kernel's at the instantiated size sliced back, bit for bit; the padded
-    units are exactly 0; the kernel is held to the plain version on the same
-    projection (fp32: ``fp64_rule``; bf16: ``agrees``).  Returns (x, fw,
-    bw, kernel operands, row)."""
+    units are exactly 0; the wrapper's launch is on the kernel of its
+    storage type (``wide_launched``); the kernel is held to the plain
+    version on the same projection (fp32: ``fp64_rule``; bf16: ``agrees``).
+    Returns (x, fw, bw, kernel operands, row)."""
     x, fw, bw, (xp, w_hh, b_hh) = padded_case(seed, n, t, c, h, dtype)
     hp = xp.shape[-1] // 6
+    tag = f"K1 wide {DTYPE_NAMES[dtype]} {label}"
     with torch.no_grad():
+        before = k1_counts()
         got = gru_seq.bigru(x, fw, bw)
+        wide_launched(before, hp, dtype, tag)
         kernel = gru_seq._launch(xp, w_hh, b_hh)
         torch.cuda.synchronize()
         plain = rnn.bigru_recurrence(xp, w_hh, b_hh)
         real = rnn.bigru(x, fw, bw)
-    tag = f"K1 wide {DTYPE_NAMES[dtype]} {label}"
     check(got.dtype == dtype and torch.isfinite(got).all().item(), f"{tag}: non-finite output")
     check(torch.equal(got, rnn.unpad_output(kernel, h)), f"{tag}: the wrapper is not the kernel's output sliced")
     check(not kernel[..., padded_units(h, hp, 1)].any().item(), f"{tag}: a padded unit is not 0")
@@ -877,8 +896,9 @@ def phase_k1_wide(dtype: torch.dtype = torch.float32):
     """Phase 3 beyond H = 32 in ``dtype``: every ``wide_cases`` case by
     ``wide_forward_check``, the timed sweeps with times beside the plain
     version, ``nn.GRU`` (at the real H, in ``dtype``) and the card's bound;
-    then every instantiation of the wide kernel, forced, on a ragged N at T
-    = 13 and T = 3.  Returns (max_abs_err, rows)."""
+    then every instantiation at H = 64 and 128 (fp32: the wide kernel's
+    rows a thread; bf16: the tensor-core kernel's rows an m-tile), forced,
+    on a ragged N at T = 13 and T = 3.  Returns (max_abs_err, rows)."""
     name = DTYPE_NAMES[dtype]
     elem = torch.finfo(dtype).bits // 8
     max_err, rows = 0.0, []
@@ -923,8 +943,8 @@ def phase_k1_wide(dtype: torch.dtype = torch.float32):
                 else:
                     check(agrees(got, plain, 1e-5), f"{tag}: beyond one bf16 ulp + 1e-5")
                 max_err = max(max_err, float((got.float() - plain.float()).abs().max()))
-        print(f"K1 wide {name} H={h}: rows a thread {[f[0] for f in instantiations(dtype, hidden=h)]} at N={n}, "
-              "T=13 and T=3 agree", flush=True)
+        print(f"K1 wide {name} H={h}: instantiations {[f[0] for f in instantiations(dtype, hidden=h)]} at "
+              f"N={n}, T=13 and T=3 agree", flush=True)
     return max_err, rows
 
 
@@ -949,7 +969,9 @@ def wide_backward_check(label: str, n: int, t: int, c: int, h: int, dtype: torch
     g = g.to("cuda", dtype)
     grad_out = torch.zeros(n, t, 2 * hp, device="cuda", dtype=dtype)
     grad_out[..., ~padded_units(h, hp, 1)] = g
+    before = k1_counts()
     got = gru_seq.recurrence_backward(xp, w_hh, b_hh, out, grad_out)
+    wide_launched(before, hp, dtype, tag, backward=True)
     torch.cuda.synchronize()
     want = rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out)
     check(all(torch.isfinite(v).all().item() for v in got), f"{tag}: non-finite output")
@@ -1042,7 +1064,7 @@ def phase_k1_wide_backward(dtype: torch.dtype = torch.float32):
                     ok, rel = backward_agrees(got, want, 2e-5, 1e-4)
                     check(ok, f"{tag}: dxp beyond one bf16 ulp + 2e-5 or dW_hh / db_hh rel err {rel} beyond 1e-4")
                 max_err = max(max_err, float((got[0].float() - want[0].float()).abs().max()))
-        print(f"K1 wide backward {name} H={h}: rows a thread "
+        print(f"K1 wide backward {name} H={h}: instantiations "
               f"{[f[0] for f in instantiations(dtype, backward=True, hidden=h)]} at N={n}, T=13 and T=3 agree",
               flush=True)
     return max_err, rows
@@ -1121,9 +1143,15 @@ def phase_train_card_vs_cpu(hidden_units: int = 32):
     return launches
 
 
+K1_COUNTERS = ("LAUNCHES", "BACKWARD_LAUNCHES", "WIDE_LAUNCHES", "WIDE_BACKWARD_LAUNCHES", "WIDE_MMA_LAUNCHES",
+               "WIDE_MMA_BACKWARD_LAUNCHES")
+
+
 def k1_counts():
-    """K1's launch counts: (forward, backward, wide forward, wide backward)."""
-    return (gru_seq.LAUNCHES, gru_seq.BACKWARD_LAUNCHES, gru_seq.WIDE_LAUNCHES, gru_seq.WIDE_BACKWARD_LAUNCHES)
+    """K1's launch counts (``K1_COUNTERS``): (forward, backward, wide
+    forward, wide backward, wide forward and backward on the tensor
+    cores)."""
+    return tuple(getattr(gru_seq, k) for k in K1_COUNTERS)
 
 
 def phase_train(compute_dtype: str = "fp32"):
@@ -3901,8 +3929,9 @@ def phase_hd_u(root: str, val_dirs, packaged, smi: str):
     launched 10 + 10, on the wide kernels at 64 and on the padded 32's at 20;
     (b) ``cli.main`` with the flagship's flags and ``--hd_u 64`` on phase
     12's config (``packaged``: the packaged YAML, bf16, batch 48, one epoch
-    of 22 iterations over phase 9's TextZoom with a val and a save), every K1
-    launch on the wide kernels, then ``--go_test`` from its checkpoint with
+    of 22 iterations over phase 9's TextZoom with a val and a save), every
+    train step's K1 launch on the tensor-core kernels at H = 64 and the
+    val's on the fp32 wide kernel, then ``--go_test`` from its checkpoint with
     the run's val metric dicts (PSNR and SSIM at phase 4's 1e-4), the val
     loaders in the calling process as in phase 12 (``val_in_process``);
     images/s between the first iteration and the val and peak memory beside
@@ -3912,9 +3941,9 @@ def phase_hd_u(root: str, val_dirs, packaged, smi: str):
     for h in HD_U_STEPS:
         launches = phase_train_card_vs_cpu(h)
         wide = 2 * N_SRB if h in gru_seq.WIDE_HIDDEN else 0
-        want = (2 * N_SRB, 2 * N_SRB, wide, wide)
-        check(launches == want, f"--hd_u {h} step: K1 launched {launches} (forward, backward, wide forward, wide "
-              f"backward), expected {want}")
+        want = (2 * N_SRB, 2 * N_SRB, wide, wide, 0, 0)
+        check(launches == want, f"--hd_u {h} fp32 step: K1 launched {launches} ({', '.join(K1_COUNTERS)}), "
+              f"expected {want}")
         steps[h] = launches
 
     iterations = packaged["iterations"]
@@ -3926,7 +3955,7 @@ def phase_hd_u(root: str, val_dirs, packaged, smi: str):
     os.chdir(root)
     try:
         probe = TrainerProbe()
-        for k in ("LAUNCHES", "BACKWARD_LAUNCHES", "WIDE_LAUNCHES", "WIDE_BACKWARD_LAUNCHES"):
+        for k in K1_COUNTERS:
             setattr(gru_seq, k, 0)
         torch.cuda.reset_peak_memory_stats()
         start = time.perf_counter()
@@ -3941,8 +3970,10 @@ def phase_hd_u(root: str, val_dirs, packaged, smi: str):
         check(sizes == {HD_U_CLI}, f"--hd_u {HD_U_CLI}: the SR model's BiGRUs have hidden sizes {sizes}")
         run = k1_counts()
         fwd, bwd = 2 * N_SRB * (iterations + n_val_batches), 2 * N_SRB * iterations
-        check(run == (fwd, bwd, fwd, bwd), f"--hd_u {HD_U_CLI}: K1 launched {run} (forward, backward, wide forward, "
-              f"wide backward), expected {(fwd, bwd, fwd, bwd)}")
+        # every launch at H = 64; the train steps' (bf16, the window's included) all on the tensor
+        # cores, the val's forwards (fp32, as eval always is) on the wide kernel
+        want = (fwd, bwd, fwd, bwd, bwd, bwd)
+        check(run == want, f"--hd_u {HD_U_CLI}: K1 launched {run} ({', '.join(K1_COUNTERS)}), expected {want}")
         (val,) = [e for e in probe.events if e["name"] == "val"]
         window_s = val["t0"] - probe.first_step_end
         window = [b - a for a, b in zip(probe.first_step_counts, val["counts0"])]
@@ -4043,8 +4074,11 @@ def backward_entry(dtype, shapes, ptxas, launches, max_err, **extra):
 
 
 def wide_entry(dtype, backward: bool, shapes, ptxas, launches, max_err, **extra):
-    """The wide kernel's entry of the kernels line, forward or backward, in
-    ``dtype``: per SR forward (backward) of the flagship at --hd_u 64."""
+    """K1's entry at the wide sizes, forward or backward, in ``dtype``: per
+    SR forward (backward) of the flagship at --hd_u 64; fp32 on
+    csrc/bigru_seq_wide.cu, bf16 on the tensor-core sources.  ``ptxas``:
+    phase 2's rows of that source, of which the entry keeps H = 64 and
+    128."""
     name = DTYPE_NAMES[dtype]
     h = HD_U_CLI
     if backward:
@@ -4061,10 +4095,12 @@ def wide_entry(dtype, backward: bool, shapes, ptxas, launches, max_err, **extra)
                 f"{N_SRB} over H; ms: the wrapper by per-call events; device_ms: the wrapper by device_ms; "
                 "kernel_only_ms: the kernel alone on prepared weights")
     per = per_sr(shapes, keys, hidden=h)
+    source = WIDE_SOURCE if dtype == torch.float32 else K1_SOURCES[dtype][int(backward)]
     return {
-        "name": f"K1 bigru_seq wide{' backward' if backward else ''} ({name})",
+        "name": f"K1 bigru_seq wide{' backward' if backward else ''} ({name}"
+                + (")" if dtype == torch.float32 else ", tensor cores)"),
         "route": "cuda",
-        "source": f"tpgsr_tpu_torch/csrc/{WIDE_SOURCE}.cu",
+        "source": f"tpgsr_tpu_torch/csrc/{source}.cu",
         "replaces": "tpgsr_tpu/ops/pallas_gru.py:34 (backward of)" if backward else "tpgsr_tpu/ops/pallas_gru.py:95",
         "dtype": name,
         "hidden": list(gru_seq.WIDE_HIDDEN),
@@ -4074,7 +4110,7 @@ def wide_entry(dtype, backward: bool, shapes, ptxas, launches, max_err, **extra)
         **{k: per[k] for k in keys if k not in ("bytes_ms", "operations_ms")},
         **bound_fields(per["bytes_ms"], per["operations_ms"]),
         "shapes": shapes,
-        "ptxas": [r for r in ptxas[backward] if r["dtype"] == name],
+        "ptxas": [r for r in ptxas if r["H"] in gru_seq.WIDE_HIDDEN],
         **extra,
     }
 
@@ -4083,23 +4119,24 @@ def wide_entry(dtype, backward: bool, shapes, ptxas, launches, max_err, **extra)
 K1_SOURCES = {torch.float32: ("bigru_seq", "bigru_seq_bwd"), torch.bfloat16: ("bigru_seq_bf16", "bigru_seq_bwd_bf16")}
 
 
-WIDE_SOURCE = "bigru_seq_wide"  # both ways, both storage types, H = 64 and 128
+WIDE_SOURCE = "bigru_seq_wide"  # both ways in fp32, H = 64 and 128
 
 
 def check_ptxas(name: str, backward: bool):
     """Phase 2's rows for one source (one direction of the wide source):
-    every instantiation (hidden size x ``instantiations``; in the wide
-    source storage type x hidden size x rows a thread) reported, none
-    spilling or keeping a stack frame."""
+    every instantiation (hidden size x ``instantiations``: fp32 at
+    ``NARROW_HIDDEN``, the wide source at ``WIDE_HIDDEN``, bf16 at every
+    supported size) reported, none spilling or keeping a stack frame."""
     rows = ptxas_report(_build.build_log(name), backward=backward)
     for r in rows:
         print(f"nvcc {name} " + json.dumps(r), flush=True)
     if name == WIDE_SOURCE:
-        want = len(DTYPE_NAMES) * len(gru_seq.WIDE_HIDDEN) * len(gru_seq.RPTS)
+        want = len(gru_seq.WIDE_HIDDEN) * len(gru_seq.RPTS)
         rows = [r for r in rows if r.get("wide")]
     else:
         dtype = torch.bfloat16 if name.endswith("_bf16") else torch.float32
-        want = len(gru_seq.NARROW_HIDDEN) * len(instantiations(dtype, backward))
+        sizes = gru_seq.SUPPORTED_HIDDEN if dtype == torch.bfloat16 else gru_seq.NARROW_HIDDEN
+        want = len(sizes) * len(instantiations(dtype, backward))
     check(len(rows) == want, f"ptxas reported {len(rows)} instantiations of {name}, expected {want}")
     check(all(r["spill_bytes"] == 0 and r["stack_bytes"] == 0 for r in rows),
           f"an instantiation of {name} spills registers or keeps a stack frame")
@@ -4226,8 +4263,10 @@ def main() -> int:
     ]
     for dtype in DTYPE_NAMES:
         key = DTYPE_NAMES[dtype]
-        kernels.append(wide_entry(dtype, False, wide[dtype][1], wide_ptxas, hd_u[key], wide[dtype][0]))
-        kernels.append(wide_entry(dtype, True, wide_bwd[dtype][1], wide_ptxas, hd_u[f"{key}_backward"],
+        fwd_rows, bwd_rows = ((wide_ptxas[False], wide_ptxas[True]) if dtype == torch.float32
+                              else (ptxas[dtype], bwd_ptxas[dtype]))
+        kernels.append(wide_entry(dtype, False, wide[dtype][1], fwd_rows, hd_u[key], wide[dtype][0]))
+        kernels.append(wide_entry(dtype, True, wide_bwd[dtype][1], bwd_rows, hd_u[f"{key}_backward"],
                                   wide_bwd[dtype][0]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")

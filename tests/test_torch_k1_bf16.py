@@ -1,10 +1,10 @@
 """K1's bf16 kernels on the tensor cores (csrc/bigru_seq_bf16.cu,
 csrc/bigru_seq_bwd_bf16.cu), held on the CPU: the three-term bf16 split
 they put fp32 operands through, their arithmetic emulated against the plain
-recurrences and the JAX package's TPU kernel, and their geometry
-(``gru_seq.tile_config``); and the arithmetic of the wide kernel
-(csrc/bigru_seq_wide.cu), which runs bf16 storage at H = 64 and 128 on the
-fp32 cores.  The kernels themselves run in the ``cuda`` tests of
+recurrences and the JAX package's TPU kernel at every hidden size they are
+built for (8 to 128), and their geometry (``gru_seq.tile_config``); and the
+arithmetic of the fp32 wide kernel (csrc/bigru_seq_wide.cu, H = 64 and 128
+on the fp32 cores).  The kernels themselves run in the ``cuda`` tests of
 tests/test_torch_kernels.py."""
 
 import jax.numpy as jnp
@@ -123,15 +123,22 @@ def _bf16_valued(p):
     return {k: torch.from_numpy(v).to(torch.bfloat16).float().numpy() for k, v in p.items()}
 
 
-@pytest.mark.parametrize("h", gru_seq.NARROW_HIDDEN)
+def _emulated_size(h: int):
+    """(N, T, C, W_hh's scale) of the emulation tests at ``h``: the wide sizes
+    at N = 5, T = 6 (the emulated steps cost H^2 a row), C = 16 and nn.GRU's
+    init range, as the wide arithmetic's tests."""
+    return (11, 9, 2 * h, 0.3) if h in gru_seq.NARROW_HIDDEN else (5, 6, 16, float(1 / np.sqrt(h)))
+
+
+@pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
 def test_emulated_tensor_core_forward_matches_plain_and_the_pallas_kernel(h):
     """The forward's arithmetic (bf16-term products summed in fp32) within
     the fp32 tests' 1e-5 (tests/test_rnn.py:120) of the plain recurrence and
-    of the TPU kernel in interpret mode, at H = 8, 16 and 32."""
-    n, t, c = 11, 9, 2 * h
+    of the TPU kernel in interpret mode, at H = 8, 16, 32, 64 and 128."""
+    n, t, c, scale = _emulated_size(h)
     rng = np.random.default_rng(h)
     x = rng.random((n, t, c), dtype=np.float32)
-    fw, bw = (_bf16_valued(p) for p in gru_params(rng, c, h))
+    fw, bw = (_bf16_valued(p) for p in gru_params(rng, c, h, scale=scale))
     tfw, tbw = torch_params(fw), torch_params(bw)
     xp = rnn.input_projection(torch.from_numpy(x), tfw, tbw)
     w_hh = torch.stack([tfw["w_hh"], tbw["w_hh"]])
@@ -142,11 +149,12 @@ def test_emulated_tensor_core_forward_matches_plain_and_the_pallas_kernel(h):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("h", gru_seq.NARROW_HIDDEN)
+@pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
 def test_emulated_tensor_core_backward_matches_plain(h):
     """The backward's arithmetic (dhp_t's three bf16 terms, one accumulator
-    each) within the fp32 backward tests' 2e-5 of the plain BPTT's dxp."""
-    n, t = 11, 9
+    each) within the fp32 backward tests' 2e-5 of the plain BPTT's dxp, at
+    H = 8 to 128."""
+    n, t = _emulated_size(h)[:2]
     rng = np.random.default_rng(10 + h)
     xp = torch.from_numpy(rng.standard_normal((n, t, 6 * h)).astype(np.float32))
     w_hh = torch.from_numpy(rng.uniform(-1, 1, (2, 3 * h, h)).astype(np.float32) / np.sqrt(h)).bfloat16().float()
@@ -158,7 +166,7 @@ def test_emulated_tensor_core_backward_matches_plain(h):
 
 
 def _wide_sums(h_rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The wide kernel's sums: for each output column, the terms
+    """The fp32 wide kernel's sums: for each output column, the terms
     ``h_rows[..., k] * w[:, k, :]`` added one k after another from 0, in
     fp32 (the kernel's FMAs round once a term, these twice: within the
     tolerances).  ``h_rows`` [2, N, K], ``w`` [2, K, M] -> [2, N, M]."""
@@ -169,8 +177,8 @@ def _wide_sums(h_rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _emulated_wide_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
-    """The wide forward's arithmetic in fp32: each gate's sum over k in
-    order from 0, the bias added after it."""
+    """The fp32 wide forward's arithmetic: each gate's sum over k in order
+    from 0, the bias added after it."""
     n, t, _ = xp.shape
     h = w_hh.shape[-1]
     state = xp.new_zeros(2, n, h)
@@ -190,7 +198,7 @@ def _emulated_wide_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.
 
 
 def _emulated_wide_backward(xp, w_hh, b_hh, out, grad_out):
-    """The wide backward's arithmetic in fp32: the recompute's sums as the
+    """The fp32 wide backward's arithmetic: the recompute's sums as the
     forward's, W_hh^T dhp_t summed over its 3H terms in order from 0 with dh
     z added after.  Returns dxp."""
     n, t, _ = xp.shape
@@ -223,9 +231,11 @@ def _emulated_wide_backward(xp, w_hh, b_hh, out, grad_out):
 
 @pytest.mark.parametrize("h", gru_seq.WIDE_HIDDEN)
 def test_emulated_wide_forward_matches_plain_and_the_pallas_kernel(h):
-    """The wide forward's arithmetic on bf16 values (fp32 sums in k order,
-    the bias after) within the fp32 tests' 1e-5 of the plain recurrence and
-    of the TPU kernel in interpret mode, at H = 64 and 128."""
+    """The fp32 wide kernel's forward arithmetic (csrc/bigru_seq_wide.cu:
+    fp32 sums in k order, the bias after; bf16 at these sizes runs on the
+    tensor cores, above), on bf16 values, within the fp32 tests' 1e-5 of
+    the plain recurrence and of the TPU kernel in interpret mode, at H = 64
+    and 128."""
     n, t, c = 5, 6, 16
     rng = np.random.default_rng(20 + h)
     x = torch.from_numpy(rng.random((n, t, c), dtype=np.float32)).bfloat16().float().numpy()
@@ -242,8 +252,8 @@ def test_emulated_wide_forward_matches_plain_and_the_pallas_kernel(h):
 
 @pytest.mark.parametrize("h", gru_seq.WIDE_HIDDEN)
 def test_emulated_wide_backward_matches_plain(h):
-    """The wide backward's arithmetic on bf16 values within the fp32 backward
-    tests' 2e-5 of the plain BPTT's dxp."""
+    """The fp32 wide kernel's backward arithmetic, on bf16 values, within the
+    fp32 backward tests' 2e-5 of the plain BPTT's dxp."""
     n, t = 5, 6
     rng = np.random.default_rng(30 + h)
     xp = torch.from_numpy(rng.standard_normal((n, t, 6 * h)).astype(np.float32)).bfloat16().float()
@@ -269,11 +279,11 @@ def test_tile_config_flagship_and_batch_512_sweeps(n, rows, blocks, waves):
     assert cfg == gru_seq.TileConfig(rows, blocks, 2, waves)
 
 
-@pytest.mark.parametrize("h", gru_seq.NARROW_HIDDEN)
+@pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
 @pytest.mark.parametrize("n", [1, 5, 37, 771, 1500, 3070, 3072, 8192, 32768, 100_001])
 def test_tile_config_covers_every_row_with_no_idle_block(n, h):
     cfg = gru_seq.tile_config(n, h, H100_SMS, TILE_OCCUPANCY)
-    rows_a_block = cfg.rows * gru_seq.TILE_WARPS // (h // 8)  # H/8 warps an m-tile
+    rows_a_block = cfg.rows * gru_seq.tile_block_warps(h) // (h // 8)  # H/8 warps an m-tile
     assert cfg.rows in gru_seq.TILE_ROWS and cfg.blocks % 2 == 0
     assert (cfg.blocks // 2) * rows_a_block >= n > (cfg.blocks // 2 - 1) * rows_a_block
     assert cfg.waves == -(-cfg.blocks // (H100_SMS * 2))
@@ -296,3 +306,10 @@ def test_tile_config_rejects_what_fits_no_block():
         gru_seq.tile_config(3072, 32, H100_SMS, {8: 0}, backward=True)
     with pytest.raises(ValueError):
         gru_seq.tile_config(768, 12, H100_SMS, TILE_OCCUPANCY)
+    for h in gru_seq.WIDE_HIDDEN:  # one m-tile of H/8 warps a block
+        with pytest.raises(ValueError):
+            gru_seq.tile_config(768, h, H100_SMS, {8: 1, 16: 0})
+        with pytest.raises(ValueError):
+            gru_seq.tile_config(768, h, H100_SMS, {8: 0}, backward=True)
+    with pytest.raises(ValueError):
+        gru_seq.tile_config(768, 256, H100_SMS, TILE_OCCUPANCY)

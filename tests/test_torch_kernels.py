@@ -164,16 +164,30 @@ def test_backward_config_reads_the_backward_occupancy(monkeypatch):
     (768, 128, {1: 1, 2: 1, 4: 1}, gru_seq.LaunchConfig(4, 96, 1, 1)),
     (3072, 128, {1: 1, 2: 1, 4: 1}, gru_seq.LaunchConfig(4, 384, 1, 3)),
     (771, 64, {1: 3, 2: 3, 4: 2}, gru_seq.LaunchConfig(1, 386, 3, 1)),
-    (800, 64, {1: 3, 2: 3, 4: 2}, gru_seq.LaunchConfig(2, 200, 3, 1))])
+    (800, 64, {1: 3, 2: 3, 4: 2}, gru_seq.LaunchConfig(2, 200, 3, 1)),
+    (768, 64, {8: 2, 16: 2}, gru_seq.TileConfig(16, 96, 2, 1)),
+    (3072, 64, {8: 2, 16: 2}, gru_seq.TileConfig(16, 384, 2, 2)),
+    (768, 128, {8: 1, 16: 1}, gru_seq.TileConfig(16, 96, 1, 1)),
+    (3072, 128, {8: 1, 16: 1}, gru_seq.TileConfig(16, 384, 1, 3)),
+    (37, 128, {8: 1, 16: 1}, gru_seq.TileConfig(8, 10, 1, 1))])
 def test_launch_config_of_the_wide_kernels(n, h, occupancy, want):
-    """The wide kernels' blocks hold four row groups of H threads, so
-    ``block_rows`` rows at RPT rows a thread: 4, 8 and 16.  At the
-    flagship's sweeps at batch 48 (the occupancies an H100 reports for the
-    forward: three, three and two blocks an SM at H = 64, one at 128): over
-    W at H = 64 one row a thread in one wave; over H and at H = 128 four
-    rows a thread, in the waves they need; past one wave at one row, two."""
+    """fp32 at H = 64 and 128 (csrc/bigru_seq_wide.cu, a ``LaunchConfig``):
+    blocks of four row groups of H threads, so ``block_rows`` rows at RPT
+    rows a thread: 4, 8 and 16.  At the flagship's sweeps at batch 48 (the
+    occupancies an H100 reports for the forward: three, three and two blocks
+    an SM at H = 64, one at 128): over W at H = 64 one row a thread in one
+    wave; over H and at H = 128 four rows a thread, in the waves they need;
+    past one wave at one row, two.  bf16 (the tensor-core kernels, a
+    ``TileConfig``): a block is one m-tile of H / 8 warps, 16 rows at the
+    flagship's sweeps (two and one blocks an SM at H = 64 and 128, as an
+    H100 reports), 8 where the grid's warps at 8 rows fit two a
+    sub-partition."""
     assert [gru_seq.block_rows(h, rpt) for rpt in gru_seq.RPTS] == [4, 8, 16]
-    assert gru_seq.launch_config(n, h, 132, occupancy) == want
+    assert gru_seq.tile_block_warps(h) == h // 8
+    if isinstance(want, gru_seq.TileConfig):
+        assert gru_seq.tile_config(n, h, 132, occupancy) == want
+    else:
+        assert gru_seq.launch_config(n, h, 132, occupancy) == want
 
 
 @pytest.mark.parametrize("hidden", [0, 129, 256])
@@ -444,52 +458,48 @@ def test_bigru_kernel_bf16_matches_plain_on_card(cuda, n, t, c, h):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,t,c,h", WIDE_CASES + PADDED_CASES)
 def test_bigru_wide_and_padded_bf16_match_plain_on_card(cuda, n, t, c, h):
-    """bf16 at --hd_u 64 and 128 (the wide kernel, fp32 arithmetic on bf16
-    storage) and padded sizes: the wrapper's output is the kernel's sliced
-    back, the padded units 0, and the kernel within one bf16 ulp of the bf16
-    plain version on the same projection."""
+    """bf16 at --hd_u 64 and 128 (the tensor-core kernels) and padded sizes:
+    the wrapper's output is the kernel's sliced back, the padded units 0,
+    the kernel within one bf16 ulp of the bf16 plain version on the same
+    projection; one launch, on the tensor-core kernel at a wide size; then
+    the backward on the kernel's output, dxp within one bf16 ulp and dW_hh,
+    db_hh at 1e-4 of their largest entry."""
     rng = np.random.default_rng(n + t + h + 1)
     x = torch.from_numpy(rng.random((n, t, c), dtype=np.float32)).to(cuda).bfloat16()
     fw, bw = (torch_params(p, cuda) for p in gru_params(rng, c, h, scale=float(1 / np.sqrt(h))))
     xp, w_hh, b_hh = padded_operands(x, fw, bw)
+    hp = w_hh.shape[-1]
+    before = (gru_seq.LAUNCHES, gru_seq.WIDE_LAUNCHES, gru_seq.WIDE_MMA_LAUNCHES)
     got = gru_seq.bigru(x, fw, bw)
+    torch.cuda.synchronize()
+    wide = int(hp in gru_seq.WIDE_HIDDEN)
+    assert (gru_seq.LAUNCHES - before[0], gru_seq.WIDE_LAUNCHES - before[1],
+            gru_seq.WIDE_MMA_LAUNCHES - before[2]) == (1, wide, wide)
     kernel = gru_seq._launch(xp, w_hh, b_hh)
     torch.cuda.synchronize()
     assert torch.equal(got, rnn.unpad_output(kernel, h))
     assert_within_bf16_ulp(kernel, rnn.bigru_recurrence(xp, w_hh, b_hh), atol=2e-5 if t >= 64 else 1e-5)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rpt", gru_seq.RPTS)
-@pytest.mark.parametrize("h", gru_seq.WIDE_HIDDEN)
-def test_bigru_wide_bf16_every_instantiation_matches_plain(cuda, h, rpt):
-    """Each bf16 (H, rows a thread) of the wide kernel, forward and
-    backward, forced, on a ragged N with T = 13 and T = 3."""
-    rng = np.random.default_rng(h * rpt + 2)
-    rows = gru_seq.block_rows(h, rpt)
-    cfg = gru_seq.LaunchConfig(rpt, 0, 0, 0)
-    for n, t in ((2 * rows + 3, 13), (rows - 1, 3)):
-        xp, w_hh, b_hh, out, grad_out = backward_case(rng, n, t, 16, h, cuda, torch.bfloat16)
-        weights = gru_seq._kernel_weights(xp, w_hh, b_hh)
-        got = gru_seq._recurrence(xp, *weights, config=cfg)
-        dxp, dhp, h_prev = gru_seq._backward_kernel(xp, *weights, out, grad_out, config=cfg)
-        torch.cuda.synchronize()
-        assert_within_bf16_ulp(got, rnn.bigru_recurrence(xp, w_hh, b_hh), atol=1e-5)
-        assert_backward_bf16_close((dxp, *gru_seq.recurrent_weight_grads(dhp, h_prev)),
-                                   rnn.bigru_recurrence_backward(xp, w_hh, b_hh, out, grad_out), atol=2e-5)
+    grad_out = torch.from_numpy(rng.standard_normal((n, t, 2 * hp)).astype(np.float32)).to(cuda).bfloat16()
+    before = (gru_seq.WIDE_BACKWARD_LAUNCHES, gru_seq.WIDE_MMA_BACKWARD_LAUNCHES)
+    back = gru_seq.recurrence_backward(xp, w_hh, b_hh, kernel, grad_out)
+    torch.cuda.synchronize()
+    assert (gru_seq.WIDE_BACKWARD_LAUNCHES - before[0], gru_seq.WIDE_MMA_BACKWARD_LAUNCHES - before[1]) == (wide, wide)
+    assert_backward_bf16_close(back, rnn.bigru_recurrence_backward(xp, w_hh, b_hh, kernel, grad_out),
+                               atol=5e-5 if t >= 64 else 2e-5)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile_rows", gru_seq.TILE_ROWS)
-@pytest.mark.parametrize("h", gru_seq.NARROW_HIDDEN)
+@pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
 def test_bigru_kernel_bf16_every_instantiation_matches_plain(cuda, h, tile_rows):
     """Each bf16 (H, rows a warp's m-tile), forced, on a ragged N with T = 13
     and T = 3."""
     rng = np.random.default_rng(h * tile_rows + 1)
-    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, 16, h))
+    scale = 0.3 if h in gru_seq.NARROW_HIDDEN else float(1 / np.sqrt(h))
+    fw, bw = (torch_params(p, cuda) for p in gru_params(rng, 16, h, scale=scale))
     w_hh = torch.stack([fw["w_hh"], bw["w_hh"]])
     b_hh = torch.stack([fw["b_hh"], bw["b_hh"]])
-    rows = tile_rows * gru_seq.TILE_WARPS // (h // 8)  # rows a block
+    rows = tile_rows * gru_seq.tile_block_warps(h) // (h // 8)  # rows a block
     for n, t in ((2 * rows + 3, 13), (rows - 1, 3)):
         x = torch.from_numpy(rng.random((n, t, 16), dtype=np.float32)).to(cuda).bfloat16()
         xp = rnn.input_projection(x, fw, bw).contiguous()
@@ -524,12 +534,12 @@ def test_bigru_kernel_bf16_backward_matches_plain_on_card(cuda, n, t, c, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", gru_seq.NARROW_HIDDEN)
+@pytest.mark.parametrize("h", gru_seq.SUPPORTED_HIDDEN)
 def test_bigru_kernel_bf16_backward_every_instantiation_matches_plain(cuda, h):
     """Each bf16 H of the tensor-core backward kernel (8 rows an m-tile, its
     one instantiation a hidden size), on a ragged N with T = 13 and T = 3."""
     rng = np.random.default_rng(100 * h + 9)
-    rows = 8 * gru_seq.TILE_WARPS // (h // 8)  # rows a block
+    rows = 8 * gru_seq.tile_block_warps(h) // (h // 8)  # rows a block
     for n, t in ((2 * rows + 3, 13), (rows - 1, 3)):
         xp, w_hh, b_hh, out, grad_out = backward_case(rng, n, t, 16, h, cuda, torch.bfloat16)
         dxp, dhp, h_prev = gru_seq._backward_kernel(xp, *gru_seq._kernel_weights(xp, w_hh, b_hh), out, grad_out,
@@ -625,43 +635,58 @@ ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__39c08763_17_bigru_seq
 ptxas info    : Function properties for _ZN50_GLOBAL__N__39c08763_17_bigru_seq_bf16_cu_270809c921bigru_seq_bf16_kernelILi8ELi8EEEvPK13__nv_bfloat16PKfS5_PS1_ii
     8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 61 registers, used 16 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__39c08763_17_bigru_seq_bf16_cu_270809c921bigru_seq_bf16_kernelILi128ELi16EEEvPK13__nv_bfloat16PKfS5_PS1_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__39c08763_17_bigru_seq_bf16_cu_270809c921bigru_seq_bf16_kernelILi128ELi16EEEvPK13__nv_bfloat16PKfS5_PS1_ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 16 barriers, 400 bytes cmem[0]
 """
 TILE_BWD_PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__1a2b3c4d_21_bigru_seq_bwd_bf16_cu_5e6f7a8b25bigru_seq_bwd_bf16_kernelILi32EEEvPK13__nv_bfloat16PKfS5_S3_S3_PS1_PfS7_iii' for 'sm_90a'
 ptxas info    : Function properties for _ZN54_GLOBAL__N__1a2b3c4d_21_bigru_seq_bwd_bf16_cu_5e6f7a8b25bigru_seq_bwd_bf16_kernelILi32EEEvPK13__nv_bfloat16PKfS5_S3_S3_PS1_PfS7_iii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 80 registers, used 16 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__1a2b3c4d_21_bigru_seq_bwd_bf16_cu_5e6f7a8b25bigru_seq_bwd_bf16_kernelILi128EEEvPK13__nv_bfloat16PKfS5_S3_S3_PS1_PfS7_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN54_GLOBAL__N__1a2b3c4d_21_bigru_seq_bwd_bf16_cu_5e6f7a8b25bigru_seq_bwd_bf16_kernelILi128EEEvPK13__nv_bfloat16PKfS5_S3_S3_PS1_PfS7_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 16 barriers, 432 bytes cmem[0]
 """
 
 
 def test_ptxas_report_reads_the_tensor_core_kernels():
     """The bf16 kernels' instantiations by hidden size and rows an m-tile
     (the backward's 8), with their rings and fragment buffers as shared
-    memory; the fp32 reports skip them."""
+    memory (blocks of four warps up to H = 32, one m-tile of H / 8 warps
+    above; the backward's rings of four slots, an m-tile's h_{t-1} ring,
+    and at H = 128 W_hh^T in bf16 at a row stride of 3H + 8); the fp32
+    reports skip them."""
     assert ptxas_report(TILE_PTXAS_LOG) == [
         {"dtype": "bf16", "H": 32, "rows": 16, "registers": 96, "spill_bytes": 0, "stack_bytes": 0,
          "smem_bytes": 4 * 2 * 3 * 2 * 4 * 32 + 2 * 4 * 3 * 16 * 24},
         {"dtype": "bf16", "H": 8, "rows": 8, "registers": 61, "spill_bytes": 8, "stack_bytes": 8,
-         "smem_bytes": 4 * 4 * 2 * 3 * 1 * 32 + 2 * 4 * 3 * 8 * 24}]
+         "smem_bytes": 4 * 4 * 2 * 3 * 1 * 32 + 2 * 4 * 3 * 8 * 24},
+        {"dtype": "bf16", "H": 128, "rows": 16, "registers": 128, "spill_bytes": 0, "stack_bytes": 0,
+         "smem_bytes": 4 * 2 * 3 * 2 * 16 * 32 + 2 * 16 * 3 * 16 * 24}]
     assert ptxas_report(TILE_BWD_PTXAS_LOG, backward=True) == [
         {"dtype": "bf16", "H": 32, "rows": 8, "registers": 80, "spill_bytes": 0, "stack_bytes": 0,
-         "smem_bytes": 4 * 2 * 3 * 12 * 32 + 2 * 4 * 3 * 8 * (24 + 8 + 40)}]
+         "smem_bytes": 4 * 2 * 3 * 12 * 32 + 2 * 4 * 8 * (4 * (24 + 8) + 40)},
+        {"dtype": "bf16", "H": 128, "rows": 8, "registers": 128, "spill_bytes": 0, "stack_bytes": 0,
+         "smem_bytes": 4 * 2 * 3 * 48 * 32 + 2 * (4 * 8 * (16 * (24 + 8) + 136) + 128 * 392)}]
     assert ptxas_report(TILE_PTXAS_LOG, backward=True) == ptxas_report(TILE_BWD_PTXAS_LOG) == []
 
 
-WIDE_PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125bigru_wide_forward_kernelIfLi128ELi4EEEvPKT_PKfS6_PS3_ii' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_125bigru_wide_forward_kernelIfLi128ELi4EEEvPKT_PKfS6_PS3_ii
+WIDE_PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125bigru_wide_forward_kernelILi128ELi4EEEvPKfS2_S2_Pfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125bigru_wide_forward_kernelILi128ELi4EEEvPKfS2_S2_Pfii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 108 registers, used 1 barriers, 400 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126bigru_wide_backward_kernelI13__nv_bfloat16Li64ELi1EEEvPKT_PKfS7_S5_S5_PS3_PfS9_iii' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_126bigru_wide_backward_kernelI13__nv_bfloat16Li64ELi1EEEvPKT_PKfS7_S5_S5_PS3_PfS9_iii
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126bigru_wide_backward_kernelILi64ELi1EEEvPKfS2_S2_S2_S2_PfS3_S3_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_126bigru_wide_backward_kernelILi64ELi1EEEvPKfS2_S2_S2_S2_PfS3_S3_iii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 80 registers, used 1 barriers, 432 bytes cmem[0]
 """
 
 
 def test_ptxas_report_reads_the_wide_kernels():
-    """csrc/bigru_seq_wide.cu's instantiations by storage type, hidden size
-    and rows a thread, with the weights at a row stride of 3H + 1 floats and
+    """csrc/bigru_seq_wide.cu's instantiations (fp32) by hidden size and
+    rows a thread, with the weights at a row stride of 3H + 1 floats and
     the forward's two h buffers or the backward's h_{t-1} and dhp_t as
     shared memory (16 rows a block at four rows a thread, 4 at one); the
     narrow reports skip them."""
@@ -669,7 +694,7 @@ def test_ptxas_report_reads_the_wide_kernels():
         {"dtype": "fp32", "H": 128, "rpt": 4, "wide": True, "registers": 108, "spill_bytes": 0, "stack_bytes": 0,
          "smem_bytes": 4 * (128 * 385 + 2 * 16 * 128)}]
     assert ptxas_report(WIDE_PTXAS_LOG, backward=True) == [
-        {"dtype": "bf16", "H": 64, "rpt": 1, "wide": True, "registers": 80, "spill_bytes": 0, "stack_bytes": 0,
+        {"dtype": "fp32", "H": 64, "rpt": 1, "wide": True, "registers": 80, "spill_bytes": 0, "stack_bytes": 0,
          "smem_bytes": 4 * (64 * 193 + 4 * 4 * 64)}]
     assert all(not r.get("wide") for log in (PTXAS_LOG, BWD_PTXAS_LOG, TILE_PTXAS_LOG)
                for b in (False, True) for r in ptxas_report(log, backward=b))

@@ -14,7 +14,8 @@ critical path.  Every substitution must match the source once, so an edit of
 the kernel that moves one of them stops this script instead of timing the
 wrong thing.  It times the fp32 instantiations, or with ``--bf16`` the bf16
 ones, at hidden size ``--hidden`` (32 by default, the flagship's; 8 and 16
-are the sources' other sizes) with C = 2H.
+are the sources' other sizes, and with ``--bf16`` also 64 and 128) with C =
+2H.
 """
 
 from __future__ import annotations
@@ -209,12 +210,14 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--backward", action="store_true", help="ablate the backward kernel")
     parser.add_argument("--bf16", action="store_true", help="ablate the bf16 forward on the tensor cores")
-    parser.add_argument("--hidden", type=int, default=H, choices=gru_seq.NARROW_HIDDEN,
+    parser.add_argument("--hidden", type=int, default=H, choices=gru_seq.SUPPORTED_HIDDEN,
                         help="the hidden size of the instantiations timed (the ablated sources' sizes)")
     args = parser.parse_args()
     backward, bf16, hidden = args.backward, args.bf16, args.hidden
     if backward and bf16:
         parser.error("--bf16 ablates the bf16 forward only")
+    if not bf16 and hidden not in gru_seq.NARROW_HIDDEN:
+        parser.error(f"the fp32 sources ablated here hold H = {gru_seq.NARROW_HIDDEN}; --bf16 also 64 and 128")
     if not torch.cuda.is_available():
         raise SystemExit("ablate_k1: needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -99,12 +99,16 @@ def _tile_smem(h: int, rows: int, backward: bool) -> int:
     """Dynamic shared memory of a tensor-core kernel's block: each m-tile's
     two buffers of bf16 fragments (three terms of h, or in the backward of
     dhp_t's 3H columns), and each warp's ring of bf16 slots (its xp slice; in
-    the backward also its grad_out slice and the m-tile's h_{t-1})."""
-    tiles = h // 8
-    groups = gru_seq.TILE_WARPS // tiles
+    the backward also its grad_out slice, then each m-tile's ring of h_{t-1}
+    and at H = 128 W_hh^T in bf16)."""
+    tiles, warps = h // 8, gru_seq.tile_block_warps(h)
+    groups = warps // tiles
     words = 2 * 3 * (rows // 8) * (3 * tiles if backward else tiles) * 32
-    ring_row = 24 + (8 + _padded(h) if backward else 0)
-    return 4 * groups * words + 2 * gru_seq.TILE_WARPS * gru_seq.BF16_RING_STAGES * rows * ring_row
+    if not backward:
+        return 4 * groups * words + 2 * warps * gru_seq.BF16_RING_STAGES * rows * 24
+    stages = gru_seq.BF16_BWD_RING_STAGES
+    weights = h * _padded(3 * h) if h >= 128 else 0
+    return 4 * groups * words + 2 * (stages * rows * (warps * 32 + groups * _padded(h)) + weights)
 
 
 def _wide_smem(h: int, rpt: int, backward: bool) -> int:
@@ -125,8 +129,8 @@ def ptxas_report(log: str, backward: bool = False):
     thread, else fp32).  bf16 (csrc/bigru_seq_bf16.cu,
     csrc/bigru_seq_bwd_bf16.cu), by hidden size and rows an m-tile
     (``rows``; 8 in the backward): ``_tile_smem``.  The wide kernels
-    (csrc/bigru_seq_wide.cu), by storage type, hidden size and rows a
-    thread, marked ``"wide": True``: ``_wide_smem``."""
+    (csrc/bigru_seq_wide.cu, fp32), by hidden size and rows a thread,
+    marked ``"wide": True``: ``_wide_smem``."""
     kernel = "bigru_seq_backward_kernel" if backward else "bigru_seq_kernel"
     wide = "bigru_wide_backward_kernel" if backward else "bigru_wide_forward_kernel"
     # the bf16 forward's template arguments: hidden, rows an m-tile; the backward's: hidden (8 rows)
@@ -136,10 +140,10 @@ def ptxas_report(log: str, backward: bool = False):
         kept = {"registers": e["registers"], "spill_bytes": e["spill_bytes"], "stack_bytes": e["stack_bytes"]}
         t = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", e["kernel"])
         tiled = re.search(tile, e["kernel"])
-        w = re.search(wide + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", e["kernel"])
+        w = re.search(wide + r"ILi(\d+)ELi(\d+)E", e["kernel"])
         if w:
-            h, rpt = int(w.group(2)), int(w.group(3))
-            rows.append({"dtype": _MANGLED_DTYPES[w.group(1)], "H": h, "rpt": rpt, "wide": True, **kept,
+            h, rpt = int(w.group(1)), int(w.group(2))
+            rows.append({"dtype": "fp32", "H": h, "rpt": rpt, "wide": True, **kept,
                          "smem_bytes": _wide_smem(h, rpt, backward)})
         elif t:
             dtype = _MANGLED_DTYPES[t.group(1)]

@@ -1,9 +1,11 @@
 // K1 in bf16, forward: the bidirectional GRU recurrence on Hopper's tensor cores (sm_90a).
 //
 // Replaces the bf16 path of tpgsr_tpu/ops/pallas_gru.py::_gru_seq_kernel
-// (pallas_gru.py:34, launched by _bigru_pallas_impl at :95); the fp32 path is
-// csrc/bigru_seq.cu.  The input projection stays outside, one cuBLAS addmm
-// (ops/rnn.py); this kernel runs the serial recurrence from h0 = 0:
+// (pallas_gru.py:34, launched by _bigru_pallas_impl at :95) at every hidden
+// size K1 is built for, 8 to 128; the fp32 paths are csrc/bigru_seq.cu and,
+// at 64 and 128, csrc/bigru_seq_wide.cu.  The input projection stays
+// outside, one cuBLAS addmm (ops/rnn.py); this kernel runs the serial
+// recurrence from h0 = 0:
 //
 //   hp = h W_hh^T + b_hh;  r = sig(xr + hr);  z = sig(xz + hz);
 //   n = tanh(xn + r * hn);  h = (1 - z) n + z h
@@ -60,17 +62,35 @@
 //      32 distinct banks.  out is stored as bf16 pairs after the group's
 //      barrier: stored before it, the barrier waited on them.
 //   5. Rows an m-tile, 8 or 16, from ops/gru_seq.py::tile_config.  Four warps
-//      a block (4 / (H/8) m-tiles); a group past N returns.
+//      a block up to H = 32 (4 / (H/8) m-tiles), one m-tile of H/8 warps
+//      above; a group past N returns.
+//
+// At H = 64 and 128 the same design replaces the fp32 wide kernel's bf16
+// instantiation (csrc/bigru_seq_wide.cu: 1.701 ms per SR forward at
+// --hd_u 64, batch 48, H100 SXM at 700 W).  That kernel formed 3H fp32 FMAs
+// a (row, unit) and step, read every weight from shared memory at each step
+// for at most four rows, and closed each step with a barrier of 256 or 512
+// threads.  Here the m-tile's group is 8 or 16 warps, still one named
+// barrier a step; each warp keeps its 24 (H = 64) or 48 (H = 128) B
+// fragments in registers for the sweep, each serving 16 rows a product; the
+// block asks for shared memory beyond 48 KB where it needs it (H = 128 at
+// 16 rows, 61,440 B).
 //
 // What bounds it now.  Each sweep at batch 48 reads xp (18.9 MB) and writes
 // out (6.3 MB): 7.5 us at 3.35 TB/s, 0.075 ms per SR forward; its products
 // with the split, 1.8 GFLOP (3 terms), take 1.8 us at 989 TFLOP/s.  The bytes
 // bind; the chain of T dependent steps, each the products' latency, a lane's
 // gates (three tanhf a pair) and the group's barrier, is what a warp waits on.
+// At H = 128 the products bind (over W, 29 GFLOP with the three terms, 29 us
+// at 989 TFLOP/s): 16 warps an SM, each with 72 mma.sync a step, run at
+// about mma.sync's rate (ablate_k1.py --bf16 --hidden 128: the products
+// are 0.106 of the sweep's 0.192 ms), and the 96 m-tiles of 16 rows over W
+// leave 36 of 132 SMs idle (8-row m-tiles, two waves, measured slower).
 //
 // -Xptxas -v on sm_90a (registers; no spills, no stack frame; dynamic shared
-// memory a block at 16 / 8 rows: 15,360 / 7,680 B): H = 32: 16 rows 96,
-// 8 rows 74; H = 16: 68, 63; H = 8: 72, 61.
+// memory a block at 16 / 8 rows: 15,360 / 7,680 B up to H = 32, 30,720 /
+// 15,360 B at 64, 61,440 / 30,720 B at 128): H = 128: 16 rows 128, 8 rows
+// 128; H = 64: 123, 85; H = 32: 96, 74; H = 16: 68, 63; H = 8: 72, 61.
 //
 // Measured (tpgsr_tpu_torch/bench_k1.py --bf16 and ablate_k1.py --bf16,
 // H100 SXM at 700 W): alone 35.2 us over W (8 rows; 16 rows 39.5) and
@@ -79,7 +99,10 @@
 // the same call, 3.8x the byte bound; 0.184 / 0.185 ms a sweep at batch 512
 // against 0.295 / 0.294.  Over W, taking out the products saves 8.4 us,
 // accurate tanhf (fast approximations instead) 8.9 us, the out store 1.4
-// us: the chain of 64 steps of ~1,080 cycles, not the bytes, binds.
+// us: the chain of 64 steps of ~1,080 cycles, not the bytes, binds.  At
+// H = 64 (16 rows): 79.1 / 55.9 us over W / H, 0.675 ms per SR forward
+// (products 28.1 us over W, accurate tanhf 13.2, the out store 3.0); at
+// H = 128: 191.9 / 156.3 us, where 8-row m-tiles take 220.7 / 187.4.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,8 +112,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // warps a block: 4 / (H/8) m-tiles
-constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 3;  // slots of the xp ring
 
 // As in csrc/bigru_seq.cu: sigmoid(x) = tanh(x / 2) / 2 + 1 / 2.
@@ -142,9 +163,11 @@ __device__ __forceinline__ void cp_async_wait() {
 
 template <int H, int MR>
 struct Shape {
-  static_assert(H % 8 == 0 && kWarps % (H / 8) == 0 && (MR == 8 || MR == 16),
-                "H a multiple of 8 dividing 32, 8 or 16 rows an m-tile");
+  static_assert(H % 8 == 0 && (32 % H == 0 || H % 32 == 0) && (MR == 8 || MR == 16),
+                "H a multiple of 8 dividing 32 or a multiple of 32, 8 or 16 rows an m-tile");
   static constexpr int kQ = H / 8;                // 8-unit tiles of h: warps an m-tile, one tile each
+  static constexpr int kWarps = kQ > 4 ? kQ : 4;  // warps a block: 4 / kQ m-tiles, or one m-tile of kQ warps
+  static constexpr int kThreads = 32 * kWarps;
   static constexpr int kGroups = kWarps / kQ;     // m-tiles a block
   static constexpr int kBlocksK = (H + 15) / 16;  // k-blocks of 16 over h (H = 8: the upper half zero)
   static constexpr int kHalves = MR / 8;          // rows a lane holds: l/4, and l/4 + 8 at 16 rows
@@ -158,11 +181,12 @@ struct Shape {
 template <int H, int MR>
 constexpr size_t smem_bytes() {
   using Sh = Shape<H, MR>;
-  return sizeof(uint32_t) * Sh::kGroups * 2 * Sh::kTerms + sizeof(__nv_bfloat16) * kWarps * kStages * Sh::kSlot;
+  return sizeof(uint32_t) * Sh::kGroups * 2 * Sh::kTerms +
+         sizeof(__nv_bfloat16) * Sh::kWarps * kStages * Sh::kSlot;
 }
 
 template <int H, int MR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Shape<H, MR>::kThreads)
     bigru_seq_bf16_kernel(const __nv_bfloat16* __restrict__ xp, const float* __restrict__ w_t,
                           const float* __restrict__ b_hh, __nv_bfloat16* __restrict__ out, int n, int t_len) {
   using Sh = Shape<H, MR>;
@@ -329,8 +353,16 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
 }
 
+// Shared memory beyond the 48 KB a launch gets without opting in (H = 128
+// at 16 rows an m-tile) is asked for before the launch and the occupancy query.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return bytes <= 48 * 1024 ? cudaSuccess
+                            : cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(bytes));
+}
+
 // Ops run by dispatch() on the instantiation of (hidden, rows an m-tile).
-// Shared memory stays under the 48 KB a launch gets without opting in.
 struct Forward {
   const __nv_bfloat16* xp;
   const float *w_t, *b_hh;
@@ -340,11 +372,15 @@ struct Forward {
 
   template <int H, int MR>
   int run() const {
-    static_assert(smem_bytes<H, MR>() <= 48 * 1024, "the ring needs an opt-in to more shared memory");
-    constexpr int groups = Shape<H, MR>::kGroups;
+    using Sh = Shape<H, MR>;
+    constexpr size_t bytes = smem_bytes<H, MR>();
+    static_assert(bytes <= 227 * 1024, "beyond a block's shared memory");
+    const auto kernel = bigru_seq_bf16_kernel<H, MR>;
+    const cudaError_t err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const int tiles = (n + MR - 1) / MR;
-    const dim3 grid((tiles + groups - 1) / groups, 2);
-    bigru_seq_bf16_kernel<H, MR><<<grid, kThreads, smem_bytes<H, MR>(), stream>>>(xp, w_t, b_hh, out, n, t_len);
+    const dim3 grid((tiles + Sh::kGroups - 1) / Sh::kGroups, 2);
+    kernel<<<grid, Sh::kThreads, bytes, stream>>>(xp, w_t, b_hh, out, n, t_len);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -354,8 +390,11 @@ struct Occupancy {
 
   template <int H, int MR>
   int run() const {
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, bigru_seq_bf16_kernel<H, MR>,
-                                                                          kThreads, smem_bytes<H, MR>()));
+    const auto kernel = bigru_seq_bf16_kernel<H, MR>;
+    const cudaError_t err = allow_smem(kernel, smem_bytes<H, MR>());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, Shape<H, MR>::kThreads,
+                                                                          smem_bytes<H, MR>()));
   }
 };
 
@@ -380,6 +419,10 @@ int dispatch(const Op& op, int hidden, int rows) {
       return by_rows<16>(op, rows);
     case 32:
       return by_rows<32>(op, rows);
+    case 64:
+      return by_rows<64>(op, rows);
+    case 128:
+      return by_rows<128>(op, rows);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

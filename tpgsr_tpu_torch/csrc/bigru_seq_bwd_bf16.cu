@@ -1,9 +1,11 @@
 // K1 in bf16, backward: BPTT of the bidirectional GRU recurrence on Hopper's tensor cores (sm_90a).
 //
 // The backward of the bf16 path of tpgsr_tpu/ops/pallas_gru.py::_gru_seq_kernel
-// (pallas_gru.py:34; the JAX package differentiates its lax.scan instead).
-// The forward is csrc/bigru_seq_bf16.cu, the fp32 backward csrc/bigru_seq_bwd.cu,
-// the plain version ops/rnn.py::bigru_recurrence_backward.  Per row and
+// (pallas_gru.py:34; the JAX package differentiates its lax.scan instead),
+// at every hidden size K1 is built for, 8 to 128.  The forward is
+// csrc/bigru_seq_bf16.cu, the fp32 backward csrc/bigru_seq_bwd.cu (and at 64
+// and 128 csrc/bigru_seq_wide.cu), the plain version
+// ops/rnn.py::bigru_recurrence_backward.  Per row and
 // direction, in reverse time, from dh = 0 after the last step:
 //
 //   hp = W_hh h_{t-1} + b_hh and the gates r, z, n, recomputed from h_{t-1}
@@ -24,6 +26,11 @@
 // recomputed its unit's gates with 3H fp32 FMAs and formed W_hh^T dhp_t with
 // 3H FMAs and a 31-shuffle reduce-scatter, at the 168-register cap.
 //
+// The fp32 wide kernel's bf16 instantiation, which this one replaces at
+// H = 64 and 128 (3.762 ms per SR backward at --hd_u 64, batch 48, H100
+// SXM at 700 W), ran both products on the fp32 cores from fp32 weights in
+// shared memory, with two block barriers a step.
+//
 // This design, as the forward's (csrc/bigru_seq_bf16.cu, design 1-5):
 //   1. A group of H/8 warps owns an m-tile of 8 rows of one direction; warp
 //      q owns hidden units 8q .. 8q + 7.  Both products of a step run on the
@@ -31,10 +38,10 @@
 //      n-tiles of hp = h_{t-1} W_hh^T over ceil(H/16) k-blocks, and its
 //      n-tile of dhp_t W_hh over ceil(3H/16) k-blocks.  Both sets of B
 //      fragments sit in registers, loaded once (6 ceil(H/16) + 2 ceil(3H/16)
-//      of them).
+//      of them; at H = 128 the second set, design 6).
 //   2. The accumulator layout is the A layout: h_{t-1}, read from out as
-//      bf16 pairs, is the recompute's A fragment (every warp copies the
-//      m-tile's whole h_{t-1} rows) and holds the lane's own h_{t-1} values;
+//      bf16 pairs, is the recompute's A fragment (the m-tile's ring holds
+//      its whole h_{t-1} rows) and holds the lane's own h_{t-1} values;
 //      the gates and dhp_t come out at the lane's own (row, unit) pairs, in
 //      the A layout of the second product's k-blocks.  Each warp writes its
 //      dhp_t fragments to shared memory (double-buffered by the step's
@@ -50,17 +57,32 @@
 //      long), and dh_next = (dh z + term 1) + (term 2 + term 3).  Only the
 //      order of the sums differs from the plain version, now with the tensor
 //      core's own rounding of its fp32 sums.  Accurate tanhf.
-//   4. A warp's slices of xp (its units' r, z, n) and grad_out (its units),
-//      and the m-tile's h_{t-1}, arrive through the warp's ring of S = 3
-//      slots in shared memory by cp.async, S - 1 steps ahead; rows padded to
-//      an odd number of 16-byte chunks.  dxp is stored as bf16 pairs, dhp and
+//   4. A warp's slices of xp (its units' r, z, n) and grad_out (its units)
+//      arrive through the warp's ring of S = 4 slots in shared memory by
+//      cp.async, S - 1 steps ahead, and its units of the m-tile's h_{t-1}
+//      into the m-tile's ring, which every warp of the group reads; a step
+//      waits for its own copies and the next step's, so that its group
+//      barrier publishes the next step's h_{t-1}.  Each warp copying the
+//      whole h_{t-1} rows (the first design) moved H/8 times the bytes and
+//      at H = 128 would not fit shared memory beside design 6's weights.
+//      Rows padded to an odd number of 16-byte chunks.  dxp is stored as
+//      bf16 pairs, dhp and
 //      h_{t-1} as fp32 pairs, after the step's barrier (before it, the barrier
 //      waited on them: measured in the forward, csrc/bigru_seq_bf16.cu).
 //   5. 8 rows an m-tile at every N: each lane's chain of steps carries one
 //      row's pairs, the most work a step of any kernel of K1's.  16-row
 //      m-tiles (two rows a lane, all of a product's rows used) were slower
 //      at three of the four sweeps timed (batch 48 and 512) on an H100, so
-//      only 8 is built.  Four warps a block (4 / (H/8) m-tiles).
+//      only 8 is built.  Four warps a block up to H = 32 (4 / (H/8)
+//      m-tiles), one m-tile of H/8 warps above; at H = 64 two blocks an SM
+//      (128 registers).
+//   6. At H = 128 the 96 registers of B fragments and the rest pass the 128
+//      a thread that 512 threads leave, so the second product's B
+//      fragments come from a bf16 copy of w_t in shared memory (the block's
+//      one m-tile loads it before its first step; row stride 3H + 8, an
+//      odd number of 16-byte chunks, so that ldmatrix's 8 rows fall in
+//      distinct banks), by ldmatrix.x4 two k-blocks at a time; the block
+//      asks for its 178,688 B of shared memory.
 
 // What bounds it now.  Each sweep at batch 48 reads xp (18.9 MB), out and
 // grad_out (6.3 MB each) and writes dxp (18.9 MB) in bf16, and dhp (37.7 MB)
@@ -68,16 +90,24 @@
 // backward (0.150 without the fp32 outputs, which only feed the GEMM); the
 // products, 2.4 GFLOP a sweep with dhp's three terms, 2.4 us at 989 TFLOP/s.
 //
+// At H = 128 each step's 72 mma.sync a warp (24 of them with half their
+// rows empty), their A fragments read by all 16 warps from shared memory
+// (295 KB a step an SM) and the weights' ldmatrix (98 KB) bind: about
+// 7,700 cycles a step at 1.98 GHz, two waves of 192 blocks over W.
+//
 // -Xptxas -v on sm_90a (registers; no spills, no stack frame; dynamic shared
-// memory a block): H = 32: 88 (23,040 B); H = 16: 66 (19,968 B); H = 8: 60
-// (16,896 B).
+// memory a block): H = 128: 128 (178,688 B); H = 64: 128 (39,424 B);
+// H = 32: 118 (19,968 B); H = 16: 86 (20,480 B); H = 8: 72 (19,456 B).
 //
 // Measured (tpgsr_tpu_torch/bench_k1.py --bf16, H100 SXM at 700 W): alone
 // 70.3 us over W and 59.4 us over H at batch 48, 0.649 ms per SR backward
 // against 0.798 for the fp32-state kernel's bf16 instantiation in the same
 // call, 2.2x the byte bound with the fp32 dhp and h_{t-1}; with the dW_hh
 // GEMM 1.498 ms against 1.630.  At batch 512, 0.535 / 0.503 ms a sweep
-// against 0.754 / 0.751.
+// against 0.754 / 0.751.  With the m-tile's shared ring of h_{t-1}
+// (design 4): 66.6 / 57.4 us at batch 48 against 69.7 / 60.0 for the warps'
+// own copies in the same call.  At H = 64: 159.0 / 130.6 us over W / H, 1.448 ms
+// per SR backward; at H = 128: 497.2 / 417.1 us.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,9 +117,7 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // warps a block: 4 / (H/8) m-tiles
-constexpr int kThreads = 32 * kWarps;
-constexpr int kStages = 3;  // slots of the input rings
+constexpr int kStages = 4;  // slots of the input rings
 
 // As in csrc/bigru_seq.cu: sigmoid(x) = tanh(x / 2) / 2 + 1 / 2.
 __device__ __forceinline__ float sigmoid_f32(float x) { return fmaf(0.5f, tanhf(0.5f * x), 0.5f); }
@@ -145,31 +173,52 @@ constexpr int padded(int values) { return values + ((values / 8) % 2 == 0 ? 8 : 
 
 constexpr int kRows = 8;  // rows an m-tile (design 5)
 
+// 8 x 8 bf16 matrices from shared memory, four at a time: lane l gives the
+// address of row l % 8 of matrix l / 8 and receives of each matrix row l / 4
+// at columns 2 (l % 4) + {0, 1}, the B fragment of a matrix whose rows are
+// B's columns.  volatile keeps the loads in the step loop: hoisted, the
+// weights they read would fill the registers they are kept out of.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 template <int H>
 struct Shape {
-  static_assert(H % 8 == 0 && kWarps % (H / 8) == 0, "H a multiple of 8 dividing 32");
+  static_assert(H % 8 == 0 && (32 % H == 0 || H % 32 == 0), "H a multiple of 8 dividing 32, or of 32");
   static constexpr int kQ = H / 8;                    // 8-unit tiles of h: warps an m-tile, one tile each
+  static constexpr int kWarps = kQ > 4 ? kQ : 4;      // warps a block: 4 / kQ m-tiles, or one m-tile of kQ warps
+  static constexpr int kThreads = 32 * kWarps;
   static constexpr int kGroups = kWarps / kQ;         // m-tiles a block
+  static constexpr int kMinBlocks = H == 64 ? 2 : 1;  // H = 64: two blocks of 8 warps an SM (128 registers)
+  static constexpr bool kSharedW = H >= 128;          // design 6: dhp W_hh's B fragments from shared memory
   static constexpr int kTiles = 3 * kQ;               // 8-column tiles of dhp [8, 3H]
   static constexpr int kBlocksH = (H + 15) / 16;      // k-blocks of the recompute (over h)
   static constexpr int kBlocksG = (3 * H + 15) / 16;  // k-blocks of dhp W_hh (over 3H)
   static constexpr int kStrideX = 24;                 // ring row of the warp's xp slice: 8 units of r, z, n
   static constexpr int kStrideG = 8;                  // ... of its grad_out slice
-  static constexpr int kStrideH = padded(H);          // ... of the m-tile's h_{t-1}
-  static constexpr int kSlot = kRows * (kStrideX + kStrideG + kStrideH);  // bf16 a slot
-  static constexpr int kChunks = kRows * (3 + 1 + kQ);                    // a step's 16-byte copies
-  static constexpr int kCopies = (kChunks + 31) / 32;                     // ... a lane
+  static constexpr int kSlot = kRows * (kStrideX + kStrideG);  // bf16 a slot of a warp's ring
+  static constexpr int kStrideH = padded(H);          // a row of the group's ring of h_{t-1}
+  static constexpr int kSlotH = kRows * kStrideH;     // bf16 a slot of it
+  static constexpr int kStrideW = padded(3 * H);      // a row of W_hh^T in shared memory (design 6)
+  static constexpr int kChunks = kRows * (3 + 1 + 1);  // a warp's 16-byte copies a step: xp, grad_out, h_{t-1}
+  static constexpr int kCopies = (kChunks + 31) / 32;  // ... a lane
   static constexpr int kTerms = 3 * kTiles * 32;  // words of one buffer of dhp's terms, [3][kTiles][32]
+  static_assert(!kSharedW || kGroups == 1, "the block's one m-tile loads the shared weights");
 };
 
 template <int H>
 constexpr size_t smem_bytes() {
   using Sh = Shape<H>;
-  return sizeof(uint32_t) * Sh::kGroups * 2 * Sh::kTerms + sizeof(__nv_bfloat16) * kWarps * kStages * Sh::kSlot;
+  return sizeof(uint32_t) * Sh::kGroups * 2 * Sh::kTerms +
+         sizeof(__nv_bfloat16) * (Sh::kGroups * kStages * Sh::kSlotH + Sh::kWarps * kStages * Sh::kSlot +
+                                  (Sh::kSharedW ? H * Sh::kStrideW : 0));
 }
 
 template <int H>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Shape<H>::kThreads, Shape<H>::kMinBlocks)
     bigru_seq_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ xp, const float* __restrict__ w_t,
                               const float* __restrict__ b_hh, const __nv_bfloat16* __restrict__ out,
                               const __nv_bfloat16* __restrict__ grad_out, __nv_bfloat16* __restrict__ dxp,
@@ -189,9 +238,15 @@ __global__ void __launch_bounds__(kThreads)
   const int row = row0 + g;  // the lane's row
   const bool valid = row < n;
 
+  // [kGroups][2][3][kTiles][32] words of dhp's terms, then in bf16 the
+  // groups' rings of h_{t-1}, the warps' rings of xp and grad_out, and
+  // W_hh^T at design 6
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* terms = smem + group * 2 * Sh::kTerms;  // the group's [2][3][kTiles][32]
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + Sh::kGroups * 2 * Sh::kTerms) + warp * S * Sh::kSlot;
+  uint32_t* terms = smem + group * 2 * Sh::kTerms;
+  __nv_bfloat16* h_rings = reinterpret_cast<__nv_bfloat16*>(smem + Sh::kGroups * 2 * Sh::kTerms);
+  __nv_bfloat16* h_ring = h_rings + group * S * Sh::kSlotH;
+  __nv_bfloat16* ring = h_rings + Sh::kGroups * S * Sh::kSlotH + warp * S * Sh::kSlot;
+  __nv_bfloat16* w_s = h_rings + Sh::kGroups * S * Sh::kSlotH + Sh::kWarps * S * Sh::kSlot;
   auto term_at = [&](int buf, int term, int tile) -> uint32_t& {
     return terms[((buf * 3 + term) * Sh::kTiles + tile) * 32 + lane];
   };
@@ -202,7 +257,7 @@ __global__ void __launch_bounds__(kThreads)
   // B[k = c][j] for its unit j = 8 q0 + g; lane (g, tig) holds rows
   // k = 16 kb + 8 half + 2 tig + {0, 1}.
   const float* w = w_t + static_cast<size_t>(dir) * H * G;
-  uint32_t wh[Sh::kBlocksH][3][2], wg[Sh::kBlocksG][2];
+  uint32_t wh[Sh::kBlocksH][3][2], wg[Sh::kSharedW ? 1 : Sh::kBlocksG][2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
 #pragma unroll
@@ -212,10 +267,18 @@ __global__ void __launch_bounds__(kThreads)
         const int k = 16 * kb + 8 * half + 2 * tig, c = gate * H + 8 * q0 + g;
         wh[kb][gate][half] = k < H ? pack(w[k * G + c], w[(k + 1) * G + c]) : 0u;
       }
+    if constexpr (!Sh::kSharedW) {
 #pragma unroll
-    for (int kb = 0; kb < Sh::kBlocksG; ++kb) {
-      const int k = 16 * kb + 8 * half + 2 * tig, j = 8 * q0 + g;
-      wg[kb][half] = k < G ? pack(w[j * G + k], w[j * G + k + 1]) : 0u;
+      for (int kb = 0; kb < Sh::kBlocksG; ++kb) {
+        const int k = 16 * kb + 8 * half + 2 * tig, j = 8 * q0 + g;
+        wg[kb][half] = k < G ? pack(w[j * G + k], w[j * G + k + 1]) : 0u;
+      }
+    }
+  }
+  if constexpr (Sh::kSharedW) {  // design 6: w_t[dir] in bf16 at row stride kStrideW, by the block's one m-tile
+    for (int i = threadIdx.x; i < H * G / 2; i += Sh::kThreads) {
+      const int j = 2 * i / G, c = 2 * i % G;
+      *reinterpret_cast<uint32_t*>(w_s + j * Sh::kStrideW + c) = pack(w[2 * i], w[2 * i + 1]);
     }
   }
   float bias[3][2];  // b_hh at the accumulator's columns gate H + 8 q0 + 2 tig + {0, 1}
@@ -231,31 +294,26 @@ __global__ void __launch_bounds__(kThreads)
   auto time_of = [&](int s) { return dir ? t_len - 1 - s : s; };  // step s of this direction
 
   // Design 4: copy i = 32 p + lane of step s: gate i % 3 of the warp's xp
-  // slice of row i / 3, then its grad_out slice of each row, then the
-  // m-tile's h_{t-1} (out at time_of(s - 1), zeros at s = 0) chunk by chunk;
-  // rows past n are zero-filled from a valid address.
+  // slice of row i / 3, then its grad_out slice of each row, then its units
+  // of each row's h_{t-1} (out at time_of(s - 1), zeros at s = 0) into the
+  // group's ring; rows past n are zero-filled from a valid address.
   auto stage = [&](int s) {
     __nv_bfloat16* slot = ring + (s % S) * Sh::kSlot;
+    __nv_bfloat16* slot_h = h_ring + (s % S) * Sh::kSlotH;
 #pragma unroll
     for (int p = 0; p < Sh::kCopies; ++p) {
       const int i = 32 * p + lane;
       if (i < Sh::kChunks) {
-        int r, off, kind;  // kind 0: xp, 1: grad_out, 2: h_{t-1}; off: the chunk's bf16 in the slice
-        if (i < 3 * kRows) {
-          kind = 0, r = i / 3, off = 8 * (i % 3);
-        } else if (i < 4 * kRows) {
-          kind = 1, r = i - 3 * kRows, off = 0;
-        } else {
-          kind = 2, r = (i - 4 * kRows) / Q, off = 8 * ((i - 4 * kRows) % Q);
-        }
+        const int kind = i < 3 * kRows ? 0 : (i < 4 * kRows ? 1 : 2);  // xp, grad_out, h_{t-1}
+        const int r = kind == 0 ? i / 3 : i - (kind == 1 ? 3 : 4) * kRows;
         const bool ok = row0 + r < n && (kind < 2 || s > 0);
         const int te = time_of(kind < 2 ? s : max(s - 1, 0));
         const __nv_bfloat16* src =
-            kind == 0 ? xp + (row0 + r) * x_row + te * 6 * H + dir * G + 8 * q0 + off / 8 * H
-                      : (kind == 1 ? grad_out + 8 * q0 : out + off) + (row0 + r) * o_row + te * 2 * H + dir * H;
-        __nv_bfloat16* dst = kind == 0   ? slot + r * Sh::kStrideX + off
+            kind == 0 ? xp + (row0 + r) * x_row + te * 6 * H + dir * G + (i % 3) * H + 8 * q0
+                      : (kind == 1 ? grad_out : out) + (row0 + r) * o_row + te * 2 * H + dir * H + 8 * q0;
+        __nv_bfloat16* dst = kind == 0   ? slot + r * Sh::kStrideX + 8 * (i % 3)
                              : kind == 1 ? slot + kRows * Sh::kStrideX + r * Sh::kStrideG
-                                         : slot + kRows * (Sh::kStrideX + Sh::kStrideG) + r * Sh::kStrideH + off;
+                                         : slot_h + r * Sh::kStrideH + 8 * q0;
         cp_async16(dst, ok ? src : xp, ok);
       }
     }
@@ -265,23 +323,29 @@ __global__ void __launch_bounds__(kThreads)
     if (t_len - 1 - k >= 0) stage(t_len - 1 - k);
     cp_async_commit();
   }
+  // The first step's h_{t-1} complete and, after the barrier, the group's
+  // (and at design 6 the block's weights in shared memory).
+  cp_async_wait<S - 2>();
+  sync_group();
 
   // Design 2: dh_next at the lane's row and units 8 q0 + 2 tig + e.
   float dh_next[2] = {0.f, 0.f};
 
 #pragma unroll 1
   for (int s = t_len - 1; s >= 0; --s) {
-    // Step s's group is complete once at most S - 2 newer ones are pending;
-    // the barrier makes every lane's copies visible and closes step s + 1,
-    // whose slot the next copy reuses.
-    cp_async_wait<S - 2>();
+    // Steps s and s - 1 are complete once at most S - 3 newer groups are
+    // pending: the warp barrier makes step s's slices (the warp's own)
+    // visible to every lane, and the step's group barrier step s - 1's
+    // h_{t-1} to the group.  Step s + 1's slots, read before step s + 1's
+    // group barrier, take the next copy.
+    cp_async_wait<S - 3>();
     __syncwarp();
     if (s - (S - 1) >= 0) stage(s - (S - 1));
     cp_async_commit();
 
     const __nv_bfloat16* xs = ring + (s % S) * Sh::kSlot;
     const __nv_bfloat16* gs = xs + kRows * Sh::kStrideX;
-    const __nv_bfloat16* hs = gs + kRows * Sh::kStrideG;
+    const __nv_bfloat16* hs = h_ring + (s % S) * Sh::kSlotH;
     // h_{t-1} as bf16 pairs: the recompute's A fragments (rows l/4; rows
     // l/4 + 8 zero), and at tile q0 the lane's own values.
     auto h_frag = [&](int q) { return q < Q ? lds32(hs + g * Sh::kStrideH + 8 * q + 2 * tig) : 0u; };
@@ -347,11 +411,18 @@ __global__ void __launch_bounds__(kThreads)
     auto frag = [&](int term, int tile) {  // zero past 3H
       return tile < Sh::kTiles ? term_at(buf, term, tile < Sh::kTiles ? tile : 0) : 0u;
     };
+    uint32_t wq[4];  // design 6: the B fragments of k-blocks kb and kb + 1 (kb even)
 #pragma unroll
     for (int kb = 0; kb < Sh::kBlocksG; ++kb) {
-      mma_bf16(acc_g[0][kb % 2], frag(0, 2 * kb), frag(1, 2 * kb), frag(0, 2 * kb + 1), frag(1, 2 * kb + 1), wg[kb][0],
-               wg[kb][1]);
-      mma_bf16(acc_g[1][kb % 2], frag(2, 2 * kb), 0u, frag(2, 2 * kb + 1), 0u, wg[kb][0], wg[kb][1]);
+      uint32_t b0, b1;
+      if constexpr (Sh::kSharedW) {
+        if (kb % 2 == 0) ldmatrix_x4(wq, w_s + (8 * q0 + lane % 8) * Sh::kStrideW + 16 * kb + 8 * (lane / 8));
+        b0 = wq[2 * (kb % 2)], b1 = wq[2 * (kb % 2) + 1];
+      } else {
+        b0 = wg[kb][0], b1 = wg[kb][1];
+      }
+      mma_bf16(acc_g[0][kb % 2], frag(0, 2 * kb), frag(1, 2 * kb), frag(0, 2 * kb + 1), frag(1, 2 * kb + 1), b0, b1);
+      mma_bf16(acc_g[1][kb % 2], frag(2, 2 * kb), 0u, frag(2, 2 * kb + 1), 0u, b0, b1);
     }
 
     // The step's outputs after the barrier, which would otherwise wait on
@@ -375,8 +446,16 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
 }
 
-// Ops run by dispatch() on the instantiation of hidden.  Shared memory
-// stays under the 48 KB a launch gets without opting in.
+// Shared memory beyond the 48 KB a launch gets without opting in (H = 128)
+// is asked for before the launch and the occupancy query.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return bytes <= 48 * 1024 ? cudaSuccess
+                            : cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(bytes));
+}
+
+// Ops run by dispatch() on the instantiation of hidden.
 struct Backward {
   const __nv_bfloat16* xp;
   const float *w_t, *b_hh;
@@ -388,12 +467,15 @@ struct Backward {
 
   template <int H>
   int run() const {
-    static_assert(smem_bytes<H>() <= 48 * 1024, "the rings need an opt-in to more shared memory");
-    constexpr int groups = Shape<H>::kGroups;
+    using Sh = Shape<H>;
+    constexpr size_t bytes = smem_bytes<H>();
+    static_assert(bytes <= 227 * 1024, "beyond a block's shared memory");
+    const auto kernel = bigru_seq_bwd_bf16_kernel<H>;
+    const cudaError_t err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const int tiles = (n + kRows - 1) / kRows;
-    const dim3 grid((tiles + groups - 1) / groups, 2);
-    bigru_seq_bwd_bf16_kernel<H><<<grid, kThreads, smem_bytes<H>(), stream>>>(xp, w_t, b_hh, out, grad_out, dxp,
-                                                                             dhp, h_prev, n, n_pad, t_len);
+    const dim3 grid((tiles + Sh::kGroups - 1) / Sh::kGroups, 2);
+    kernel<<<grid, Sh::kThreads, bytes, stream>>>(xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev, n, n_pad, t_len);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -403,8 +485,11 @@ struct Occupancy {
 
   template <int H>
   int run() const {
+    const auto kernel = bigru_seq_bwd_bf16_kernel<H>;
+    const cudaError_t err = allow_smem(kernel, smem_bytes<H>());
+    if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, bigru_seq_bwd_bf16_kernel<H>, kThreads, smem_bytes<H>()));
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, Shape<H>::kThreads, smem_bytes<H>()));
   }
 };
 
@@ -417,6 +502,10 @@ int dispatch(const Op& op, int hidden) {
       return op.template run<16>();
     case 32:
       return op.template run<32>();
+    case 64:
+      return op.template run<64>();
+    case 128:
+      return op.template run<128>();
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,6 @@
 // K1 at hidden sizes 64 and 128: the bidirectional GRU recurrence and its
-// BPTT, for Hopper (sm_90a), in fp32 or bf16 storage.
+// BPTT, for Hopper (sm_90a), in fp32.  bf16 storage runs on the tensor cores
+// at these sizes too (csrc/bigru_seq_bf16.cu, csrc/bigru_seq_bwd_bf16.cu).
 //
 // Replaces the TPU kernel tpgsr_tpu/ops/pallas_gru.py::_gru_seq_kernel
 // (launched by _bigru_pallas_impl at pallas_gru.py:95) where a row's state
@@ -46,11 +47,9 @@
 //      backward step.
 //   3. Each step's inputs (xp, and in the backward grad_out and h_{t-1})
 //      are loaded one step ahead into registers.
-// fp32 arithmetic with accurate tanhf (sigmoid through tanhf) in both
-// storage types; bf16 storage rounds only out and dxp, as the plain versions
-// (ops/rnn.py) do.  Only the order of the sums differs from them.
+// fp32 arithmetic with accurate tanhf (sigmoid through tanhf).  Only the
+// order of the sums differs from the plain versions (ops/rnn.py).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -60,16 +59,6 @@ constexpr int kGroups = 4;  // row groups a block (threadIdx.y)
 // sigmoid(x) = tanh(x / 2) / 2 + 1 / 2: one accurate tanhf, no expf and no
 // division; exactly 0.5 at 0, so a padded unit stays 0.
 __device__ __forceinline__ float sigmoid_f32(float x) { return fmaf(0.5f, tanhf(0.5f * x), 0.5f); }
-
-// The storage type to fp32 and back (round to nearest even).
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
 template <int H, int RPT>
 struct Wide {
@@ -144,10 +133,10 @@ __device__ __forceinline__ void gate_sums(const float* w_s, const float* h_rows,
   }
 }
 
-template <typename T, int H, int RPT>
+template <int H, int RPT>
 __global__ void __launch_bounds__(Wide<H, RPT>::kThreads, Wide<H, RPT>::kMinBlocks)
-    bigru_wide_forward_kernel(const T* __restrict__ xp, const float* __restrict__ w_t,
-                              const float* __restrict__ b_hh, T* __restrict__ out, int n, int t_len) {
+    bigru_wide_forward_kernel(const float* __restrict__ xp, const float* __restrict__ w_t,
+                              const float* __restrict__ b_hh, float* __restrict__ out, int n, int t_len) {
   using Sh = Wide<H, RPT>;
   constexpr int G = Sh::kGates;
   const int j = threadIdx.x;
@@ -179,10 +168,10 @@ __global__ void __launch_bounds__(Wide<H, RPT>::kThreads, Wide<H, RPT>::kMinBloc
     for (int i = 0; i < RPT; ++i) {
       r[i] = z[i] = nn[i] = 0.f;
       if (((valid >> i) & 1u) && t < t_len) {
-        const T* x = xp + x0 + i * x_row + static_cast<size_t>(time_of(t)) * 6 * H;
-        r[i] = to_f32(x[0]);
-        z[i] = to_f32(x[H]);
-        nn[i] = to_f32(x[2 * H]);
+        const float* x = xp + x0 + i * x_row + static_cast<size_t>(time_of(t)) * 6 * H;
+        r[i] = x[0];
+        z[i] = x[H];
+        nn[i] = x[2 * H];
       }
     }
   };
@@ -209,7 +198,7 @@ __global__ void __launch_bounds__(Wide<H, RPT>::kThreads, Wide<H, RPT>::kMinBloc
       const float ng = tanhf(xn[i] + rg * an[i]);
       h[i] = (1.0f - zg) * ng + zg * h[i];
       hn[(lrow0 + i) * H + j] = h[i];
-      if ((valid >> i) & 1u) out[o0 + i * o_row + te] = from_f32<T>(h[i]);
+      if ((valid >> i) & 1u) out[o0 + i * o_row + te] = h[i];
       xr[i] = nr[i];
       xz[i] = nz[i];
       xn[i] = nn[i];
@@ -220,11 +209,11 @@ __global__ void __launch_bounds__(Wide<H, RPT>::kThreads, Wide<H, RPT>::kMinBloc
   }
 }
 
-template <typename T, int H, int RPT>
+template <int H, int RPT>
 __global__ void __launch_bounds__(Wide<H, RPT>::kThreads, Wide<H, RPT>::kMinBlocks)
-    bigru_wide_backward_kernel(const T* __restrict__ xp, const float* __restrict__ w_t,
-                               const float* __restrict__ b_hh, const T* __restrict__ out,
-                               const T* __restrict__ grad_out, T* __restrict__ dxp, float* __restrict__ dhp,
+    bigru_wide_backward_kernel(const float* __restrict__ xp, const float* __restrict__ w_t,
+                               const float* __restrict__ b_hh, const float* __restrict__ out,
+                               const float* __restrict__ grad_out, float* __restrict__ dxp, float* __restrict__ dhp,
                                float* __restrict__ h_prev_out, int n, int n_pad, int t_len) {
   using Sh = Wide<H, RPT>;
   constexpr int G = Sh::kGates;
@@ -261,12 +250,12 @@ __global__ void __launch_bounds__(Wide<H, RPT>::kThreads, Wide<H, RPT>::kMinBloc
     for (int i = 0; i < RPT; ++i) {
       in.r[i] = in.z[i] = in.n[i] = in.go[i] = in.hp[i] = 0.f;
       if (((valid >> i) & 1u) && s >= 0) {
-        const T* x = xp + x0 + i * x_row + static_cast<size_t>(time_of(s)) * 6 * H;
-        in.r[i] = to_f32(x[0]);
-        in.z[i] = to_f32(x[H]);
-        in.n[i] = to_f32(x[2 * H]);
-        in.go[i] = to_f32(grad_out[o0 + i * o_row + static_cast<size_t>(time_of(s)) * 2 * H]);
-        if (s > 0) in.hp[i] = to_f32(out[o0 + i * o_row + static_cast<size_t>(time_of(s - 1)) * 2 * H]);
+        const float* x = xp + x0 + i * x_row + static_cast<size_t>(time_of(s)) * 6 * H;
+        in.r[i] = x[0];
+        in.z[i] = x[H];
+        in.n[i] = x[2 * H];
+        in.go[i] = grad_out[o0 + i * o_row + static_cast<size_t>(time_of(s)) * 2 * H];
+        if (s > 0) in.hp[i] = out[o0 + i * o_row + static_cast<size_t>(time_of(s - 1)) * 2 * H];
       }
     }
   };
@@ -300,9 +289,9 @@ __global__ void __launch_bounds__(Wide<H, RPT>::kThreads, Wide<H, RPT>::kMinBloc
       if ((valid >> i) & 1u) {
         const size_t x = x0 + i * x_row + static_cast<size_t>(te) * 6 * H;
         const size_t p = p0 + static_cast<size_t>(i) * t_len + te;
-        dxp[x] = from_f32<T>(dr_hat);
-        dxp[x + H] = from_f32<T>(dz_hat);
-        dxp[x + 2 * H] = from_f32<T>(dn_hat);
+        dxp[x] = dr_hat;
+        dxp[x + H] = dz_hat;
+        dxp[x + 2 * H] = dn_hat;
         dhp[p * G + j] = dr_hat;
         dhp[p * G + H + j] = dz_hat;
         dhp[p * G + 2 * H + j] = dhn;
@@ -341,7 +330,7 @@ __global__ void __launch_bounds__(Wide<H, RPT>::kThreads, Wide<H, RPT>::kMinBloc
   }
 }
 
-// Ops run by by_dtype() on the instantiation of (storage type, hidden, rpt).
+// Ops run by by_hidden() on the instantiation of (hidden, rpt).
 // Shared memory beyond 48 KB is opted into at every launch and query.
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -349,48 +338,45 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 struct Forward {
-  const void* xp;
+  const float* xp;
   const float *w_t, *b_hh;
-  void* out;
+  float* out;
   int n, t_len;
   cudaStream_t stream;
 
-  template <typename T, int H, int RPT>
+  template <int H, int RPT>
   int run() const {
     using Sh = Wide<H, RPT>;
     constexpr size_t bytes = forward_smem<H, RPT>();
     static_assert(bytes <= 232448, "beyond a block's shared memory");
-    const auto kernel = bigru_wide_forward_kernel<T, H, RPT>;
+    const auto kernel = bigru_wide_forward_kernel<H, RPT>;
     const cudaError_t err = allow_smem(kernel, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((n + Sh::kRows - 1) / Sh::kRows, 2);
-    kernel<<<grid, dim3(H, kGroups), bytes, stream>>>(static_cast<const T*>(xp), w_t, b_hh, static_cast<T*>(out), n,
-                                                      t_len);
+    kernel<<<grid, dim3(H, kGroups), bytes, stream>>>(xp, w_t, b_hh, out, n, t_len);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
 struct Backward {
-  const void* xp;
+  const float* xp;
   const float *w_t, *b_hh;
-  const void *out, *grad_out;
-  void* dxp;
-  float *dhp, *h_prev;
+  const float *out, *grad_out;
+  float *dxp, *dhp, *h_prev;
   int n, n_pad, t_len;
   cudaStream_t stream;
 
-  template <typename T, int H, int RPT>
+  template <int H, int RPT>
   int run() const {
     using Sh = Wide<H, RPT>;
     constexpr size_t bytes = backward_smem<H, RPT>();
     static_assert(bytes <= 232448, "beyond a block's shared memory");
-    const auto kernel = bigru_wide_backward_kernel<T, H, RPT>;
+    const auto kernel = bigru_wide_backward_kernel<H, RPT>;
     const cudaError_t err = allow_smem(kernel, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((n + Sh::kRows - 1) / Sh::kRows, 2);
-    kernel<<<grid, dim3(H, kGroups), bytes, stream>>>(
-        static_cast<const T*>(xp), w_t, b_hh, static_cast<const T*>(out), static_cast<const T*>(grad_out),
-        static_cast<T*>(dxp), dhp, h_prev, n, n_pad, t_len);
+    kernel<<<grid, dim3(H, kGroups), bytes, stream>>>(xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev, n, n_pad,
+                                                      t_len);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -399,11 +385,11 @@ struct Occupancy {
   bool backward;
   int* blocks;
 
-  template <typename T, int H, int RPT>
+  template <int H, int RPT>
   int run() const {
     const size_t bytes = backward ? backward_smem<H, RPT>() : forward_smem<H, RPT>();
-    const auto fwd = bigru_wide_forward_kernel<T, H, RPT>;
-    const auto bwd = bigru_wide_backward_kernel<T, H, RPT>;
+    const auto fwd = bigru_wide_forward_kernel<H, RPT>;
+    const auto bwd = bigru_wide_backward_kernel<H, RPT>;
     const cudaError_t err = backward ? allow_smem(bwd, bytes) : allow_smem(fwd, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int threads = Wide<H, RPT>::kThreads;
@@ -412,61 +398,54 @@ struct Occupancy {
   }
 };
 
-template <typename T, int H, class Op>
+template <int H, class Op>
 int by_rpt(const Op& op, int rpt) {
   switch (rpt) {
     case 1:
-      return op.template run<T, H, 1>();
+      return op.template run<H, 1>();
     case 2:
-      return op.template run<T, H, 2>();
+      return op.template run<H, 2>();
     case 4:
-      return op.template run<T, H, 4>();
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T, class Op>
-int by_hidden(const Op& op, int hidden, int rpt) {
-  switch (hidden) {
-    case 64:
-      return by_rpt<T, 64>(op, rpt);
-    case 128:
-      return by_rpt<T, 128>(op, rpt);
+      return op.template run<H, 4>();
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <class Op>
-int by_dtype(const Op& op, int hidden, int rpt, int bf16) {
-  return bf16 ? by_hidden<__nv_bfloat16>(op, hidden, rpt) : by_hidden<float>(op, hidden, rpt);
+int by_hidden(const Op& op, int hidden, int rpt) {
+  switch (hidden) {
+    case 64:
+      return by_rpt<64>(op, rpt);
+    case 128:
+      return by_rpt<128>(op, rpt);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// Each returns a cudaError_t as int: 0 on success.  xp, out, grad_out and dxp
-// are float, or __nv_bfloat16 where bf16 is 1; w_t, b_hh, dhp and h_prev are
-// float.
-extern "C" int tpgsr_bigru_wide_forward(const void* xp, const float* w_t, const float* b_hh, void* out, int n,
-                                        int t_len, int hidden, int rpt, int bf16, void* stream) {
+// Each returns a cudaError_t as int: 0 on success.  Every pointer is float.
+extern "C" int tpgsr_bigru_wide_forward(const float* xp, const float* w_t, const float* b_hh, float* out, int n,
+                                        int t_len, int hidden, int rpt, void* stream) {
   if (n <= 0 || t_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Forward op{xp, w_t, b_hh, out, n, t_len, static_cast<cudaStream_t>(stream)};
-  return by_dtype(op, hidden, rpt, bf16);
+  return by_hidden(op, hidden, rpt);
 }
 
-extern "C" int tpgsr_bigru_wide_backward(const void* xp, const float* w_t, const float* b_hh, const void* out,
-                                         const void* grad_out, void* dxp, float* dhp, float* h_prev, int n,
-                                         int n_pad, int t_len, int hidden, int rpt, int bf16, void* stream) {
+extern "C" int tpgsr_bigru_wide_backward(const float* xp, const float* w_t, const float* b_hh, const float* out,
+                                         const float* grad_out, float* dxp, float* dhp, float* h_prev, int n,
+                                         int n_pad, int t_len, int hidden, int rpt, void* stream) {
   if (n <= 0 || t_len <= 0 || n_pad < n) return static_cast<int>(cudaErrorInvalidValue);
   const Backward op{xp, w_t, b_hh, out, grad_out, dxp, dhp, h_prev, n, n_pad, t_len,
                     static_cast<cudaStream_t>(stream)};
-  return by_dtype(op, hidden, rpt, bf16);
+  return by_hidden(op, hidden, rpt);
 }
 
-// Resident blocks an SM for the instantiation (hidden, rpt, bf16) of the
-// forward, or of the backward where backward is 1, written to *blocks.
-extern "C" int tpgsr_bigru_wide_occupancy(int hidden, int rpt, int bf16, int backward, int* blocks) {
+// Resident blocks an SM for the instantiation (hidden, rpt) of the forward,
+// or of the backward where backward is 1, written to *blocks.
+extern "C" int tpgsr_bigru_wide_occupancy(int hidden, int rpt, int backward, int* blocks) {
   const Occupancy op{backward != 0, blocks};
-  return by_dtype(op, hidden, rpt, bf16);
+  return by_hidden(op, hidden, rpt);
 }

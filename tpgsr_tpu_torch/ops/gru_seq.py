@@ -2,13 +2,13 @@
 CUDA kernels.
 
 Counterpart of tpgsr_tpu/ops/pallas_gru.py (``bigru_pallas``).  The kernel
-sources are ``csrc/bigru_seq.cu`` and ``csrc/bigru_seq_bwd.cu`` (forward and
-backward, fp32) and ``csrc/bigru_seq_bf16.cu`` and
-``csrc/bigru_seq_bwd_bf16.cu`` (bf16, on the tensor cores) at hidden sizes
-8, 16 and 32 (``NARROW_HIDDEN``: a row within a warp), and
-``csrc/bigru_seq_wide.cu`` (both ways, fp32 or bf16 storage) at 64 and 128
-(``WIDE_HIDDEN``); their plain versions are ``ops.rnn.bigru_recurrence``
-and ``ops.rnn.bigru_recurrence_backward``.
+sources are, in fp32, ``csrc/bigru_seq.cu`` and ``csrc/bigru_seq_bwd.cu``
+(forward and backward) at hidden sizes 8, 16 and 32 (``NARROW_HIDDEN``: a
+row within a warp) and ``csrc/bigru_seq_wide.cu`` (both ways) at 64 and 128
+(``WIDE_HIDDEN``); in bf16, ``csrc/bigru_seq_bf16.cu`` and
+``csrc/bigru_seq_bwd_bf16.cu`` (on the tensor cores) at all five.  Their
+plain versions are ``ops.rnn.bigru_recurrence`` and
+``ops.rnn.bigru_recurrence_backward``.
 
 * Every hidden size from 1 to ``MAX_HIDDEN`` runs on the card: ``bigru``
   pads it with zero units to the next instantiated size
@@ -29,15 +29,17 @@ and ``ops.rnn.bigru_recurrence_backward``.
 * A CUDA tensor launches the kernels or raises; nothing falls back.
 * ``LAUNCHES`` and ``BACKWARD_LAUNCHES`` count kernel launches, so a run can
   show that its main path went through the kernels: every K1 launch,
-  ``WIDE_LAUNCHES`` and ``WIDE_BACKWARD_LAUNCHES`` those of them on the
-  wide kernels.  ``LAUNCH_SHAPES``, set to a list, collects each forward
-  call's (N, T, H) at the real H, with the FLOPs its padding adds to the
-  input projection, for a FLOP count (``utils.cost``).
+  ``WIDE_LAUNCHES`` and ``WIDE_BACKWARD_LAUNCHES`` those of them at a wide
+  size, and ``WIDE_MMA_LAUNCHES`` and ``WIDE_MMA_BACKWARD_LAUNCHES`` those
+  of these on the tensor-core kernels (bf16; fp32 runs the wide kernels).
+  ``LAUNCH_SHAPES``, set to a list, collects each forward call's (N, T, H)
+  at the real H, with the FLOPs its padding adds to the input projection,
+  for a FLOP count (``utils.cost``).
 * Each kernel's launch configuration comes from a pure function of the
   shape and the card's limits, fed that kernel's own occupancy:
-  ``launch_config`` (rows a thread, grid) for the fp32 kernels and the
-  wide ones, ``tile_config`` (rows an m-tile, grid) for the bf16 tensor-core
-  ones.
+  ``launch_config`` (rows a thread, grid) for the fp32 kernels, narrow
+  and wide, ``tile_config`` (rows an m-tile, grid) for the bf16
+  tensor-core ones.
 * The backward kernel writes dxp, and dhp and h_{t-1} laid out per
   direction; dW_hh and db_hh are one batched GEMM and one sum outside it
   (``recurrent_weight_grads``), and the input projection's gradients come
@@ -60,13 +62,15 @@ LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 WIDE_LAUNCHES = 0
 WIDE_BACKWARD_LAUNCHES = 0
+WIDE_MMA_LAUNCHES = 0
+WIDE_MMA_BACKWARD_LAUNCHES = 0
 # (N, T, H, padding FLOPs) of each forward call on the card while a FLOP
 # count runs (utils.cost): the kernel is reached through ctypes, which
 # torch's FLOP counter cannot see, and at a padded H the counter sees the
 # input projection's products on the padded units
 LAUNCH_SHAPES: Optional[list] = None
-NARROW_HIDDEN = (8, 16, 32)  # csrc/bigru_seq*.cu: a row within a warp
-WIDE_HIDDEN = (64, 128)  # csrc/bigru_seq_wide.cu: a row across H / 32 warps
+NARROW_HIDDEN = (8, 16, 32)  # csrc/bigru_seq.cu, csrc/bigru_seq_bwd.cu: a row within a warp
+WIDE_HIDDEN = (64, 128)  # csrc/bigru_seq_wide.cu in fp32: a row across H / 32 warps
 SUPPORTED_HIDDEN = NARROW_HIDDEN + WIDE_HIDDEN  # the instantiated sizes; any other pads to the next
 MAX_HIDDEN = SUPPORTED_HIDDEN[-1]  # an fp32 W_hh of H = 256 (786 KB a direction) fits no SM's shared memory
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)  # the storage types of xp, out, grad_out and dxp
@@ -75,8 +79,9 @@ WIDE_GROUPS = 4  # row groups a block of the wide kernels (kGroups): H x 4 threa
 RPTS = (1, 2, 4)  # rows a thread, the fp32 and wide kernels' instantiations
 RING_STAGES = 4  # steps of xp in the kernel's shared-memory ring (kStages)
 TILE_ROWS = (8, 16)  # rows an m-tile, the bf16 kernels' instantiations
-TILE_WARPS = 4  # warps a block of the bf16 kernels, H / 8 an m-tile (kWarps)
-BF16_RING_STAGES = 3  # steps of the inputs in the bf16 kernels' rings (kStages)
+TILE_WARPS = 4  # least warps a block of the bf16 kernels, H / 8 an m-tile (kWarps)
+BF16_RING_STAGES = 3  # steps of xp in the bf16 forward's rings (kStages)
+BF16_BWD_RING_STAGES = 4  # steps of the inputs in the bf16 backward's rings (kStages)
 SUB_PARTITIONS = 4  # warp schedulers an SM
 SMALL_TILE_WARPS = 2  # warps a sub-partition up to which the bf16 forward takes 8-row m-tiles
 GEMM_CHUNK = 256  # row-steps a batch of the dW_hh GEMM sums over
@@ -89,6 +94,12 @@ def padded_hidden(hidden: int) -> int:
     if not 1 <= hidden <= MAX_HIDDEN:
         raise ValueError(f"K1 takes hidden sizes 1 to {MAX_HIDDEN} on the card, got {hidden}")
     return next(h for h in SUPPORTED_HIDDEN if h >= hidden)
+
+
+def tile_block_warps(hidden: int) -> int:
+    """Warps a block of the bf16 tensor-core kernels: ``TILE_WARPS`` (4 /
+    (H / 8) m-tiles) up to H = 32, one m-tile of H / 8 warps above."""
+    return max(TILE_WARPS, hidden // 8)
 
 
 def block_rows(hidden: int, rpt: int) -> int:
@@ -133,24 +144,24 @@ class TileConfig(NamedTuple):
 def tile_config(n: int, hidden: int, sms: int, blocks_per_sm: Mapping[int, int],
                 backward: bool = False) -> TileConfig:
     """The bf16 kernels' geometry: each m-tile of rows runs on ``hidden / 8``
-    warps (one 8-unit tile each), ``TILE_WARPS`` warps a block.  m-tiles of 8
+    warps (one 8-unit tile each), ``tile_block_warps`` a block.  m-tiles of 8
     rows, each warp's chain of steps carrying half the gates: always in the
     backward (its only instantiation), whose steps carry the most; in the
     forward where the grid's warps at 8 rows, ``2 * ceil(n / 8) * hidden /
     8``, come to at most ``SMALL_TILE_WARPS`` a sub-partition of the card
     (the flagship's sweep over W), else 16 rows (fewer warps, each product's
-    rows all used: over H and at batch 512).  Measured on an H100 at H = 32
-    (PERF.md).  The tensor-core kernels' sizes only (``NARROW_HIDDEN``); bf16
-    at ``WIDE_HIDDEN`` takes ``launch_config``."""
-    if n < 1 or hidden not in NARROW_HIDDEN:
-        raise ValueError(f"need n >= 1 and hidden in {NARROW_HIDDEN}, got n={n} hidden={hidden}")
+    rows all used: over H and at batch 512).  Measured on an H100 at H = 32,
+    and at 64 and 128, where 16 rows took both sweeps at batch 48 but for
+    a 4 % loss over W at 64 (PERF.md)."""
+    if n < 1 or hidden not in SUPPORTED_HIDDEN:
+        raise ValueError(f"need n >= 1 and hidden in {SUPPORTED_HIDDEN}, got n={n} hidden={hidden}")
     tile_warps = hidden // 8
     small = TILE_ROWS[0]
     fits = 2 * -(-n // small) * tile_warps <= SMALL_TILE_WARPS * SUB_PARTITIONS * sms
     rows = small if backward or fits else TILE_ROWS[-1]
     if blocks_per_sm[rows] < 1:
         raise ValueError(f"K1 bf16 at hidden {hidden}, {rows} rows an m-tile fits no block on an SM")
-    blocks = 2 * -(-n // (rows * (TILE_WARPS // tile_warps)))
+    blocks = 2 * -(-n // (rows * (tile_block_warps(hidden) // tile_warps)))
     return TileConfig(rows, blocks, blocks_per_sm[rows], -(-blocks // (sms * blocks_per_sm[rows])))
 
 
@@ -207,11 +218,11 @@ def _wide_lib() -> ctypes.CDLL:
     from tpgsr_tpu_torch.ops import _build
 
     lib = _build.load("bigru_seq_wide")
-    lib.tpgsr_bigru_wide_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tpgsr_bigru_wide_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.tpgsr_bigru_wide_forward.restype = ctypes.c_int
-    lib.tpgsr_bigru_wide_backward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.tpgsr_bigru_wide_backward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.tpgsr_bigru_wide_backward.restype = ctypes.c_int
-    lib.tpgsr_bigru_wide_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tpgsr_bigru_wide_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.tpgsr_bigru_wide_occupancy.restype = ctypes.c_int
     return lib
 
@@ -228,12 +239,11 @@ def _device_limits(index: int, hidden: int, backward: bool, bf16: int) -> Tuple[
     """(SMs, ((instantiation, resident blocks an SM), ...)) of card ``index``
     for the forward kernel, or the backward's with ``backward``, in fp32
     storage or with ``bf16`` in bf16 (their registers and shared memory
-    differ); an instantiation is a rows a thread (``RPTS``), or in bf16 at
-    ``NARROW_HIDDEN`` a rows an m-tile (``TILE_ROWS``; the backward's 8
-    only)."""
-    if hidden in WIDE_HIDDEN:
+    differ); an instantiation is a rows a thread (``RPTS``), or in bf16 a
+    rows an m-tile (``TILE_ROWS``; the backward's 8 only)."""
+    if hidden in WIDE_HIDDEN and not bf16:
         lib = _wide_lib().tpgsr_bigru_wide_occupancy
-        query, kinds = (lambda rpt, blocks: lib(hidden, rpt, bf16, int(backward), blocks)), RPTS
+        query, kinds = (lambda rpt, blocks: lib(hidden, rpt, int(backward), blocks)), RPTS
     elif bf16 and backward:  # one instantiation a hidden size, 8 rows an m-tile
         lib = _bwd_bf16_lib().tpgsr_bigru_seq_bf16_backward_occupancy
         query, kinds = (lambda rows, blocks: lib(hidden, blocks)), TILE_ROWS[:1]
@@ -257,8 +267,8 @@ def config_for(n: int, hidden: int, device: torch.device, backward: bool = False
                dtype: torch.dtype = torch.float32) -> "LaunchConfig | TileConfig":
     """The launch configuration K1's forward (or, with ``backward``, its
     backward) takes for ``n`` rows of storage type ``dtype`` on CUDA
-    ``device``: a ``TileConfig`` for the bf16 tensor-core kernels
-    (``NARROW_HIDDEN``), a ``LaunchConfig`` for the others."""
+    ``device``: a ``TileConfig`` for the bf16 tensor-core kernels, a
+    ``LaunchConfig`` for the fp32 ones."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     return _config(index, n, hidden, backward, _bf16_flag(dtype))
 
@@ -266,7 +276,7 @@ def config_for(n: int, hidden: int, device: torch.device, backward: bool = False
 @functools.lru_cache(maxsize=1024)
 def _config(index: int, n: int, hidden: int, backward: bool, bf16: int) -> "LaunchConfig | TileConfig":
     sms, occupancy = _device_limits(index, hidden, backward, bf16)
-    if bf16 and hidden in NARROW_HIDDEN:
+    if bf16:
         return tile_config(n, hidden, sms, dict(occupancy), backward=backward)
     return launch_config(n, hidden, sms, dict(occupancy))
 
@@ -314,12 +324,12 @@ def _recurrence(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor,
                 config: "Optional[LaunchConfig | TileConfig]" = None) -> torch.Tensor:
     """Run K1 on [N, T, 6H] projections with ``w_t`` [2, H, 3H] (W_hh
     transposed per direction) and ``b_hh`` [2, 3H] in fp32, holding values of
-    xp's dtype (``_kernel_weights``); returns [N, T, 2H] in xp's dtype: at
-    ``NARROW_HIDDEN`` the fp32 kernel for fp32 and the tensor-core kernel for
-    bf16, at ``WIDE_HIDDEN`` the wide kernel in either.  ``config``
+    xp's dtype (``_kernel_weights``); returns [N, T, 2H] in xp's dtype: the
+    tensor-core kernel for bf16; for fp32 the fp32 kernel at
+    ``NARROW_HIDDEN``, the wide kernel at ``WIDE_HIDDEN``.  ``config``
     overrides ``config_for`` (the tests use it to reach every
     instantiation)."""
-    global LAUNCHES, WIDE_LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES, WIDE_MMA_LAUNCHES
     n, t, g6 = xp.shape
     h = g6 // 6
     bf16 = _bf16_flag(xp.dtype)
@@ -333,16 +343,16 @@ def _recurrence(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor,
     if config is None:
         config = config_for(n, h, xp.device, dtype=xp.dtype)
     wide = h in WIDE_HIDDEN
-    if bf16 and not wide and (n + TILE_ROWS[-1]) * t * 6 * h >= 2**31:
+    if bf16 and (n + TILE_ROWS[-1]) * t * 6 * h >= 2**31:
         raise ValueError(f"K1's bf16 forward indexes with 32-bit offsets: N={n}, T={t}, H={h} is too large")
     out = torch.empty(n, t, 2 * h, device=xp.device, dtype=xp.dtype)
     args = [xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), n, t, h]
-    if wide:
-        fn = _wide_lib().tpgsr_bigru_wide_forward
-        args += [config.rpt, bf16]
-    elif bf16:
+    if bf16:
         fn = _bf16_lib().tpgsr_bigru_seq_bf16_forward
         args.append(config.rows)
+    elif wide:
+        fn = _wide_lib().tpgsr_bigru_wide_forward
+        args.append(config.rpt)
     else:
         fn = _lib().tpgsr_bigru_seq_forward
         args.append(config.rpt)
@@ -352,6 +362,7 @@ def _recurrence(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor,
         raise RuntimeError(f"K1 bigru_seq launch failed: cudaError {err}")
     LAUNCHES += 1
     WIDE_LAUNCHES += int(wide)
+    WIDE_MMA_LAUNCHES += int(wide and bf16)
     return out
 
 
@@ -369,8 +380,8 @@ def _chunk_rows(t: int) -> int:
 def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, out: torch.Tensor,
                      grad_out: torch.Tensor, config: "Optional[LaunchConfig | TileConfig]" = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Run K1's backward kernel (at ``NARROW_HIDDEN`` the fp32 kernel, or
-    the tensor-core kernel in bf16; at ``WIDE_HIDDEN`` the wide kernel):
+    """Run K1's backward kernel (the tensor-core kernel in bf16; in fp32 the
+    fp32 kernel at ``NARROW_HIDDEN``, the wide kernel at ``WIDE_HIDDEN``):
     ``xp`` [N, T, 6H], the forward's ``out`` and ``grad_out`` [N, T, 2H], all
     fp32 or all bf16, with ``w_t`` [2, H, 3H] and ``b_hh`` [2, 3H] in fp32
     holding values of xp's dtype (``_kernel_weights``) -> (dxp [N, T, 6H] in
@@ -378,7 +389,7 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
     padded with zero rows to Np, a multiple of the GEMM's chunk of rows.
     ``config`` overrides ``config_for(..., backward=True)`` (the tests use it
     to reach every instantiation)."""
-    global BACKWARD_LAUNCHES, WIDE_BACKWARD_LAUNCHES
+    global BACKWARD_LAUNCHES, WIDE_BACKWARD_LAUNCHES, WIDE_MMA_BACKWARD_LAUNCHES
     n, t, g6 = xp.shape
     h = g6 // 6
     bf16 = _bf16_flag(xp.dtype)
@@ -402,7 +413,7 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
     wide = h in WIDE_HIDDEN
     rows = _chunk_rows(t)
     n_pad = -(-n // rows) * rows
-    if not wide and (n_pad + 64) * t * 6 * h >= 2**31:
+    if (bf16 or not wide) and (n_pad + 64) * t * 6 * h >= 2**31:
         raise ValueError(f"K1's backward indexes with 32-bit offsets: N={n}, T={t}, H={h} is too large")
     dxp = torch.empty_like(xp)
     dhp = xp.new_empty(2, n_pad, t, 3 * h, dtype=torch.float32)
@@ -410,15 +421,15 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
     if n_pad > n:
         dhp[:, n:].zero_()
         h_prev[:, n:].zero_()
-    if bf16 and not wide and config.rows != TILE_ROWS[0]:
+    if bf16 and config.rows != TILE_ROWS[0]:
         raise ValueError(f"K1's bf16 backward runs {TILE_ROWS[0]} rows an m-tile, got {config.rows}")
     args = [xp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
             dxp.data_ptr(), dhp.data_ptr(), h_prev.data_ptr(), n, n_pad, t, h]
-    if wide:
-        fn = _wide_lib().tpgsr_bigru_wide_backward
-        args += [config.rpt, bf16]
-    elif bf16:
+    if bf16:
         fn = _bwd_bf16_lib().tpgsr_bigru_seq_bf16_backward
+    elif wide:
+        fn = _wide_lib().tpgsr_bigru_wide_backward
+        args.append(config.rpt)
     else:
         fn = _bwd_lib().tpgsr_bigru_seq_backward
         args.append(config.rpt)
@@ -428,6 +439,7 @@ def _backward_kernel(xp: torch.Tensor, w_t: torch.Tensor, b_hh: torch.Tensor, ou
         raise RuntimeError(f"K1 bigru_seq backward launch failed: cudaError {err}")
     BACKWARD_LAUNCHES += 1
     WIDE_BACKWARD_LAUNCHES += int(wide)
+    WIDE_MMA_BACKWARD_LAUNCHES += int(wide and bf16)
     return dxp, dhp, h_prev
 
 

@@ -1,8 +1,9 @@
 """Where the flagship train step's time goes on one NVIDIA card.
 
-    python -m tpgsr_tpu_torch.profile_train [--compute_dtype fp32|bf16]   # needs one card
+    python -m tpgsr_tpu_torch.profile_train [--compute_dtype fp32|bf16] [--batch B] [--hd_u H]   # one card
 
-Builds the flagship train state (``entry.flagship_train``) at batch 48, in
+Builds the flagship train state (``entry.flagship_train``) at batch 48 and
+``--hd_u`` 32 unless told (the packaged YAML trains at batch 512), in
 TRAIN.compute_dtype's precision (fp32 unless told; bf16 runs the models
 under autocast, as the train step does), with TF32 off, and:
 
@@ -13,7 +14,8 @@ under autocast, as the train step does), with TF32 off, and:
 * traces 5 train steps with ``torch.profiler`` and prints the device's busy
   share of the traced wall time, the kernels that take the most device time,
   and K1's forward and backward kernels wherever they rank
-  (``bigru_seq_kernel`` and ``bigru_seq_backward`` in fp32,
+  (``bigru_seq_kernel`` and ``bigru_seq_backward`` in fp32, at ``--hd_u``
+  64 and 128 ``bigru_wide_forward_kernel`` and ``bigru_wide_backward_kernel``;
   ``bigru_seq_bf16_kernel`` and ``bigru_seq_bwd_bf16_kernel`` in bf16).
 
 The parts run the same modules as the step, so each part's own optimizer
@@ -40,7 +42,8 @@ from tpgsr_tpu_torch.train.state import clip_sr_grads
 from tpgsr_tpu_torch.train.step import COMPUTE_DTYPES, compute_context, crnn_width
 
 BATCH = 48
-K1_KERNELS = ("bigru_seq_kernel", "bigru_seq_backward", "bigru_seq_bf16_kernel", "bigru_seq_bwd_bf16_kernel")
+K1_KERNELS = ("bigru_seq_kernel", "bigru_seq_backward", "bigru_seq_bf16_kernel", "bigru_seq_bwd_bf16_kernel",
+              "bigru_wide_forward_kernel", "bigru_wide_backward_kernel")
 
 
 def parts(state, step, batch, dev, dtype=torch.float32):
@@ -91,7 +94,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--compute_dtype", choices=sorted(COMPUTE_DTYPES), default="fp32",
                         help="the train step's precision, as TRAIN.compute_dtype")
-    compute_dtype = parser.parse_args(argv).compute_dtype
+    parser.add_argument("--batch", type=int, default=BATCH, help="the train batch")
+    parser.add_argument("--hd_u", type=int, default=32, help="the SR model's BiGRU hidden size, as --hd_u")
+    args = parser.parse_args(argv)
+    compute_dtype, batch_size = args.compute_dtype, args.batch
     if not torch.cuda.is_available():
         print("profile_train: CUDA is not available; this run needs an NVIDIA card", file=sys.stderr)
         return 1
@@ -99,13 +105,13 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(json.dumps({"card": smi.splitlines()[0], "torch": torch.__version__, "batch": BATCH, "tf32": False,
-                      "compute_dtype": compute_dtype}), flush=True)
+    print(json.dumps({"card": smi.splitlines()[0], "torch": torch.__version__, "batch": batch_size,
+                      "hd_u": args.hd_u, "tf32": False, "compute_dtype": compute_dtype}), flush=True)
     dev = torch.device("cuda")
-    state, step = flagship_train(device=dev, seed=0, compute_dtype=compute_dtype)
-    batch = random_batch(np.random.default_rng(0), BATCH)
+    state, step = flagship_train(device=dev, seed=0, compute_dtype=compute_dtype, hidden_units=args.hd_u)
+    batch = random_batch(np.random.default_rng(0), batch_size)
     row = parts(state, step, batch, dev, COMPUTE_DTYPES[compute_dtype])
-    row["images_per_s"] = BATCH / row["step_ms"] * 1e3
+    row["images_per_s"] = batch_size / row["step_ms"] * 1e3
     summary, top = trace(state, step, batch, extra=K1_KERNELS)
     print(json.dumps({**row, **summary}), flush=True)
     for k in top:
